@@ -1,0 +1,83 @@
+"""Carry a model, a target context and chain state across from host arrays.
+
+The JAX package keeps its model and context fields as numpy arrays and its
+chain state as arrays with a leading chain axis; these functions take such
+arrays (never JAX objects) and build the port's tensors on a device, so both
+packages can start from identical data.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from icp_proposal_tpu_torch.models.gpmm import Gpmm, PosteriorFactors
+from icp_proposal_tpu_torch.ops.surface_index import SurfaceIndex
+from icp_proposal_tpu_torch.sampling.context import TargetContext
+from icp_proposal_tpu_torch.sampling.mh import MhCarry
+from icp_proposal_tpu_torch.sampling.state import FitState
+
+
+def _f32(x, device):
+    # np.array copies: arrays that come from JAX are read-only buffers
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def gpmm_from_arrays(ref_points, cells, mean_disp, basis, variance, noise_variance,
+                     sbasis, coeff_chol, device="cpu") -> Gpmm:
+    """A ``Gpmm`` whose ``sbasis`` and ``coeff_chol`` are taken as given."""
+    return Gpmm(
+        ref_points=_f32(ref_points, device),
+        cells=torch.as_tensor(np.asarray(cells), dtype=torch.int64, device=device),
+        mean_disp=_f32(mean_disp, device),
+        basis=_f32(basis, device),
+        variance=_f32(variance, device),
+        noise_variance=_f32(noise_variance, device),
+        sbasis=_f32(sbasis, device),
+        coeff_chol=_f32(coeff_chol, device),
+    )
+
+
+def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
+                        device="cpu") -> TargetContext:
+    """A ``TargetContext``; with ``cand``/``cand_tri`` it carries the
+    shortlist index over the same points and triangles."""
+    points_t = _f32(points, device)
+    tri_t = _f32(tri, device)
+    index = None
+    if cand is not None:
+        index = SurfaceIndex(
+            points=points_t, tri=tri_t,
+            cand=torch.as_tensor(np.asarray(cand, np.int32), device=device),
+            cand_tri=_f32(cand_tri, device),
+        )
+    return TargetContext(
+        points=points_t,
+        cells=torch.as_tensor(np.asarray(cells), dtype=torch.int64, device=device),
+        tri=tri_t,
+        boundary=torch.as_tensor(np.asarray(boundary, bool), device=device),
+        index=index,
+    )
+
+
+def state_from_arrays(scale, rot, trans, center, coeffs, device="cpu") -> FitState:
+    """A batched ``FitState`` from arrays with a leading chain axis."""
+    return FitState(scale=_f32(scale, device), rot=_f32(rot, device),
+                    trans=_f32(trans, device), center=_f32(center, device),
+                    coeffs=_f32(coeffs, device))
+
+
+def carry_from_arrays(state: FitState, log_post, named,
+                      icp_factors: Sequence[tuple] = (), device="cpu") -> MhCarry:
+    """An ``MhCarry``; ``icp_factors`` holds one (alpha_hat [B, r],
+    chol_m [B, r, r], logdet_m [B]) triple per ICP component, in component
+    order."""
+    return MhCarry(
+        state=state,
+        log_post=_f32(log_post, device),
+        named=_f32(named, device),
+        icp_factors=tuple(
+            PosteriorFactors(*(_f32(a, device).contiguous() for a in f))
+            for f in icp_factors),
+    )

@@ -1,0 +1,192 @@
+"""Low-rank Gaussian-Process Morphable Models, batched over chains.
+
+Counterpart of ``icp_proposal_tpu/models/gpmm.py``; the math is the same:
+
+    instance(α)   x = ref + μ + Q α,   Q = Φ·diag(√λ)
+    prior         N(0, I_r)
+    posterior     α | y ~ N(α̂, M⁻¹),  M = I + Σᵢ QᵢᵀPᵢQᵢ,  α̂ = M⁻¹ Σᵢ QᵢᵀPᵢỹᵢ
+
+with the anisotropic observation precision P = (1/σ_t²) I + (1/σ_n² − 1/σ_t²) nnᵀ.
+Every function takes chains as the leading dimension B.  The r×r factor and
+solve go through the K1 kernel (``ops/chol_cuda.chol_solve``), the posterior
+draw through K2 (``ops/chol_cuda.tri_solve_lt``).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve, tri_solve_lt
+
+_LOG_2PI = math.log(2.0 * math.pi)
+_PROJECTION_SIGMA2 = 1e-5  # scalismo StatisticalMeshModel.coefficients regularizer
+
+
+@dataclass(frozen=True)
+class Gpmm:
+    """A discrete low-rank GPMM as tensors on one device."""
+
+    ref_points: torch.Tensor  # [V, 3]
+    cells: torch.Tensor  # [F, 3] int64
+    mean_disp: torch.Tensor  # [V, 3]
+    basis: torch.Tensor  # [V, 3, r]
+    variance: torch.Tensor  # [r]
+    noise_variance: torch.Tensor  # []
+    sbasis: torch.Tensor  # [V, 3, r]   Q = Φ·diag(√λ)
+    coeff_chol: torch.Tensor  # [r, r]  chol(σ²I + QᵀQ), lower
+
+    @property
+    def rank(self) -> int:
+        return self.basis.shape[-1]
+
+    @property
+    def num_points(self) -> int:
+        return self.ref_points.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.ref_points.device
+
+
+def make_gpmm(ref_points, cells, mean_disp, basis, variance, noise_variance=0.0,
+              device="cpu") -> Gpmm:
+    """Build a Gpmm from host arrays: faces in Morton order, the scaled basis
+    and the projection factor computed in float64 on the host and stored
+    float32, exactly as ``icp_proposal_tpu.models.gpmm.make_gpmm`` does."""
+    from icp_proposal_tpu_torch.convert import gpmm_from_arrays
+    from icp_proposal_tpu_torch.ops.morton import morton_sort_faces
+
+    cells = np.asarray(cells)[morton_sort_faces(ref_points, cells)]
+    basis64 = np.asarray(basis, dtype=np.float64)
+    var64 = np.asarray(variance, dtype=np.float64)
+    v, _, r = basis64.shape
+    q = (basis64 * np.sqrt(var64)[None, None, :]).reshape(3 * v, r)
+    gram = q.T @ q + _PROJECTION_SIGMA2 * np.eye(r)
+    chol = np.linalg.cholesky(gram)
+    return gpmm_from_arrays(
+        ref_points=ref_points, cells=cells, mean_disp=mean_disp, basis=basis,
+        variance=variance, noise_variance=noise_variance,
+        sbasis=q.reshape(v, 3, r), coeff_chol=chol, device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# decode / prior
+# ---------------------------------------------------------------------------
+
+def instance_points(gpmm: Gpmm, coeffs: torch.Tensor) -> torch.Tensor:
+    """x(α) = ref + (μ + Q α): coeffs [..., r] → [..., V, 3], one [3V, r]
+    product."""
+    v = gpmm.num_points
+    flat = coeffs @ gpmm.sbasis.reshape(3 * v, gpmm.rank).T  # [..., 3V]
+    return gpmm.ref_points + (gpmm.mean_disp
+                              + flat.reshape(coeffs.shape[:-1] + (v, 3)))
+
+
+def prior_logpdf(coeffs: torch.Tensor) -> torch.Tensor:
+    """N(0, I_r) over shape coefficients: [..., r] → [...]."""
+    r = coeffs.shape[-1]
+    return -0.5 * torch.sum(coeffs * coeffs, dim=-1) - 0.5 * r * _LOG_2PI
+
+
+# ---------------------------------------------------------------------------
+# analytic GP posterior in coefficient space
+# ---------------------------------------------------------------------------
+
+class PosteriorFactors(NamedTuple):
+    """Factors of the coefficient-space GP posterior N(α̂, M⁻¹), per chain."""
+
+    alpha_hat: torch.Tensor  # [B, r]
+    chol_m: torch.Tensor  # [B, r, r] lower, M = L Lᵀ
+    logdet_m: torch.Tensor  # [B]
+
+
+def _factor(m_mat: torch.Tensor, rhs: torch.Tensor) -> PosteriorFactors:
+    """Symmetrize M against round-off, then factor and solve (K1)."""
+    m_mat = 0.5 * (m_mat + m_mat.transpose(-1, -2))
+    chol, alpha_hat, logdet = chol_solve(m_mat.contiguous(), rhs.contiguous())
+    return PosteriorFactors(alpha_hat=alpha_hat, chol_m=chol, logdet_m=logdet)
+
+
+def posterior_factors_anisotropic(
+    gpmm: Gpmm,
+    ids: torch.Tensor,  # [B, m] vertex ids of the observations
+    obs_disp: torch.Tensor,  # [B, m, 3] observed displacement from ref points
+    normals: torch.Tensor,  # [B, m, 3] unit normals defining the noise frame
+    noise_along_normal: float,
+    tangential_noise: float,
+    mask: torch.Tensor,  # [B, m] float; 0 ⇒ observation excluded
+) -> PosteriorFactors:
+    """Posterior factors for per-chain observation ids (the ICP target
+    direction): gather Qᵢ, precision-scale, contract to M = I + QᵀPQ."""
+    ids = ids.long()
+    q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
+    resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
+    a = 1.0 / (noise_along_normal * noise_along_normal)
+    b = 1.0 / (tangential_noise * tangential_noise)
+    ntq = torch.einsum("bmi,bmir->bmr", normals, q_o)  # [B, m, r]
+    pq = b * q_o + (a - b) * normals[..., None] * ntq[:, :, None, :]
+    pq = pq * mask[..., None, None]
+    bsz, m, _, r = q_o.shape
+    qf = q_o.reshape(bsz, 3 * m, r)
+    pqf = pq.reshape(bsz, 3 * m, r)
+    eye = torch.eye(r, dtype=q_o.dtype, device=q_o.device)
+    m_mat = eye + qf.transpose(1, 2) @ pqf
+    rhs = torch.einsum("bmir,bmi->br", pq, resid)
+    return _factor(m_mat, rhs)
+
+
+def posterior_factors_anisotropic_static(
+    gpmm: Gpmm,
+    q_static: torch.Tensor,  # [m, 3, r] sbasis rows at the static ids
+    gram_static: torch.Tensor,  # [m, r, r] per-observation Gram QᵢᵀQᵢ
+    mean_static: torch.Tensor,  # [m, 3] mean_disp at the static ids
+    obs_disp: torch.Tensor,  # [B, m, 3]
+    normals: torch.Tensor,  # [B, m, 3]
+    noise_along_normal: float,
+    tangential_noise: float,
+    mask: torch.Tensor,  # [B, m]
+) -> PosteriorFactors:
+    """The same posterior for STATIC observation ids (the ICP model
+    direction), assembled against precomputed per-id tables:
+
+        M = I + b·Σᵢ wᵢ QᵢᵀQᵢ + (a−b)·Σᵢ wᵢ gᵢgᵢᵀ,   gᵢ = Qᵢᵀnᵢ
+
+    so no [B, m, 3, r] tensor is ever built."""
+    a = 1.0 / (noise_along_normal * noise_along_normal)
+    b = 1.0 / (tangential_noise * tangential_noise)
+    w = mask.to(torch.float32)  # [B, m]
+    resid = obs_disp - mean_static  # [B, m, 3]
+    ntq = torch.einsum("bmi,mir->bmr", normals, q_static)  # [B, m, r]
+    bsz, m, r = ntq.shape
+    eye = torch.eye(r, dtype=torch.float32, device=ntq.device)
+    gram_sum = (w @ gram_static.reshape(m, r * r)).reshape(bsz, r, r)
+    outer = (ntq * w[..., None]).transpose(1, 2) @ ntq  # Σᵢ wᵢ gᵢgᵢᵀ
+    m_mat = eye + b * gram_sum + (a - b) * outer
+    n_dot_y = torch.sum(normals * resid, dim=-1)  # [B, m]
+    rhs = b * ((w[..., None] * resid).reshape(bsz, 3 * m)
+               @ q_static.reshape(3 * m, r)) + (a - b) * torch.einsum(
+        "bmr,bm->br", ntq, w * n_dot_y)
+    return _factor(m_mat, rhs)
+
+
+def sample_posterior_coeffs(factors: PosteriorFactors,
+                            z: torch.Tensor) -> torch.Tensor:
+    """α* = α̂ + L⁻ᵀ z for standard normals z [B, r] (K2)."""
+    return factors.alpha_hat + tri_solve_lt(factors.chol_m, z.contiguous())
+
+
+def transition_logpdf(factors: PosteriorFactors,
+                      alpha_star: torch.Tensor) -> torch.Tensor:
+    """log N(α*; α̂, M⁻¹) per chain, with the ½·log det M normalizer (the
+    exact density; the reference's parity mode, which drops it, is not
+    ported yet)."""
+    delta = alpha_star - factors.alpha_hat  # [B, r]
+    lt_delta = torch.einsum("bji,bj->bi", factors.chol_m, delta)  # Lᵀδ
+    quad = torch.sum(lt_delta * lt_delta, dim=-1)
+    r = alpha_star.shape[-1]
+    return -0.5 * quad - 0.5 * r * _LOG_2PI + 0.5 * factors.logdet_m

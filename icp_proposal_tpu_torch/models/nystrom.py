@@ -1,0 +1,42 @@
+"""Nyström low-rank GP approximation (host numpy, float64).
+
+Copy of ``icp_proposal_tpu/models/nystrom.py``'s ``nystrom_lowrank``:
+
+    K_nn = U Λ Uᵀ on n sampled points,  λ_i = Λ_i / n,
+    φ_i(x) = (√n / Λ_i) · K(x, X) u_i
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def kernel_matrix(kernel, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """Dense [3m, 3n] kernel matrix between point sets (blocked)."""
+    m, n = len(xs), len(ys)
+    out = np.empty((m, 3, n, 3))
+    block = max(1, int(2e7 // (n * 9)))
+    for i0 in range(0, m, block):
+        i1 = min(i0 + block, m)
+        out[i0:i1] = np.transpose(
+            kernel(xs[i0:i1, None, :], ys[None, :, :]), (0, 2, 1, 3)
+        )
+    return out.reshape(3 * m, 3 * n)
+
+
+def nystrom_lowrank(kernel, sample_points: np.ndarray, eval_points: np.ndarray,
+                    num_basis: int, jitter: float = 1e-10):
+    """→ (basis [V, 3, k], variance [k]), eigenvalues descending."""
+    n = len(sample_points)
+    k_nn = kernel_matrix(kernel, sample_points, sample_points)
+    k_nn = 0.5 * (k_nn + k_nn.T) + jitter * np.eye(3 * n)
+    evals, evecs = np.linalg.eigh(k_nn)
+    order = np.argsort(evals)[::-1]
+    num_basis = min(num_basis, 3 * n)
+    evals = np.maximum(evals[order][:num_basis], 1e-12)
+    evecs = evecs[:, order][:, :num_basis]
+
+    k_vn = kernel_matrix(kernel, eval_points, sample_points)  # [3V, 3n]
+    basis = (k_vn @ evecs) * (np.sqrt(n) / evals)[None, :]  # [3V, k]
+    variance = evals / n
+    v = len(eval_points)
+    return basis.reshape(v, 3, num_basis), variance

@@ -1,0 +1,106 @@
+"""Batched point→surface closest-point helpers (plain PyTorch).
+
+Counterpart of ``icp_proposal_tpu/ops/closest_point.py``.  The hot queries
+go through the K3/K4 kernels (``ops/closest_point_cuda.py``); this module
+holds the elementwise Ericson cascade (K4's twin and the winner recompute)
+and the dense nearest-vertex argmin (K3's twin).  Both round term by term
+in the Pallas kernels' order (``_tile_dist2``, closest_point_pallas.py:58-119),
+as the CUDA kernels compiled with -fmad=false do, so ids agree exactly.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _dot(a, b):
+    """a·b over the last axis of size 3, summed as (x + y) + z."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _safe_div(num, den):
+    return num / torch.where(torch.abs(den) < 1e-30, torch.ones_like(den), den)
+
+
+def closest_point_on_triangle(p, a, b, c):
+    """Closest point on triangle (a, b, c) to p, broadcasting over leading
+    dims → (point [..., 3], dist2 [...]).  Branchless region cascade."""
+    ab = b - a
+    ac = c - a
+    ap = p - a
+    d1 = _dot(ab, ap)
+    d2 = _dot(ac, ap)
+    bp = p - b
+    d3 = _dot(ab, bp)
+    d4 = _dot(ac, bp)
+    cp = p - c
+    d5 = _dot(ab, cp)
+    d6 = _dot(ac, cp)
+
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+
+    denom = _safe_div(torch.ones_like(va), va + vb + vc)  # interior
+    v = vb * denom
+    w = vc * denom
+
+    in_bc = (va <= 0.0) & ((d4 - d3) >= 0.0) & ((d5 - d6) >= 0.0)
+    w_bc = _safe_div(d4 - d3, (d4 - d3) + (d5 - d6))
+    v = torch.where(in_bc, 1.0 - w_bc, v)
+    w = torch.where(in_bc, w_bc, w)
+
+    in_ac = (vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
+    w_ac = _safe_div(d2, d2 - d6)
+    v = torch.where(in_ac, 0.0, v)
+    w = torch.where(in_ac, w_ac, w)
+
+    in_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
+    v_ab = _safe_div(d1, d1 - d3)
+    v = torch.where(in_ab, v_ab, v)
+    w = torch.where(in_ab, 0.0, w)
+
+    in_c = (d6 >= 0.0) & (d5 <= d6)
+    v = torch.where(in_c, 0.0, v)
+    w = torch.where(in_c, 1.0, w)
+
+    in_b = (d3 >= 0.0) & (d4 <= d3)
+    v = torch.where(in_b, 1.0, v)
+    w = torch.where(in_b, 0.0, w)
+
+    in_a = (d1 <= 0.0) & (d2 <= 0.0)
+    v = torch.where(in_a, 0.0, v)
+    w = torch.where(in_a, 0.0, w)
+
+    # degenerate-triangle safety: clamp to the valid barycentric range
+    v = torch.clamp(v, 0.0, 1.0)
+    w = torch.clamp(w, 0.0, 1.0)
+    s = v + w
+    scale = torch.where(s > 1.0, 1.0 / torch.clamp_min(s, 1e-30), 1.0)
+    v = v * scale
+    w = w * scale
+
+    point = a + v[..., None] * ab + w[..., None] * ac
+    diff = p - point
+    return point, _dot(diff, diff)
+
+
+def nearest_vertices(queries, points):
+    """Nearest-vertex ids: queries [B, P, 3] vs points [V, 3] (shared) or
+    [B, V, 3] (one set per chain) → ids [B, P] int32, ties to the lowest id.
+    d² = dx·dx + dy·dy + dz·dz, rounded term by term as K3 does."""
+    pts = points if points.dim() == 3 else points[None]
+    dx = queries[..., :, None, 0] - pts[..., None, :, 0]
+    dy = queries[..., :, None, 1] - pts[..., None, :, 1]
+    dz = queries[..., :, None, 2] - pts[..., None, :, 2]
+    d2 = dx * dx + dy * dy + dz * dz  # [B, P, V]
+    return torch.argmin(d2, dim=-1).to(torch.int32)  # first minimum on ties
+
+
+def nearest_vertex_of_faces(cells, face_idx, cp, points):
+    """Nearest of the 3 corners of each hit face to its closest point:
+    cells [F, 3], face_idx [B, P], cp [B, P, 3], points [V, 3] → [B, P]."""
+    corner_ids = cells[face_idx.long()]  # [B, P, 3]
+    corners = points[corner_ids]  # [B, P, 3, 3]
+    d2 = torch.sum((corners - cp[..., None, :]) ** 2, dim=-1)  # [B, P, 3]
+    pick = torch.argmin(d2, dim=-1, keepdim=True)
+    return torch.gather(corner_ids, -1, pick)[..., 0]

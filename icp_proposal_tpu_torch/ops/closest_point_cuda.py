@@ -1,0 +1,117 @@
+"""K3 ``nearest_vertices`` and K4 ``refine_shortlist``: wrappers and plain twins.
+
+Counterpart of the nearest-vertex and shortlist-refine kernels of
+``icp_proposal_tpu/ops/closest_point_pallas.py``.  The kernels are in
+``csrc/closest_point.cu``, whose header says what bounds each on the H100
+and how its design answers that.
+
+Dispatch: a tensor on the CPU takes the plain PyTorch twin; a tensor on a
+CUDA device launches the kernel or raises.  ``<wrapper>.launches`` counts
+kernel launches (the plain twin does not count); K3 also counts its
+per-chain-mode launches in ``nearest_vertices.per_chain_launches``.  The
+twins round term by term in the kernels' order (``ops/closest_point.py``),
+so ids agree exactly, ties included.
+"""
+from __future__ import annotations
+
+import torch
+
+from icp_proposal_tpu_torch._build import check_tensor, kernel_device, launch
+from icp_proposal_tpu_torch.ops import closest_point
+
+_NO_ID = 2 ** 30
+
+nearest_vertices_plain = closest_point.nearest_vertices
+
+
+def nearest_vertices(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """argminᵥ ‖q − v‖² per query, ties to the lowest id: queries [B, P, 3],
+    points [V, 3] (shared by all chains) or [B, V, 3] (one set per chain),
+    float32 contiguous → ids [B, P] int32.
+
+    Kernel K3 (``csrc/closest_point.cu``) replaces ``_make_nv_kernel`` in
+    ``icp_proposal_tpu/ops/closest_point_pallas.py``.  Bound by FP32 issue
+    rate (~9 operations per query-vertex pair); one thread per query scans
+    the vertex set from shared memory, where all threads read one vertex at
+    a time (a broadcast)."""
+    check_tensor(queries, "queries", torch.float32, (None, None, 3))
+    bsz, p = queries.shape[0], queries.shape[1]
+    batched = points.dim() == 3
+    check_tensor(points, "points", torch.float32,
+                 (bsz, None, 3) if batched else (None, 3))
+    dev = kernel_device(queries, points)
+    if dev.type == "cpu":
+        return nearest_vertices_plain(queries, points)
+    if bsz > 65535:
+        raise ValueError(f"nearest_vertices takes at most 65,535 chains, got {bsz}")
+    ids = torch.empty((bsz, p), dtype=torch.int32, device=dev)
+    launch("icp_nearest_vertices", dev, queries.data_ptr(), points.data_ptr(),
+           ids.data_ptr(), bsz, p, points.shape[-2], int(batched))
+    nearest_vertices.launches += 1
+    nearest_vertices.per_chain_launches += int(batched)
+    return ids
+
+
+nearest_vertices.launches = 0
+nearest_vertices.per_chain_launches = 0
+
+
+def refine_shortlist_plain(queries, coarse, cand, cand_tri):
+    """Plain twin of ``refine_shortlist`` (same arguments and results)."""
+    v, k = cand.shape
+    rows = coarse.long().clamp(0, v - 1)  # out-of-range rows clamp, as in K4
+    faces = cand[rows]  # [B, P, K]
+    trik = cand_tri[rows].reshape(rows.shape + (9, k))  # component-major
+    corners = trik.transpose(-1, -2)  # [B, P, K, 9]
+    _, d2 = closest_point.closest_point_on_triangle(
+        queries[..., None, :], corners[..., 0:3], corners[..., 3:6],
+        corners[..., 6:9])  # [B, P, K]
+    # least d², then the smallest face id, then the lowest slot
+    best = torch.amin(d2, dim=-1, keepdim=True)
+    fid_tied = torch.where(d2 == best, faces, _NO_ID)
+    fmin = torch.amin(fid_tied, dim=-1, keepdim=True)
+    slot = torch.arange(k, device=queries.device, dtype=torch.int32)
+    kidx = torch.amin(torch.where(fid_tied == fmin, slot, _NO_ID), dim=-1,
+                      keepdim=True).long()  # [B, P, 1]
+    fidx = torch.gather(faces, -1, kidx)[..., 0]
+    wtri = torch.gather(trik, -1, kidx[..., None, :].expand(rows.shape + (9, 1)))
+    return fidx, wtri[..., 0]
+
+
+def refine_shortlist(queries: torch.Tensor, coarse: torch.Tensor,
+                     cand: torch.Tensor, cand_tri: torch.Tensor):
+    """Exact point→triangle refine over each query's shortlist.
+
+    queries [B, P, 3] f32; coarse [B, P] int32 rows of the static index (the
+    coarse nearest vertex); cand [V, K] int32 candidate face ids per vertex;
+    cand_tri [V, 9K] f32 their corners, component-major (ax[K] ay[K] ... cz[K]).
+    → (winner face id [B, P] int32, winner corners [B, P, 9] f32); the winner
+    has the least d², then the smallest face id, then the lowest slot.
+    Out-of-range rows clamp.
+
+    Kernel K4 (``csrc/closest_point.cu``) replaces ``_make_refine_kernel`` in
+    ``icp_proposal_tpu/ops/closest_point_pallas.py``.  Bound by the
+    candidate gather, which the TPU path pregathers through device memory
+    ([B, P, 9K], 1.9 GB per step at 2,048 chains); the kernel reads rows of
+    the static 3.7 MB tables itself (they stay in L2), one warp per query."""
+    check_tensor(queries, "queries", torch.float32, (None, None, 3))
+    bsz, p = queries.shape[0], queries.shape[1]
+    check_tensor(coarse, "coarse", torch.int32, (bsz, p))
+    check_tensor(cand, "cand", torch.int32, (None, None))
+    v, k = cand.shape
+    if k < 1:
+        raise ValueError("refine_shortlist needs at least one candidate per vertex")
+    check_tensor(cand_tri, "cand_tri", torch.float32, (v, 9 * k))
+    dev = kernel_device(queries, coarse, cand, cand_tri)
+    if dev.type == "cpu":
+        return refine_shortlist_plain(queries, coarse, cand, cand_tri)
+    fidx = torch.empty((bsz, p), dtype=torch.int32, device=dev)
+    wtri = torch.empty((bsz, p, 9), dtype=torch.float32, device=dev)
+    launch("icp_refine_shortlist", dev, queries.data_ptr(), coarse.data_ptr(),
+           cand.data_ptr(), cand_tri.data_ptr(), fidx.data_ptr(), wtri.data_ptr(),
+           bsz * p, v, k)
+    refine_shortlist.launches += 1
+    return fidx, wtri
+
+
+refine_shortlist.launches = 0

@@ -1,0 +1,218 @@
+"""The Metropolis–Hastings engine, batched over chains.
+
+Counterpart of ``icp_proposal_tpu/sampling/mh.py``: one step is a function
+``(carry, noise) -> (carry, record)`` over a leading chain dimension, and a
+Python loop runs the steps.  Accept iff
+
+    log u < [log p(θ') − log p(θ)] + [log q(θ|θ') − log q(θ'|θ)]
+
+with the mixture transition densities of ``MixtureProgram`` (forward factors
+carried for the current state, reverse factors computed at the candidate).
+A NaN log α (a non-SPD posterior factor) is a reject.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from icp_proposal_tpu_torch.mesh import vertex_face_adjacency, vertex_normals_gather
+from icp_proposal_tpu_torch.models import gpmm as gp
+from icp_proposal_tpu_torch.ops.surface_index import closest_auto
+from icp_proposal_tpu_torch.sampling.evaluators import (
+    EvaluatorProgram,
+    IndependentPointsSpec,
+)
+from icp_proposal_tpu_torch.sampling.proposals import IcpComponent, MixtureProgram
+from icp_proposal_tpu_torch.sampling.state import FitState, transformed_points
+
+
+class _FusionPlan(NamedTuple):
+    """Static plan for the fused target-surface query pass: when the
+    model-direction ICP ids are a subset of the evaluator's ids, ONE
+    ``closest_auto`` over the evaluator ids serves both (the evaluator reads
+    d2 of all rows, the ICP factors read (cp, fidx) of their rows)."""
+
+    eval_ids: torch.Tensor  # [P] model vertex ids, queried once per step
+    spec_name: str  # evaluator spec consuming the d2
+    icp_maps: dict  # component idx -> [m] positions into the query rows
+
+
+def _fusion_plan(mixture: MixtureProgram, evaluator: EvaluatorProgram):
+    """The fused-query plan, or None when the configuration doesn't allow
+    sharing (different contexts, no m2t spec, ICP ids not a subset)."""
+    if evaluator.ctx is not mixture.ctx:
+        return None
+    spec = next((s for s in evaluator.specs
+                 if isinstance(s, IndependentPointsSpec)
+                 and s.mode == "model_to_target"), None)
+    if spec is None:
+        return None
+    eval_ids = np.asarray(evaluator.model_ids(spec.name))
+    pos = {int(v): i for i, v in enumerate(eval_ids)}
+    dev = mixture.gpmm.device
+    icp_maps = {}
+    for i, comp in mixture.icp_components.items():
+        if isinstance(comp, IcpComponent) and comp.spec.direction == "model":
+            if all(int(v) in pos for v in comp.model_ids):
+                icp_maps[i] = torch.as_tensor(
+                    [pos[int(v)] for v in comp.model_ids], dtype=torch.int64,
+                    device=dev)
+    if not icp_maps:
+        return None
+    return _FusionPlan(
+        eval_ids=torch.as_tensor(eval_ids, dtype=torch.int64, device=dev),
+        spec_name=spec.name, icp_maps=icp_maps)
+
+
+class MhCarry(NamedTuple):
+    state: FitState
+    log_post: torch.Tensor  # [B] cached product-evaluator value
+    named: torch.Tensor  # [B, k] cached named evaluator values
+    # GP-posterior factors anchored at the CURRENT state, one per ICP mixture
+    # component in component order; they always equal anchor_factors(state)
+    icp_factors: tuple = ()
+
+
+class ChainRecord(NamedTuple):
+    """Per-step record; ``coeffs`` holds the post-step chain state."""
+
+    accepted: torch.Tensor  # [B] bool
+    proposal_idx: torch.Tensor  # [B] int32
+    log_product: torch.Tensor  # [B] candidate product value
+    named: torch.Tensor  # [B, k] candidate named evaluator values
+    coeffs: Optional[torch.Tensor] = None  # [B, r] (if stored)
+    log_alpha: Optional[torch.Tensor] = None  # [B] (if stored)
+
+
+class StepNoise(NamedTuple):
+    """All randomness of one step: standard normals per component, the
+    selected component and log u of the accept test."""
+
+    z: torch.Tensor  # [B, C, r]
+    idx: torch.Tensor  # [B] int64
+    log_u: torch.Tensor  # [B]
+
+
+def draw_noise(mixture: MixtureProgram, n_chains: int,
+               generator: torch.Generator) -> StepNoise:
+    dev = mixture.gpmm.device
+    z = torch.randn((n_chains, mixture.num_components, mixture.gpmm.rank),
+                    generator=generator, device=dev)
+    weights = torch.as_tensor(mixture.weights, dtype=torch.float32, device=dev)
+    idx = torch.multinomial(weights.expand(n_chains, -1), 1, replacement=True,
+                            generator=generator)[:, 0]
+    log_u = torch.log(torch.rand(n_chains, generator=generator, device=dev))
+    return StepNoise(z=z, idx=idx, log_u=log_u)
+
+
+def _select(cands, idx: torch.Tensor) -> FitState:
+    """Per chain, the candidate of component idx[b]."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    return FitState(*(torch.stack(fields, dim=1)[rows, idx]
+                      for fields in zip(*cands)))
+
+
+def _where(accept: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
+                 store_params: bool = False, fuse: bool = True):
+    """Build the MH step for a fixed configuration:
+    ``step(carry, noise=None, generator=None) -> (carry, record)``.
+
+    ``noise`` (a ``StepNoise``) is drawn from ``generator`` when not given.
+    fuse=True shares one target-surface closest-point pass between the
+    model-direction ICP correspondence and the Euclidean evaluator when the
+    configuration allows it; the results are identical to separate passes."""
+    plan = _fusion_plan(mixture, evaluator) if fuse else None
+    adjacency = torch.as_tensor(
+        vertex_face_adjacency(gpmm.cells.cpu().numpy(), gpmm.num_points),
+        dtype=torch.int64, device=gpmm.device)
+    icp_idx = sorted(mixture.icp_components)
+
+    def step(carry: MhCarry, noise: StepNoise | None = None,
+             generator: torch.Generator | None = None):
+        state = carry.state
+        if noise is None:
+            noise = draw_noise(mixture, state.coeffs.shape[0], generator)
+        factors_cur = dict(zip(icp_idx, carry.icp_factors))
+
+        # dense candidate generation, then per-chain selection
+        candidates = mixture.propose_all(state, factors_cur, noise.z)
+        cand = _select(candidates, noise.idx)
+
+        # reverse anchor + densities
+        cand_pts = transformed_points(gpmm, cand)
+        cand_normals = vertex_normals_gather(cand_pts, gpmm.cells, adjacency)
+        shared_icp = shared_eval = None
+        if plan is not None:
+            q = cand_pts[:, plan.eval_ids]
+            cp_all, d2_all, fidx_all = closest_auto(q, mixture.ctx.tri,
+                                                    mixture.ctx.index)
+            shared_icp = {i: (cp_all[:, m], fidx_all[:, m])
+                          for i, m in plan.icp_maps.items()}
+            shared_eval = {plan.spec_name: d2_all}
+        factors_cand = mixture.anchor_factors(cand, cand_pts, cand_normals,
+                                              shared_icp)
+        log_q_fwd = mixture.log_q_mixture(state, cand, factors_cur)
+        log_q_rev = mixture.log_q_mixture(cand, state, factors_cand)
+        log_post_cand, named_cand = evaluator(cand, cand_pts, shared_eval)
+
+        log_alpha = (log_post_cand - carry.log_post) + (log_q_rev - log_q_fwd)
+        log_alpha = torch.where(torch.isnan(log_alpha), -torch.inf, log_alpha)
+        accept = noise.log_u < log_alpha
+
+        new_state = FitState(*(_where(accept, c, s) for c, s in zip(cand, state)))
+        new_factors = tuple(
+            gp.PosteriorFactors(*(_where(accept, fc, fp) for fc, fp in
+                                  zip(factors_cand[i], factors_cur[i])))
+            for i in icp_idx
+        )
+        new_carry = MhCarry(
+            state=new_state,
+            log_post=torch.where(accept, log_post_cand, carry.log_post),
+            named=_where(accept, named_cand, carry.named),
+            icp_factors=new_factors,
+        )
+        record = ChainRecord(
+            accepted=accept,
+            proposal_idx=noise.idx.to(torch.int32),
+            log_product=log_post_cand,
+            named=named_cand,
+            coeffs=new_state.coeffs if store_params else None,
+            log_alpha=log_alpha if store_params else None,
+        )
+        return new_carry, record
+
+    return step
+
+
+def init_carry(gpmm, evaluator: EvaluatorProgram, state: FitState,
+               mixture: MixtureProgram) -> MhCarry:
+    """Evaluator values + (with ICP components) the GP-posterior factors
+    anchored at the initial state."""
+    pts = transformed_points(gpmm, state)
+    log_post, named = evaluator(state, pts)
+    factors = ()
+    if mixture.icp_components:
+        adjacency = torch.as_tensor(
+            vertex_face_adjacency(gpmm.cells.cpu().numpy(), gpmm.num_points),
+            dtype=torch.int64, device=gpmm.device)
+        normals = vertex_normals_gather(pts, gpmm.cells, adjacency)
+        fac = mixture.anchor_factors(state, pts, normals)
+        factors = tuple(fac[i] for i in sorted(fac))
+    return MhCarry(state=state, log_post=log_post, named=named,
+                   icp_factors=factors)
+
+
+def run_chains(step, carry: MhCarry, n_steps: int,
+               generator: torch.Generator | None = None):
+    """Run every chain of ``carry`` for n_steps → (final carry, records)."""
+    records = []
+    for _ in range(n_steps):
+        carry, rec = step(carry, generator=generator)
+        records.append(rec)
+    return carry, records
