@@ -1,24 +1,35 @@
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints one line or a short block, and ends in
 ``torch.cuda.synchronize()`` so a fault shows where it happened):
 
-1. device   the card, torch/CUDA/nvcc versions, name and power limit;
-2. build    nvcc builds every kernel in icp_proposal_tpu_torch/csrc into build/;
-3. kernels  K1–K4 against their plain PyTorch twins on the card at the main
-            path's per-chain shapes on 256 chains, with times;
-4. main     the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal MH
-            step at 2,048 chains through the kernels: warm-up, then timed
-            steps, with each kernel's launch count;
-5. check    8 chains stepped on the card and on the CPU (plain twins) from
-            the same carry with the same noise must agree.
+1. device        the card, torch/CUDA/nvcc versions, name and power limit;
+2. build         nvcc builds every kernel in icp_proposal_tpu_torch/csrc into
+                 build/, one compiler per source, all started together;
+3. kernels       K1–K4 against their plain PyTorch twins on the card at the
+                 femur path's per-chain shapes on 256 chains, with times;
+4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
+                 MH step at 2,048 chains through the kernels: warm-up, then
+                 timed steps, with each kernel's launch count;
+5. check         8 chains stepped on the card and on the CPU (plain twins)
+                 from the same carry with the same noise must agree;
+6. setup:bfm     the synthetic face stand-in at rank 200 (host build timed)
+                 and the BFM partial-face fitting setup;
+7. kernels:bfm   K5 (shared and per-chain surfaces), K6 and K7 at r = 200
+                 against their twins at the BFM path's shapes on 256 chains;
+                 K1 at r = 200 timed beside K6;
+8. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
+                 timed steps, launch counts;
+9. check:bfm     as 5, for the BFM partial setup.
 
-Then one JSON line with every kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Without a
-CUDA device it exits non-zero before doing anything.
+Each main path is driven with every launch count set to 0 just before it
+and read just after.  Then one JSON line with every kernel's numbers, and as
+the last line ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero.  Without a CUDA device it exits non-zero before doing anything.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -27,11 +38,52 @@ import time
 N_CHAINS = 2048
 WARMUP_STEPS = 3
 TIMED_STEPS = 20
+BFM_RANK, BFM_SUBDIV = 200, 4
+BFM_WARMUP_STEPS = 2
+BFM_TIMED_STEPS = 10
 CMP_CHAINS = 256
 KERNEL_REPS = 20
-STEP_LAUNCHES = {"chol_solve": 2, "tri_solve_lt": 2, "nearest_vertices[shared]": 1,
-                 "nearest_vertices[per_chain]": 1, "refine_shortlist": 1}
-TOL = 1e-4  # K1/K2 values: rtol and atol; K3/K4 ids and corners: exact
+TOL = 1e-4  # K1/K2/K6/K7: |got − want| ≤ TOL + TOL·|want|; K3/K4/K5 ids, values: exact
+
+# the H100 SXM's published peaks (NVIDIA H100 datasheet): FP32 outside the
+# tensor cores, and HBM bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# arithmetic operations the point→triangle cascade (_tile_dist2) executes for
+# every pair whatever the region: 15 edge/offset differences, 30 for the six
+# dot products, 9 for va/vb/vc, 3 for the denominator, 2 for v/w, 3 for the
+# clamp-scale, 15 for the closest point and 5 for d²; the branch-dependent
+# edge and vertex terms and all comparisons are left out, so bounds built on
+# it are lower bounds
+PAIR_FLOPS = 82
+NV_PAIR_FLOPS = 8  # nearest vertex: 3 differences, 3 products, 2 sums
+
+FEMUR_STEP_LAUNCHES = {"chol_solve": 2, "tri_solve_lt": 2, "nearest_vertices[shared]": 1,
+                       "nearest_vertices[per_chain]": 1, "refine_shortlist": 1,
+                       "surface_distances[shared]": 0,
+                       "surface_distances[per_chain]": 0, "chol_solve_blocked": 0,
+                       "tri_solve_lt_blocked": 0}
+BFM_STEP_LAUNCHES = {"chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 1,
+                     "nearest_vertices[per_chain]": 0, "refine_shortlist": 1,
+                     "surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
+                     "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1}
+SOURCES = {  # record → (source in the port, TPU kernel it replaces)
+    "chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
+    "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
+    "nearest_vertices[shared]": ("csrc/closest_point.cu",
+                                 "icp_proposal_tpu/ops/closest_point_pallas.py:335"),
+    "nearest_vertices[per_chain]": ("csrc/closest_point.cu",
+                                    "icp_proposal_tpu/ops/closest_point_pallas.py:335"),
+    "refine_shortlist": ("csrc/closest_point.cu",
+                         "icp_proposal_tpu/ops/closest_point_pallas.py:613"),
+    "surface_distances[shared]": ("csrc/closest_point.cu",
+                                  "icp_proposal_tpu/ops/closest_point_pallas.py:122"),
+    "surface_distances[per_chain]": ("csrc/closest_point.cu",
+                                     "icp_proposal_tpu/ops/closest_point_pallas.py:122"),
+    "chol_solve_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:145"),
+    "tri_solve_lt_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:293"),
+}
+VALUE_TOL = {"chol_solve", "tri_solve_lt", "chol_solve_blocked", "tri_solve_lt_blocked"}
 
 
 def _sync(torch):
@@ -57,13 +109,24 @@ def _time_ms(torch, fn, reps=KERNEL_REPS):
     return start.elapsed_time(end) / reps
 
 
-def _paired_times(torch, kernel, plain):
+def _paired_times(torch, kernel, plain, reps=KERNEL_REPS):
     """plain, kernel, kernel, plain in turns → (kernel ms, plain ms)."""
-    p1 = _time_ms(torch, plain)
-    k1 = _time_ms(torch, kernel)
-    k2 = _time_ms(torch, kernel)
-    p2 = _time_ms(torch, plain)
+    p1 = _time_ms(torch, plain, reps)
+    k1 = _time_ms(torch, kernel, reps)
+    k2 = _time_ms(torch, kernel, reps)
+    p2 = _time_ms(torch, plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _bound(n_bytes, n_flops):
+    """The least time the card could take: bytes over HBM bandwidth or FP32
+    operations over the FP32 peak, whichever is larger → (ms, bound_by)."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, n_flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _id_errors(ids, ids_p):
@@ -72,8 +135,63 @@ def _id_errors(ids, ids_p):
     return float(diff.max()), int((diff != 0).sum())
 
 
+def _record(torch, err, mism, kernel, plain, n_bytes, n_flops, library=None,
+            reps=KERNEL_REPS):
+    k_ms, p_ms = _paired_times(torch, kernel, plain, reps)
+    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    lib_ms = _time_ms(torch, library, reps) if library is not None else None
+    return dict(max_abs_err=err, id_mismatches=mism, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def _spd(torch, dev, rng, b, r, bad):
+    """SPD systems like M = I + QᵀPQ, chain ``bad`` deliberately not SPD."""
+    import numpy as np
+
+    a = torch.as_tensor(rng.randn(b, r, 3 * r).astype(np.float32) * 0.1, device=dev)
+    m = (a @ a.transpose(1, 2) + torch.eye(r, device=dev)).contiguous()
+    m[bad, r // 2, r // 2] = -1.0
+    return m, torch.as_tensor(rng.randn(b, r).astype(np.float32), device=dev)
+
+
+def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
+    """A Cholesky kernel and its triangular solve against the plain twins."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    m, rhs = _spd(torch, dev, rng, b, r, bad=b // 2)
+    l, x, ld = factor(m, rhs)
+    l_p, x_p, ld_p = cc.chol_solve_plain(m, rhs)
+    _sync(torch)
+    good = torch.arange(b, device=dev) != b // 2
+    for got, want in ((l, l_p), (x, x_p), (ld, ld_p)):
+        torch.testing.assert_close(got[good], want[good], rtol=TOL, atol=TOL)
+    if not (torch.isnan(x[b // 2]).all() and torch.isnan(ld[b // 2])):
+        raise AssertionError(f"{prefix}: a non-SPD pivot must give NaN")
+    err = max(float((g[good] - w[good]).abs().max())
+              for g, w in ((l, l_p), (x, x_p), (ld, ld_p)))
+    chol_bytes = _nbytes(m, rhs, l, x, ld)
+    chol_flops = b * (r ** 3 / 3 + 2 * r * r)  # factor + two substitutions
+    rec_f = _record(torch, err, 0, lambda: factor(m, rhs),
+                    lambda: cc.chol_solve_plain(m, rhs), chol_bytes, chol_flops,
+                    library=lambda: torch.linalg.cholesky_ex(m))
+
+    lg = l[good].contiguous()
+    z = torch.as_tensor(rng.randn(b - 1, r).astype(np.float32), device=dev)
+    xt, xt_p = solve(lg, z), cc.tri_solve_lt_plain(lg, z)
+    _sync(torch)
+    torch.testing.assert_close(xt, xt_p, rtol=TOL, atol=TOL)
+    rec_s = _record(torch, float((xt - xt_p).abs().max()), 0, lambda: solve(lg, z),
+                    lambda: cc.tri_solve_lt_plain(lg, z), _nbytes(lg, z, xt),
+                    (b - 1) * r * r,
+                    library=lambda: torch.linalg.solve_triangular(
+                        lg.transpose(-1, -2), z[..., None], upper=True))
+    return rec_f, rec_s, (m, rhs)
+
+
 def phase_kernels(torch, dev, data, ctx):
-    """K1–K4 against the plain twins; returns the per-kernel records."""
+    """K1–K4 against the plain twins at the femur path's shapes."""
     import numpy as np
 
     from icp_proposal_tpu_torch.ops import chol_cuda as cc
@@ -82,33 +200,8 @@ def phase_kernels(torch, dev, data, ctx):
     rng = np.random.RandomState(0)
     b, r, v = CMP_CHAINS, data.model.rank, data.model.num_points
     records = {}
-
-    # K1 / K2: SPD systems like M = I + QᵀPQ, one chain deliberately not SPD
-    a = torch.as_tensor(rng.randn(b, r, 3 * r).astype(np.float32) * 0.1, device=dev)
-    m = (a @ a.transpose(1, 2) + torch.eye(r, device=dev)).contiguous()
-    bad = b // 2
-    m[bad, r // 2, r // 2] = -1.0
-    rhs = torch.as_tensor(rng.randn(b, r).astype(np.float32), device=dev)
-    l, x, ld = cc.chol_solve(m, rhs)
-    l_p, x_p, ld_p = cc.chol_solve_plain(m, rhs)
-    _sync(torch)
-    good = torch.arange(b, device=dev) != bad
-    for got, want in ((l, l_p), (x, x_p), (ld, ld_p)):
-        torch.testing.assert_close(got[good], want[good], rtol=TOL, atol=TOL)
-    if not (torch.isnan(x[bad]).all() and torch.isnan(ld[bad])):
-        raise AssertionError("K1: a non-SPD pivot must give NaN")
-    err = max(float((g[good] - w[good]).abs().max())
-              for g, w in ((l, l_p), (x, x_p), (ld, ld_p)))
-    records["chol_solve"] = (err, 0, *_paired_times(
-        torch, lambda: cc.chol_solve(m, rhs), lambda: cc.chol_solve_plain(m, rhs)))
-
-    lg = l[good].contiguous()
-    z = torch.as_tensor(rng.randn(b - 1, r).astype(np.float32), device=dev)
-    xt, xt_p = cc.tri_solve_lt(lg, z), cc.tri_solve_lt_plain(lg, z)
-    _sync(torch)
-    torch.testing.assert_close(xt, xt_p, rtol=TOL, atol=TOL)
-    records["tri_solve_lt"] = (float((xt - xt_p).abs().max()), 0, *_paired_times(
-        torch, lambda: cc.tri_solve_lt(lg, z), lambda: cc.tri_solve_lt_plain(lg, z)))
+    records["chol_solve"], records["tri_solve_lt"], _ = _chol_records(
+        torch, dev, rng, b, r, cc.chol_solve, cc.tri_solve_lt, "K1")
 
     # K3: shared target vertices (P = 4·rank) and per-chain meshes (P = 2·rank)
     ref = data.model.ref_points
@@ -122,10 +215,11 @@ def phase_kernels(torch, dev, data, ctx):
                             ("per_chain", (tq, pts_b))):
         ids, ids_p = cp.nearest_vertices(qq, pts), cp.nearest_vertices_plain(qq, pts)
         _sync(torch)
-        records[f"nearest_vertices[{mode}]"] = (
-            *_id_errors(ids, ids_p), *_paired_times(
-                torch, lambda: cp.nearest_vertices(qq, pts),
-                lambda: cp.nearest_vertices_plain(qq, pts)))
+        pairs = qq.shape[0] * qq.shape[1] * pts.shape[-2]
+        records[f"nearest_vertices[{mode}]"] = _record(
+            torch, *_id_errors(ids, ids_p), lambda: cp.nearest_vertices(qq, pts),
+            lambda: cp.nearest_vertices_plain(qq, pts), _nbytes(qq, pts, ids),
+            NV_PAIR_FLOPS * pairs)
     nv = cp.nearest_vertices(q, ctx.index.points)
 
     # K4: the K = 64 shortlist of each query's coarse vertex
@@ -134,18 +228,132 @@ def phase_kernels(torch, dev, data, ctx):
     f_p, w_p = cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri)
     _sync(torch)
     err, mism = _id_errors(f, f_p)
-    records["refine_shortlist"] = (
-        max(err, float((w - w_p).abs().max())), mism, *_paired_times(
-            torch, lambda: cp.refine_shortlist(q, nv, idx.cand, idx.cand_tri),
-            lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri)))
-    for name, (err, mism, k_ms, p_ms) in records.items():
-        tol = TOL if name in ("chol_solve", "tri_solve_lt") else 0
-        print(f"[kernels] {name}: max_abs_err {err:.3g} (tolerance {tol}), "
-              f"{mism} ids differ, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"{CMP_CHAINS} chains")
-        if mism or (not tol and err):  # K1/K2 values were held to TOL above
-            raise AssertionError(f"{name}: the kernel disagrees with its plain twin")
+    records["refine_shortlist"] = _record(
+        torch, max(err, float((w - w_p).abs().max())), mism,
+        lambda: cp.refine_shortlist(q, nv, idx.cand, idx.cand_tri),
+        lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri),
+        _nbytes(q, nv, idx.cand, idx.cand_tri, f, w),
+        PAIR_FLOPS * q.shape[0] * q.shape[1] * idx.k)
     return records
+
+
+def phase_kernels_bfm(torch, dev, data, evaluator):
+    """K5 (both modes), K6 and K7 against the plain twins at the BFM path's
+    shapes; K1 at r = 200 timed beside K6."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
+    from icp_proposal_tpu_torch.sampling.state import init_state, transformed_points
+
+    rng = np.random.RandomState(1)
+    b, model, ctx = CMP_CHAINS, data.model, evaluator.ctx
+    records = {}
+    records["chol_solve_blocked"], records["tri_solve_lt_blocked"], (m, rhs) = (
+        _chol_records(torch, dev, rng, b, model.rank, cc.chol_solve_blocked,
+                      cc.tri_solve_lt_blocked, "K6"))
+    k1_ms, k6_ms = _paired_times(torch, lambda: cc.chol_solve(m, rhs, blocked=False),
+                                 lambda: cc.chol_solve_blocked(m, rhs))
+    print(f"[kernels:bfm] K1 chol_solve at r={model.rank}: {k1_ms:.4f} ms; K6 "
+          f"chol_solve_blocked {k6_ms:.4f} ms; {b} chains")
+
+    # K5 on the collective evaluator's own queries at chains moved off the mean
+    state = init_state(model, b)
+    state = state._replace(coeffs=torch.as_tensor(
+        rng.randn(b, model.rank).astype(np.float32) * 0.5, device=dev))
+    pts = transformed_points(model, state).contiguous()
+    name = evaluator.specs[0].name
+    ids_m = torch.as_tensor(evaluator.model_ids(name), dtype=torch.int64, device=dev)
+    ids_t = torch.as_tensor(evaluator.target_ids(name), dtype=torch.int64, device=dev)
+    cases = {"shared": (pts[:, ids_m].contiguous(), ctx.points, ctx.cells.int()),
+             "per_chain": (ctx.points[ids_t].contiguous(), pts, model.cells.int())}
+    for mode, args in cases.items():
+        d2, fidx = cp.surface_distances(*args)
+        d2_c, fidx_c = cp.surface_distances(*args, cull=True)
+        d2_p, fidx_p = cp.surface_distances_plain(*args)
+        _sync(torch)
+        err, mism = _id_errors(fidx, fidx_p)
+        err = max(err, float((d2 - d2_p).abs().max()))
+        if not (torch.equal(d2_c, d2) and torch.equal(fidx_c, fidx)):
+            raise AssertionError(f"K5 {mode}: cull=True differs from cull=False")
+        q, points, cells = args
+        pairs = b * q.shape[-2] * cells.shape[0]
+        records[f"surface_distances[{mode}]"] = _record(
+            torch, err, mism, lambda: cp.surface_distances(*args),
+            lambda: cp.surface_distances_plain(*args),
+            _nbytes(q, points, cells, d2, fidx), PAIR_FLOPS * pairs, reps=5)
+    return records
+
+
+def _print_records(tag, records):
+    for name, rec in records.items():
+        tol = TOL if name in VALUE_TOL else 0
+        held = f"rtol {TOL:g} + atol {TOL:g}" if tol else "exact"
+        lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+        print(f"[{tag}] {name}: max_abs_err {rec['max_abs_err']:.3g} (held {held}), "
+              f"{rec['id_mismatches']} ids differ, kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), library {lib}, {CMP_CHAINS} chains")
+        if rec["id_mismatches"] or (not tol and rec["max_abs_err"]):
+            raise AssertionError(f"{name}: the kernel disagrees with its plain twin")
+
+
+def _wrappers():
+    from icp_proposal_tpu_torch.ops import chol_cuda, closest_point_cuda
+
+    return (chol_cuda.chol_solve, chol_cuda.tri_solve_lt, chol_cuda.chol_solve_blocked,
+            chol_cuda.tri_solve_lt_blocked, closest_point_cuda.nearest_vertices,
+            closest_point_cuda.refine_shortlist, closest_point_cuda.surface_distances)
+
+
+def _reset_counts():
+    for fn in _wrappers():
+        fn.launches = 0
+        if hasattr(fn, "per_chain_launches"):
+            fn.per_chain_launches = 0
+
+
+def _read_counts():
+    """Launch counts by record name; K3 and K5 split by mode."""
+    counts = {}
+    for fn in _wrappers():
+        if hasattr(fn, "per_chain_launches"):
+            counts[f"{fn.__name__}[per_chain]"] = fn.per_chain_launches
+            counts[f"{fn.__name__}[shared]"] = fn.launches - fn.per_chain_launches
+        else:
+            counts[fn.__name__] = fn.launches
+    return counts
+
+
+def phase_main(torch, dev, tag, model, mixture, evaluator, warmup, timed, per_step):
+    """``timed`` steps of ``N_CHAINS`` chains after ``warmup``; launch
+    counts asserted against ``per_step`` → counts."""
+    from icp_proposal_tpu_torch.sampling import mh
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    step = mh.make_mh_step(model, mixture, evaluator)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    carry = mh.init_carry(model, evaluator, init_state(model, N_CHAINS), mixture)
+    carry, _ = mh.run_chains(step, carry, warmup, gen)
+    _sync(torch)
+    _reset_counts()
+    t = time.perf_counter()
+    carry, recs = mh.run_chains(step, carry, timed, gen)
+    _sync(torch)
+    dt = time.perf_counter() - t
+    launches = _read_counts()
+    acc = float(torch.stack([r.accepted for r in recs]).float().mean())
+    print(f"[{tag}] {N_CHAINS} chains x {timed} steps in {dt:.3f} s: "
+          f"{N_CHAINS * timed / dt:.1f} samples/s, {1e3 * dt / timed:.2f} ms/step, "
+          f"acceptance {acc:.4f}; launches {launches}")
+    for name, n in per_step.items():
+        if launches[name] != n * timed:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
+                                 f"expected {n} per step")
+    if not torch.isfinite(carry.log_post).all():
+        raise AssertionError(f"{tag}: non-finite log_post after the main path")
+    print(f"[{tag}] log_post finite; mean {float(carry.log_post.mean()):.3f}")
+    return launches
 
 
 def _to_device(obj, dev):
@@ -160,24 +368,21 @@ def _to_device(obj, dev):
     return obj
 
 
-def phase_check(torch, dev, data, setup):
+def phase_check(torch, dev, tag, model, setup, cpu_setup_of):
     """8 chains, one step on the card and one on the CPU from the same carry
     with the same noise: same decisions (away from near-ties), same log
-    posterior to rtol 1e-4."""
-    from icp_proposal_tpu_torch.apps.femur import FemurData, make_icp_proposal_setup
+    posterior to rtol 1e-4.  ``cpu_setup_of(cpu_model)`` builds the same
+    setup on the CPU."""
     from icp_proposal_tpu_torch.convert import gpmm_from_arrays
     from icp_proposal_tpu_torch.sampling import mh
     from icp_proposal_tpu_torch.sampling.state import init_state
 
-    ctx, mixture, evaluator = setup
-    model = data.model
+    _, mixture, evaluator = setup
     cpu_model = gpmm_from_arrays(**{k: getattr(model, k).cpu().numpy()
-                                    for k in model.__dataclass_fields__})
-    cpu_data = FemurData(cpu_model, data.target, data.target_boundary_mask,
-                         data.model_boundary_mask)
-    cpu_setup = make_icp_proposal_setup(cpu_data)
+                                    for k in model.__dataclass_fields__}, device="cpu")
+    _, cpu_mixture, cpu_evaluator = cpu_setup_of(cpu_model)
     step = mh.make_mh_step(model, mixture, evaluator, store_params=True)
-    cpu_step = mh.make_mh_step(cpu_model, cpu_setup[1], cpu_setup[2], store_params=True)
+    cpu_step = mh.make_mh_step(cpu_model, cpu_mixture, cpu_evaluator, store_params=True)
     gen = torch.Generator(device=dev).manual_seed(11)
     carry = mh.init_carry(model, evaluator, init_state(model, 8), mixture)
     carry, _ = mh.run_chains(step, carry, 4, gen)  # chains drift apart
@@ -189,15 +394,15 @@ def phase_check(torch, dev, data, setup):
         _sync(torch)
         rec = _to_device(rec, "cpu")
         if not torch.equal(rec.proposal_idx, rec_c.proposal_idx):
-            raise AssertionError("check: proposal indices differ")
+            raise AssertionError(f"{tag}: proposal indices differ")
         clear = (rec.log_alpha - noise.log_u.cpu()).abs() > 1e-3
         if not torch.equal(rec.accepted[clear], rec_c.accepted[clear]):
-            raise AssertionError("check: accept decisions differ from the CPU run")
+            raise AssertionError(f"{tag}: accept decisions differ from the CPU run")
         torch.testing.assert_close(rec.log_product, rec_c.log_product, rtol=1e-4,
                                    atol=0)
         compared += int(clear.sum())
         carry = nxt
-    print(f"[check] card vs CPU plain twins, 8 chains x 3 steps: {compared} decisions "
+    print(f"[{tag}] card vs CPU plain twins, 8 chains x 3 steps: {compared} decisions "
           f"identical, log posterior within rtol 1e-4")
 
 
@@ -235,14 +440,16 @@ def main() -> int:
             print(f"[build] {line.strip()}")
     _sync(torch)
 
-    # the stand-in workload and the flagship setup, on the card
+    # the stand-in femur workload and the flagship setup, on the card
+    from icp_proposal_tpu_torch.apps.bfm import (
+        load_synthetic_face_data,
+        make_bfm_fitting_setup,
+    )
     from icp_proposal_tpu_torch.apps.femur import (
+        FemurData,
         load_standin_femur_data,
         make_icp_proposal_setup,
     )
-    from icp_proposal_tpu_torch.ops import chol_cuda, closest_point_cuda
-    from icp_proposal_tpu_torch.sampling import mh
-    from icp_proposal_tpu_torch.sampling.state import init_state
 
     t = time.perf_counter()
     data = load_standin_femur_data(device=dev)
@@ -255,62 +462,56 @@ def main() -> int:
 
     # 3. kernels against plain twins
     records = phase_kernels(torch, dev, data, ctx)
+    _print_records("kernels", records)
     _sync(torch)
 
-    # 4. main path
-    wrappers = {"chol_solve": chol_cuda.chol_solve, "tri_solve_lt": chol_cuda.tri_solve_lt,
-                "nearest_vertices": closest_point_cuda.nearest_vertices,
-                "refine_shortlist": closest_point_cuda.refine_shortlist}
-    step = mh.make_mh_step(data.model, mixture, evaluator)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    carry = mh.init_carry(data.model, evaluator, init_state(data.model, N_CHAINS),
-                          mixture)
-    carry, _ = mh.run_chains(step, carry, WARMUP_STEPS, gen)
-    _sync(torch)
-    for fn in wrappers.values():
-        fn.launches = 0
-    nv = closest_point_cuda.nearest_vertices
-    nv.per_chain_launches = 0
-    t = time.perf_counter()
-    carry, recs = mh.run_chains(step, carry, TIMED_STEPS, gen)
-    _sync(torch)
-    dt = time.perf_counter() - t
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    launches["nearest_vertices[per_chain]"] = nv.per_chain_launches
-    launches["nearest_vertices[shared]"] = (launches.pop("nearest_vertices")
-                                            - nv.per_chain_launches)
-    acc = float(torch.stack([r.accepted for r in recs]).float().mean())
-    rate = N_CHAINS * TIMED_STEPS / dt
-    print(f"[main] {N_CHAINS} chains x {TIMED_STEPS} steps in {dt:.3f} s: "
-          f"{rate:.1f} samples/s, {1e3 * dt / TIMED_STEPS:.2f} ms/step, "
-          f"acceptance {acc:.4f}; launches {launches}")
-    for name, per_step in STEP_LAUNCHES.items():
-        if launches[name] != per_step * TIMED_STEPS:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected "
-                                 f"{per_step} per step")
-    if not torch.isfinite(carry.log_post).all():
-        raise AssertionError("non-finite log_post after the main path")
-    print(f"[main] log_post finite; mean {float(carry.log_post.mean()):.3f}")
+    # 4. main path: femur
+    launches = {"femur": phase_main(torch, dev, "main", data.model, mixture, evaluator,
+                                    WARMUP_STEPS, TIMED_STEPS, FEMUR_STEP_LAUNCHES)}
 
     # 5. check against the plain twins on the CPU
-    phase_check(torch, dev, data, setup)
+    phase_check(torch, dev, "check", data.model, setup, lambda m: make_icp_proposal_setup(
+        FemurData(m, data.target, data.target_boundary_mask, data.model_boundary_mask)))
     _sync(torch)
 
-    sources = {"chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
-               "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
-               "nearest_vertices[shared]": (
-                   "csrc/closest_point.cu",
-                   "icp_proposal_tpu/ops/closest_point_pallas.py:335"),
-               "nearest_vertices[per_chain]": (
-                   "csrc/closest_point.cu",
-                   "icp_proposal_tpu/ops/closest_point_pallas.py:335"),
-               "refine_shortlist": ("csrc/closest_point.cu",
-                                    "icp_proposal_tpu/ops/closest_point_pallas.py:613")}
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"icp_proposal_tpu_torch/{sources[name][0]}",
-                "replaces": sources[name][1], "launches": launches[name],
-                "max_abs_err": err, "id_mismatches": mism, "ms": k_ms, "plain_ms": p_ms}
-               for name, (err, mism, k_ms, p_ms) in records.items()]
+    # 6. the BFM face stand-in at rank 200 and the partial-face setup
+    t = time.perf_counter()
+    face = load_synthetic_face_data(rank=BFM_RANK, subdiv=BFM_SUBDIV, device=dev)
+    t_build = time.perf_counter() - t
+    t = time.perf_counter()
+    bfm_setup = make_bfm_fitting_setup(face, partial=True)
+    _, bfm_mixture, bfm_evaluator = bfm_setup
+    _sync(torch)
+    print(f"[setup:bfm] face stand-in: rank {face.model.rank}, "
+          f"{face.model.num_points} vertices, {face.model.cells.shape[0]} faces; "
+          f"partial target {len(face.target_partial.points)} vertices, "
+          f"{len(face.target_partial.cells)} faces; host model build {t_build:.1f} s, "
+          f"setup {time.perf_counter() - t:.1f} s")
+
+    # 7. K5, K6, K7 against plain twins
+    bfm_records = phase_kernels_bfm(torch, dev, face, bfm_evaluator)
+    _print_records("kernels:bfm", bfm_records)
+    records.update(bfm_records)
+    _sync(torch)
+
+    # 8. main path: BFM partial
+    launches["bfm-partial"] = phase_main(
+        torch, dev, "main:bfm-partial", face.model, bfm_mixture, bfm_evaluator,
+        BFM_WARMUP_STEPS, BFM_TIMED_STEPS, BFM_STEP_LAUNCHES)
+
+    # 9. check against the plain twins on the CPU
+    phase_check(torch, dev, "check:bfm", face.model, bfm_setup,
+                lambda m: make_bfm_fitting_setup(dataclasses.replace(face, model=m),
+                                                 partial=True))
+    _sync(torch)
+
+    kernels = []
+    for name, rec in records.items():
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"icp_proposal_tpu_torch/{SOURCES[name][0]}",
+                        "replaces": SOURCES[name][1], "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **rec})
     print(json.dumps({"kernels": kernels}))
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,13 @@
 """Build, load and launch the port's CUDA kernels.
 
-All sources in ``csrc/`` compile with one ``nvcc`` call into one shared
+Each source in ``csrc/`` compiles with its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o build/icp_kernels/libicp_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu          (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/icp_kernels/libicp_kernels_<hash>.so *.o
 
 ``-fmad=false`` keeps every product and sum rounding on its own, as the
 plain PyTorch twins do; the closest-point tie rules compare float32 values
@@ -28,9 +31,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "icp_kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,6 +44,9 @@ _SIGNATURES = {
     "icp_tri_solve_lt": [_P, _P, _P, _I, _I, _P],
     "icp_nearest_vertices": [_P, _P, _P, _I, _I, _I, _I, _P],
     "icp_refine_shortlist": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "icp_surface_distances": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "icp_tri_solve_lt_blocked": [_P, _P, _P, _I, _I, _P],
 }
 
 
@@ -82,15 +89,27 @@ def build_library(build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
             "not found on PATH or under CUDA_HOME"
         )
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        texts = [proc.communicate()[0] for _, proc in procs]  # all run to their end
+        log = "".join(texts)
+        for (cmd, proc), text in zip(procs, texts):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        tmp = os.path.join(work, out.name)
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out, log
 
 

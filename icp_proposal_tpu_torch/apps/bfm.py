@@ -1,0 +1,161 @@
+"""BFM face workload: the synthetic face stand-in and the fitting setups.
+
+Counterpart of ``icp_proposal_tpu/apps/bfm.py`` (reference ``apps/bfm``:
+``AlignShapes.scala``, ``BfmFittingComplete.scala``,
+``BfmFittingPartial.scala``).  The BFM-2017 model and scans are
+license-gated and not in the repository; ``load_synthetic_face_data``
+builds the reference's stand-in instead, which runs the same code path: an
+open icosphere patch with a FaceKernel GPMM, a target drawn from the model
+and a partial target with a synthesized occlusion.  Loading the real assets
+(``load_bfm_data``, ``prepare_bfm_dataset``) is not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from icp_proposal_tpu_torch.mesh import TriangleMesh, boundary_vertex_mask, make_mesh
+from icp_proposal_tpu_torch.models.gpmm import Gpmm
+
+
+def synthesize_partial_target(points: np.ndarray, cells: np.ndarray,
+                              cut_center: np.ndarray, n_cut: int = 1000,
+                              extra_cut_ids=()):
+    """Partial-target synthesis (reference ``bfm/AlignShapes.scala:88-94``):
+    remove the n_cut vertices nearest ``cut_center`` (the nose tip) plus an
+    explicit id mask (the mouth), then drop dangling faces.
+
+    → (partial_points, partial_cells, kept_ids)."""
+    points = np.asarray(points)
+    cells = np.asarray(cells)
+    d2 = np.sum((points - np.asarray(cut_center)[None, :]) ** 2, axis=1)
+    cut = np.zeros(len(points), bool)
+    cut[np.argsort(d2)[: min(n_cut, len(points))]] = True
+    extra = np.asarray(extra_cut_ids, np.int64)
+    cut[extra[extra < len(points)]] = True
+    keep_face = (~cut)[cells].all(axis=1)
+    new_cells_full = cells[keep_face]
+    used = np.unique(new_cells_full)
+    remap = -np.ones(len(points), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    return points[used], remap[new_cells_full].astype(np.int32), used
+
+
+@dataclass
+class BfmData:
+    model: Gpmm
+    target: TriangleMesh  # complete target
+    target_partial: TriangleMesh
+    model_boundary_mask: np.ndarray
+    target_boundary_mask: np.ndarray
+    partial_boundary_mask: np.ndarray
+
+
+def load_synthetic_face_data(rank: int = 24, subdiv: int = 3, seed: int = 0,
+                             target_coeffs=None, device=DEFAULT_DEVICE) -> BfmData:
+    """The face stand-in: open-patch reference mesh (icosphere of
+    ``subdiv`` subdivisions, radius 0.1, cut at z = 0.055), a FaceKernel
+    GPMM of ``rank`` components from Nyström over min(4·rank, V)
+    area-weighted points, a target drawn from the model, and a partial
+    target without the V // 6 vertices nearest the target's highest point
+    (the "nose").  The model goes to ``device`` (the card unless
+    ``device="cpu"``); meshes and masks stay on the host.
+
+    The target coefficients are ``target_coeffs`` when given, else 0.8 times
+    standard normals from ``numpy.random.RandomState(seed)``.  The JAX
+    package draws them with ``jax.random.normal(PRNGKey(seed))``, which this
+    package cannot reproduce; pass its draw to build the same data.  At
+    rank 200 and subdiv 4 this is the width of the reference's decimated
+    face model: 1,977 vertices, 3,872 faces, 800 Nyström points."""
+    from icp_proposal_tpu_torch.models.build_face import FaceKernel, FaceMask
+    from icp_proposal_tpu_torch.models.gpmm import make_gpmm
+    from icp_proposal_tpu_torch.models.nystrom import nystrom_lowrank
+    from icp_proposal_tpu_torch.models.synthetic import make_open_patch
+    from icp_proposal_tpu_torch.ops.surface_sampling import area_weighted_vertex_subset
+
+    device = resolve_device(device)  # before the host build, not after
+    points, cells = make_open_patch(subdivisions=subdiv, radius=0.1, z_cut=0.55)
+    kernel = FaceKernel(FaceMask.trivial(len(points)), points)
+    n_sample = min(4 * rank, len(points))
+    sample_ids = area_weighted_vertex_subset(points, cells, n_sample, seed=seed + 1)
+    points64 = np.asarray(points, np.float64)
+    basis, variance = nystrom_lowrank(kernel, points64[sample_ids], points64,
+                                      num_basis=rank)
+    model = make_gpmm(ref_points=points, cells=cells, mean_disp=np.zeros_like(points),
+                      basis=basis, variance=variance, device=device)
+
+    if target_coeffs is None:
+        target_coeffs = np.random.RandomState(seed).randn(rank) * 0.8
+    alpha = np.asarray(target_coeffs, np.float32)
+    sbasis = model.sbasis.cpu().numpy().reshape(3 * len(points), rank)
+    mean = model.mean_disp.cpu().numpy()
+    target_points = points + (mean + (sbasis @ alpha).reshape(-1, 3))
+
+    # occlude around the "nose": the vertex with the largest z
+    nose = target_points[np.argmax(target_points[:, 2])]
+    p_pts, p_cells, _ = synthesize_partial_target(target_points, cells, nose,
+                                                  n_cut=len(points) // 6)
+    mask = boundary_vertex_mask(cells, len(points))
+    return BfmData(
+        model=model,
+        target=make_mesh(target_points, cells),
+        target_partial=make_mesh(p_pts, p_cells),
+        model_boundary_mask=mask,
+        target_boundary_mask=mask.copy(),
+        partial_boundary_mask=boundary_vertex_mask(p_cells, len(p_pts)),
+    )
+
+
+def make_bfm_fitting_setup(data: BfmData, partial: bool):
+    """The two BFM fitting configurations (reference
+    ``BfmFittingComplete.scala:62-76`` / ``BfmFittingPartial.scala:65-83``),
+    exact densities:
+
+      proposal  = 0.4·pose mixture + 0.55·ICP(model direction, tangential 6,
+                  normal 3, step 0.1, 2·rank points) + 0.05·random shape
+      evaluator = complete: Euclidean model→target, σ = 3, 4·rank points
+                  partial:  collective avg/max boundary-aware, symmetric,
+                            σ_avg = 0.3, max rate 1.0, mean 0.1, 4·rank points
+
+    → (ctx, mixture, evaluator) on the model's device.  The reference's
+    parity mode is not ported yet (ROADMAP queue 1, slice 7)."""
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+    from icp_proposal_tpu_torch.sampling.evaluators import (
+        proximity_and_collective_hausdorff_boundary_aware,
+        proximity_and_independent,
+    )
+    from icp_proposal_tpu_torch.sampling.proposals import (
+        MixtureProgram,
+        mixed_proposal_icp,
+        mixed_random_pose_proposal,
+        mixed_random_shape_proposal,
+        nest,
+    )
+
+    model = data.model
+    target = data.target_partial if partial else data.target
+    tmask = data.partial_boundary_mask if partial else data.target_boundary_mask
+    ctx = build_target_context(target, tmask, device=model.device)
+    n_icp = 2 * model.rank
+    n_eval = 2 * n_icp
+    mixture = MixtureProgram(
+        nest(
+            (0.4, mixed_random_pose_proposal()),
+            (0.55, mixed_proposal_icp(
+                n_points=n_icp, projection_direction="model",
+                tangential_noise=6.0, noise_along_normal=3.0, step_length=0.1,
+            )),
+            (0.05, mixed_random_shape_proposal()),
+        ),
+        model, ctx, data.model_boundary_mask,
+    )
+    if partial:
+        evaluator = proximity_and_collective_hausdorff_boundary_aware(
+            model, ctx, mode="symmetric", sigma_avg=0.3, rate_max=1.0, mean=0.1,
+            n_points=n_eval)
+    else:
+        evaluator = proximity_and_independent(
+            model, ctx, mode="model_to_target", sigma=3.0, n_points=n_eval)
+    return ctx, mixture, evaluator

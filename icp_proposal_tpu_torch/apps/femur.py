@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.io.stl import read_stl
 from icp_proposal_tpu_torch.mesh import TriangleMesh, boundary_vertex_mask, make_mesh
 from icp_proposal_tpu_torch.models.gpmm import Gpmm
@@ -31,9 +32,12 @@ class FemurData:
     model_boundary_mask: np.ndarray
 
 
-def load_standin_femur_data(device="cpu") -> FemurData:
-    """The stand-in femur workload (see module docstring), model on ``device``."""
+def load_standin_femur_data(device=DEFAULT_DEVICE) -> FemurData:
+    """The stand-in femur workload (see module docstring), model on ``device``
+    (the card unless ``device="cpu"``)."""
     from icp_proposal_tpu_torch.models.build_femur import build_femur_gpmm
+
+    device = resolve_device(device)  # before the host build, not after
 
     mpoints, mcells = read_stl(STANDIN_DIR / "mean.stl")
     tpoints, tcells = read_stl(STANDIN_DIR / "map.stl")

@@ -1,9 +1,11 @@
-"""Carry a model, a target context and chain state across from host arrays.
+"""Carry a model, a target context, workload data and chain state across
+from host arrays.
 
 The JAX package keeps its model and context fields as numpy arrays and its
 chain state as arrays with a leading chain axis; these functions take such
-arrays (never JAX objects) and build the port's tensors on a device, so both
-packages can start from identical data.
+arrays (never JAX objects) and build the port's tensors on a device (the
+card unless ``device="cpu"``), so both packages can start from identical
+data.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from icp_proposal_tpu_torch.mesh import make_mesh
 from icp_proposal_tpu_torch.models.gpmm import Gpmm, PosteriorFactors
 from icp_proposal_tpu_torch.ops.surface_index import SurfaceIndex
 from icp_proposal_tpu_torch.sampling.context import TargetContext
@@ -24,12 +28,17 @@ def _f32(x, device):
     return torch.as_tensor(np.array(x, np.float32), device=device)
 
 
+def _i64(x, device):
+    return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
+
+
 def gpmm_from_arrays(ref_points, cells, mean_disp, basis, variance, noise_variance,
-                     sbasis, coeff_chol, device="cpu") -> Gpmm:
+                     sbasis, coeff_chol, device=DEFAULT_DEVICE) -> Gpmm:
     """A ``Gpmm`` whose ``sbasis`` and ``coeff_chol`` are taken as given."""
+    device = resolve_device(device)
     return Gpmm(
         ref_points=_f32(ref_points, device),
-        cells=torch.as_tensor(np.asarray(cells), dtype=torch.int64, device=device),
+        cells=_i64(cells, device),
         mean_disp=_f32(mean_disp, device),
         basis=_f32(basis, device),
         variance=_f32(variance, device),
@@ -40,9 +49,10 @@ def gpmm_from_arrays(ref_points, cells, mean_disp, basis, variance, noise_varian
 
 
 def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
-                        device="cpu") -> TargetContext:
+                        device=DEFAULT_DEVICE) -> TargetContext:
     """A ``TargetContext``; with ``cand``/``cand_tri`` it carries the
     shortlist index over the same points and triangles."""
+    device = resolve_device(device)
     points_t = _f32(points, device)
     tri_t = _f32(tri, device)
     index = None
@@ -54,25 +64,46 @@ def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
         )
     return TargetContext(
         points=points_t,
-        cells=torch.as_tensor(np.asarray(cells), dtype=torch.int64, device=device),
+        cells=_i64(cells, device),
         tri=tri_t,
         boundary=torch.as_tensor(np.asarray(boundary, bool), device=device),
         index=index,
     )
 
 
-def state_from_arrays(scale, rot, trans, center, coeffs, device="cpu") -> FitState:
+def bfm_data_from_arrays(model: dict, target_points, target_cells, partial_points,
+                         partial_cells, model_boundary_mask, target_boundary_mask,
+                         partial_boundary_mask, device=DEFAULT_DEVICE):
+    """An ``apps.bfm.BfmData``: ``model`` maps the ``Gpmm`` field names to
+    arrays (``gpmm_from_arrays``); meshes and masks stay host arrays."""
+    from icp_proposal_tpu_torch.apps.bfm import BfmData
+
+    return BfmData(
+        model=gpmm_from_arrays(**model, device=device),
+        target=make_mesh(target_points, target_cells),
+        target_partial=make_mesh(partial_points, partial_cells),
+        model_boundary_mask=np.asarray(model_boundary_mask, bool),
+        target_boundary_mask=np.asarray(target_boundary_mask, bool),
+        partial_boundary_mask=np.asarray(partial_boundary_mask, bool),
+    )
+
+
+def state_from_arrays(scale, rot, trans, center, coeffs,
+                      device=DEFAULT_DEVICE) -> FitState:
     """A batched ``FitState`` from arrays with a leading chain axis."""
+    device = resolve_device(device)
     return FitState(scale=_f32(scale, device), rot=_f32(rot, device),
                     trans=_f32(trans, device), center=_f32(center, device),
                     coeffs=_f32(coeffs, device))
 
 
 def carry_from_arrays(state: FitState, log_post, named,
-                      icp_factors: Sequence[tuple] = (), device="cpu") -> MhCarry:
+                      icp_factors: Sequence[tuple] = (),
+                      device=DEFAULT_DEVICE) -> MhCarry:
     """An ``MhCarry``; ``icp_factors`` holds one (alpha_hat [B, r],
     chol_m [B, r, r], logdet_m [B]) triple per ICP component, in component
     order."""
+    device = resolve_device(device)
     return MhCarry(
         state=state,
         log_post=_f32(log_post, device),

@@ -31,6 +31,27 @@
 //   cand_tri [V, 9K] tables and reads the rows itself: one warp per query,
 //   lane l takes slots l, l+32, ... with coalesced component-major loads,
 //   then a warp-shuffle lexicographic min on (d², face id, slot).
+//
+// K5 icp_surface_distances replaces _make_kernel / _dist2_call in the same
+// file (reached through surface_distances_pallas, pack_triangles and
+// tile_bounds): the dense point→triangle min d² and argmin face of every
+// query against every face, with the same Ericson cascade as K4.  Ties go to
+// the lowest face index, as the Pallas kernel's net rule does (lowest lane
+// within a 128-face tile, strictly smaller d² across tiles).
+//   What bounds it: FP32 throughput.  ~100 operations per (query, face) pair
+//   and 2,048 × 800 × (3,199 + 3,872) ≈ 1.2·10¹⁰ pairs per BFM step; the
+//   bytes (queries, vertices, cells) are a few MB.
+//   Design: one thread per query, one block per (128-query tile, chain).
+//   Faces stream through shared memory in tiles of 128 as SoA rows; the
+//   block gathers each tile's corners itself from the vertex array (shared,
+//   or one per chain) and the [F, 3] cells, so the [B, 9, Fp] triangle soup
+//   of pack_triangles never exists in device memory.  Each thread keeps a
+//   running (min, argmin) in registers and scans faces in ascending order
+//   with a strict <.  The ragged last tile is masked instead of padded with
+//   far triangles; that changes no result.  With cull set, the block
+//   reduces the tile's corner AABB in shared memory (tile_bounds) and skips
+//   the tile when no query of the block can beat its running best against
+//   the box; results are the same as without.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -41,6 +62,7 @@ namespace {
 constexpr int kNvThreads = 128;
 constexpr int kNvChunk = 2048;
 constexpr int kRefineWarps = 8;
+constexpr int kDenseTile = 128;  // faces per tile and queries per block (TF, TP)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
@@ -211,6 +233,103 @@ __global__ void refine_shortlist_kernel(const float* __restrict__ q,
   if (lane < 9) wtri[gq * 9 + lane] = trow[lane * k + bk];
 }
 
+// blockDim.x == kDenseTile: thread t stages face lo + t of each tile
+__global__ void surface_distances_kernel(const float* __restrict__ q,
+                                         long long q_batch_stride,
+                                         const float* __restrict__ pts,
+                                         long long pts_batch_stride,
+                                         const int* __restrict__ cells,
+                                         float* __restrict__ d2_out,
+                                         int* __restrict__ idx_out, int p, int f,
+                                         int cull) {
+  __shared__ float st[9][kDenseTile];  // tile corners, SoA: ax ay az bx ... cz
+  __shared__ float red[kDenseTile / 32][6];  // per-warp tile box (cull only)
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int qi = blockIdx.x * kDenseTile + t;
+  const bool active = qi < p;
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (active) {
+    const float* qq = q + (size_t)b * q_batch_stride + (size_t)qi * 3;
+    qx = qq[0];
+    qy = qq[1];
+    qz = qq[2];
+  }
+  const float* pb = pts + (size_t)b * pts_batch_stride;
+  float best = inf32();
+  int best_id = 0;
+  for (int lo = 0; lo < f; lo += kDenseTile) {
+    const int n = min(kDenseTile, f - lo);
+    __syncthreads();  // the previous tile is consumed
+    if (t < n) {
+      const int* cf = cells + (size_t)(lo + t) * 3;
+#pragma unroll
+      for (int corner = 0; corner < 3; ++corner) {
+        const float* v = pb + (size_t)cf[corner] * 3;
+        st[3 * corner][t] = v[0];
+        st[3 * corner + 1][t] = v[1];
+        st[3 * corner + 2][t] = v[2];
+      }
+    }
+    __syncthreads();
+    if (cull) {
+      // the tile's box: each thread its face's corners, then a warp and a
+      // block reduction; a thread without a face contributes an empty box
+      float box[6];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        box[a] = t < n ? fminf(fminf(st[a][t], st[3 + a][t]), st[6 + a][t]) : inf32();
+        box[3 + a] = t < n ? fmaxf(fmaxf(st[a][t], st[3 + a][t]), st[6 + a][t]) : -inf32();
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          box[a] = fminf(box[a], __shfl_xor_sync(kFull, box[a], off));
+          box[3 + a] = fmaxf(box[3 + a], __shfl_xor_sync(kFull, box[3 + a], off));
+        }
+      }
+      if ((t & 31) == 0) {
+#pragma unroll
+        for (int a = 0; a < 6; ++a) red[t >> 5][a] = box[a];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float lo_a = red[0][a], hi_a = red[0][3 + a];
+        for (int w = 1; w < kDenseTile / 32; ++w) {
+          lo_a = fminf(lo_a, red[w][a]);
+          hi_a = fmaxf(hi_a, red[w][3 + a]);
+        }
+        box[a] = lo_a;
+        box[3 + a] = hi_a;
+      }
+      // squared distance from the query to the box (tile_bounds' test)
+      const float dx = fmaxf(fmaxf(box[0] - qx, qx - box[3]), 0.0f);
+      const float dy = fmaxf(fmaxf(box[1] - qy, qy - box[4]), 0.0f);
+      const float dz = fmaxf(fmaxf(box[2] - qz, qz - box[5]), 0.0f);
+      const float lb2 = dx * dx + dy * dy + dz * dz;
+      if (!__syncthreads_or(active && lb2 < best)) continue;  // block-uniform
+    }
+    if (active) {
+      for (int u = 0; u < n; ++u) {
+        float c[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) c[i] = st[i][u];
+        const float d2 = point_tri_dist2(qx, qy, qz, c);
+        if (d2 < best) {
+          best = d2;
+          best_id = lo + u;
+        }
+      }
+    }
+  }
+  if (active) {
+    d2_out[(size_t)b * p + qi] = best;
+    idx_out[(size_t)b * p + qi] = best_id;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -232,6 +351,17 @@ int icp_refine_shortlist(const float* q, const int* coarse, const int* cand,
   const int blocks = (n_queries + kRefineWarps - 1) / kRefineWarps;
   refine_shortlist_kernel<<<blocks, kRefineWarps * 32, 0, (cudaStream_t)stream>>>(
       q, coarse, cand, cand_tri, fidx, wtri, n_queries, v, k);
+  return cudaGetLastError();
+}
+
+int icp_surface_distances(const float* q, const float* pts, const int* cells, float* d2,
+                          int* idx, int batch, int p, int v, int f, int q_batched,
+                          int pts_batched, int cull, void* stream) {
+  if (batch == 0 || p == 0) return cudaSuccess;
+  const dim3 grid((p + kDenseTile - 1) / kDenseTile, batch);
+  surface_distances_kernel<<<grid, kDenseTile, 0, (cudaStream_t)stream>>>(
+      q, q_batched ? 3LL * p : 0LL, pts, pts_batched ? 3LL * v : 0LL, cells, d2, idx,
+      p, f, cull);
   return cudaGetLastError();
 }
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.models.kernels import (
     ConstantMatrixKernel,
     DiagonalKernel,
@@ -41,13 +42,15 @@ def femur_kernel(ref_points: np.ndarray):
 
 
 def build_femur_gpmm(ref_points, ref_cells, num_components: int,
-                     seed: int = 1024, device="cpu"):
-    """→ ``Gpmm`` with ``num_components + 1`` basis functions, on ``device``."""
+                     seed: int = 1024, device=DEFAULT_DEVICE):
+    """→ ``Gpmm`` with ``num_components + 1`` basis functions, on ``device``
+    (the card unless ``device="cpu"``)."""
     from icp_proposal_tpu_torch.models.gpmm import make_gpmm
     from icp_proposal_tpu_torch.ops.surface_sampling import (
         area_weighted_vertex_subset,
     )
 
+    device = resolve_device(device)
     kernel = femur_kernel(ref_points)
     n_sample = min(num_components * 2, len(ref_points))
     sample_ids = area_weighted_vertex_subset(ref_points, ref_cells, n_sample, seed)

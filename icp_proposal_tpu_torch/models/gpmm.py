@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve, tri_solve_lt
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -53,13 +54,15 @@ class Gpmm:
 
 
 def make_gpmm(ref_points, cells, mean_disp, basis, variance, noise_variance=0.0,
-              device="cpu") -> Gpmm:
+              device=DEFAULT_DEVICE) -> Gpmm:
     """Build a Gpmm from host arrays: faces in Morton order, the scaled basis
     and the projection factor computed in float64 on the host and stored
-    float32, exactly as ``icp_proposal_tpu.models.gpmm.make_gpmm`` does."""
+    float32, exactly as ``icp_proposal_tpu.models.gpmm.make_gpmm`` does; the
+    tensors go to ``device`` (the card unless ``device="cpu"``)."""
     from icp_proposal_tpu_torch.convert import gpmm_from_arrays
     from icp_proposal_tpu_torch.ops.morton import morton_sort_faces
 
+    device = resolve_device(device)
     cells = np.asarray(cells)[morton_sort_faces(ref_points, cells)]
     basis64 = np.asarray(basis, dtype=np.float64)
     var64 = np.asarray(variance, dtype=np.float64)

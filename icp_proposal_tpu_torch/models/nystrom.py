@@ -7,19 +7,29 @@ Copy of ``icp_proposal_tpu/models/nystrom.py``'s ``nystrom_lowrank``:
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 
 def kernel_matrix(kernel, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
-    """Dense [3m, 3n] kernel matrix between point sets (blocked)."""
+    """Dense [3m, 3n] kernel matrix between point sets, in row blocks on
+    one thread per CPU (numpy's elementwise work releases the GIL).  Every
+    entry depends on its own pair only, so the blocking changes no value."""
     m, n = len(xs), len(ys)
     out = np.empty((m, 3, n, 3))
-    block = max(1, int(2e7 // (n * 9)))
-    for i0 in range(0, m, block):
+    workers = os.cpu_count() or 1
+    block = max(1, min(int(2e7 // (n * 9)), -(-m // workers)))
+
+    def fill(i0):
         i1 = min(i0 + block, m)
         out[i0:i1] = np.transpose(
             kernel(xs[i0:i1, None, :], ys[None, :, :]), (0, 2, 1, 3)
         )
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(fill, range(0, m, block)))
     return out.reshape(3 * m, 3 * n)
 
 

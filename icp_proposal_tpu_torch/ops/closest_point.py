@@ -1,15 +1,19 @@
 """Batched point→surface closest-point helpers (plain PyTorch).
 
 Counterpart of ``icp_proposal_tpu/ops/closest_point.py``.  The hot queries
-go through the K3/K4 kernels (``ops/closest_point_cuda.py``); this module
-holds the elementwise Ericson cascade (K4's twin and the winner recompute)
-and the dense nearest-vertex argmin (K3's twin).  Both round term by term
-in the Pallas kernels' order (``_tile_dist2``, closest_point_pallas.py:58-119),
-as the CUDA kernels compiled with -fmad=false do, so ids agree exactly.
+go through the kernels of ``ops/closest_point_cuda.py``: K3/K4 behind the
+shortlist index, K5 for the dense queries (``surface_distances_auto``).
+This module holds their plain versions: the elementwise Ericson cascade
+(K4's, and the winner recompute), the dense nearest-vertex argmin (K3's)
+and the dense point→triangle argmin (K5's).  All round term by term in the
+Pallas kernels' order (``_tile_dist2``, closest_point_pallas.py:58-119), as
+the CUDA kernels compiled with -fmad=false do, so ids agree exactly.
 """
 from __future__ import annotations
 
 import torch
+
+_DENSE_CHUNK = 1 << 24  # (chain, query, face) triples per block of the dense twin
 
 
 def _dot(a, b):
@@ -96,11 +100,71 @@ def nearest_vertices(queries, points):
     return torch.argmin(d2, dim=-1).to(torch.int32)  # first minimum on ties
 
 
+def surface_distances(queries, points, cells):
+    """Dense squared distance and nearest face of each query (K5's plain
+    version): queries [B, P, 3] or [P, 3] (shared by all chains), points
+    [V, 3] (shared) or [B, V, 3] (one mesh per chain), cells [F, 3] →
+    (d2 [B, P] float32, face_idx [B, P] int32); ties to the lowest face
+    index.  Works through the chains in blocks of at most ``_DENSE_CHUNK``
+    (chain, query, face) triples."""
+    q_batched, p_batched = queries.dim() == 3, points.dim() == 3
+    if not (q_batched or p_batched):
+        raise ValueError("surface_distances needs a chain dimension on the "
+                         "queries or on the points")
+    bsz = queries.shape[0] if q_batched else points.shape[0]
+    tri = points[..., cells.long(), :]  # [(B,) F, 3, 3]
+    if not p_batched:
+        tri = tri[None]
+    p, f = queries.shape[-2], cells.shape[0]
+    step = max(1, _DENSE_CHUNK // max(1, p * f))
+    d2s, ids = [], []
+    for lo in range(0, bsz, step):
+        hi = min(lo + step, bsz)
+        q = (queries[lo:hi] if q_batched else queries[None])[:, :, None, :]
+        t = (tri[lo:hi] if p_batched else tri)[:, None]  # [n, 1, F, 3, 3]
+        _, d2 = closest_point_on_triangle(q, t[..., 0, :], t[..., 1, :],
+                                          t[..., 2, :])  # [n, P, F]
+        d2s.append(torch.amin(d2, dim=-1))
+        ids.append(torch.argmin(d2, dim=-1).to(torch.int32))
+    return torch.cat(d2s), torch.cat(ids)
+
+
+def surface_distances_auto(queries, points, cells):
+    """Dense (d2, face_idx) through K5 (``closest_point_cuda.surface_distances``,
+    whose wrapper takes the plain version for tensors on the CPU); same
+    arguments as ``surface_distances``."""
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import surface_distances as k5
+
+    return k5(queries, points, cells)
+
+
+def _corners(points, cells, face_idx):
+    """Corners [B, P, 3, 3] of faces face_idx [B, P] on points [V, 3] or
+    [B, V, 3]; and their vertex ids [B, P, 3]."""
+    corner_ids = cells[face_idx.long()]  # [B, P, 3]
+    if points.dim() == 2:
+        return points[corner_ids], corner_ids
+    rows = torch.arange(points.shape[0], device=points.device)[:, None, None]
+    return points[rows, corner_ids], corner_ids
+
+
+def closest_points_on_surface(queries, points, cells):
+    """Full dense closest-point query (K5, then the winner's point):
+    same arguments as ``surface_distances`` → (cp [B, P, 3], d2 [B, P],
+    face_idx [B, P])."""
+    d2, fidx = surface_distances_auto(queries, points, cells)
+    tri, _ = _corners(points, cells, fidx)
+    q = queries if queries.dim() == 3 else queries.expand(d2.shape[0], -1, -1)
+    cp, _ = closest_point_on_triangle(q, tri[..., 0, :], tri[..., 1, :],
+                                      tri[..., 2, :])
+    return cp, d2, fidx
+
+
 def nearest_vertex_of_faces(cells, face_idx, cp, points):
     """Nearest of the 3 corners of each hit face to its closest point:
-    cells [F, 3], face_idx [B, P], cp [B, P, 3], points [V, 3] → [B, P]."""
-    corner_ids = cells[face_idx.long()]  # [B, P, 3]
-    corners = points[corner_ids]  # [B, P, 3, 3]
+    cells [F, 3], face_idx [B, P], cp [B, P, 3], points [V, 3] (shared) or
+    [B, V, 3] (one mesh per chain) → [B, P]."""
+    corners, corner_ids = _corners(points, cells, face_idx)  # [B, P, 3, 3]
     d2 = torch.sum((corners - cp[..., None, :]) ** 2, dim=-1)  # [B, P, 3]
     pick = torch.argmin(d2, dim=-1, keepdim=True)
     return torch.gather(corner_ids, -1, pick)[..., 0]

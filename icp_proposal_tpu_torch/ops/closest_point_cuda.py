@@ -1,14 +1,15 @@
-"""K3 ``nearest_vertices`` and K4 ``refine_shortlist``: wrappers and plain twins.
+"""K3 ``nearest_vertices``, K4 ``refine_shortlist`` and K5
+``surface_distances``: wrappers and plain twins.
 
-Counterpart of the nearest-vertex and shortlist-refine kernels of
-``icp_proposal_tpu/ops/closest_point_pallas.py``.  The kernels are in
+Counterpart of the nearest-vertex, shortlist-refine and dense-distance
+kernels of ``icp_proposal_tpu/ops/closest_point_pallas.py``.  The kernels are in
 ``csrc/closest_point.cu``, whose header says what bounds each on the H100
 and how its design answers that.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch twin; a tensor on a
 CUDA device launches the kernel or raises.  ``<wrapper>.launches`` counts
-kernel launches (the plain twin does not count); K3 also counts its
-per-chain-mode launches in ``nearest_vertices.per_chain_launches``.  The
+kernel launches (the plain twin does not count); K3 and K5 also count their
+per-chain-mode launches in ``<wrapper>.per_chain_launches``.  The
 twins round term by term in the kernels' order (``ops/closest_point.py``),
 so ids agree exactly, ties included.
 """
@@ -22,6 +23,7 @@ from icp_proposal_tpu_torch.ops import closest_point
 _NO_ID = 2 ** 30
 
 nearest_vertices_plain = closest_point.nearest_vertices
+surface_distances_plain = closest_point.surface_distances
 
 
 def nearest_vertices(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -115,3 +117,49 @@ def refine_shortlist(queries: torch.Tensor, coarse: torch.Tensor,
 
 
 refine_shortlist.launches = 0
+
+
+def surface_distances(queries: torch.Tensor, points: torch.Tensor,
+                      cells: torch.Tensor, cull: bool = False):
+    """Dense point→triangle min d² and nearest face per query, ties to the
+    lowest face index: queries [B, P, 3] or [P, 3] (shared by all chains),
+    points [V, 3] (shared) or [B, V, 3] (one mesh per chain), float32
+    contiguous; cells [F, 3] int32 contiguous → (d2 [B, P] float32,
+    face_idx [B, P] int32).
+
+    Kernel K5 (``csrc/closest_point.cu``) replaces ``_make_kernel`` /
+    ``_dist2_call`` in ``icp_proposal_tpu/ops/closest_point_pallas.py``.
+    Unlike ``pack_triangles``, it takes vertices and cells, not a triangle
+    soup, and gathers each 128-face tile's corners itself.  ``cull=True``
+    skips tiles whose bounding box cannot beat any query's running best
+    (``tile_bounds``; the reference's ``ICP_TPU_CULLING``), with the same
+    results.  Bound by FP32 throughput, ~100 operations per (query, face)
+    pair; one thread per query, faces through shared memory."""
+    q_batched, p_batched = queries.dim() == 3, points.dim() == 3
+    if not (q_batched or p_batched):
+        raise ValueError("surface_distances needs a chain dimension on the "
+                         "queries or on the points")
+    bsz = queries.shape[0] if q_batched else points.shape[0]
+    check_tensor(queries, "queries", torch.float32,
+                 (bsz, None, 3) if q_batched else (None, 3))
+    check_tensor(points, "points", torch.float32,
+                 (bsz, None, 3) if p_batched else (None, 3))
+    check_tensor(cells, "cells", torch.int32, (None, 3))
+    dev = kernel_device(queries, points, cells)
+    if dev.type == "cpu":
+        return surface_distances_plain(queries, points, cells)
+    if bsz > 65535:
+        raise ValueError(f"surface_distances takes at most 65,535 chains, got {bsz}")
+    p = queries.shape[-2]
+    d2 = torch.empty((bsz, p), dtype=torch.float32, device=dev)
+    idx = torch.empty((bsz, p), dtype=torch.int32, device=dev)
+    launch("icp_surface_distances", dev, queries.data_ptr(), points.data_ptr(),
+           cells.data_ptr(), d2.data_ptr(), idx.data_ptr(), bsz, p, points.shape[-2],
+           cells.shape[0], int(q_batched), int(p_batched), int(cull))
+    surface_distances.launches += 1
+    surface_distances.per_chain_launches += int(p_batched)
+    return d2, idx
+
+
+surface_distances.launches = 0
+surface_distances.per_chain_launches = 0

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.ops.closest_point import closest_point_on_triangle
 from icp_proposal_tpu_torch.ops.closest_point_cuda import (
     nearest_vertices,
@@ -126,8 +127,10 @@ def build_shortlist(points, cells, k: int = INDEX_K):
 
 
 def build_surface_index(points, cells, k: int = INDEX_K,
-                        device="cpu") -> SurfaceIndex:
-    """Build the shortlist index on the host and place it on ``device``."""
+                        device=DEFAULT_DEVICE) -> SurfaceIndex:
+    """Build the shortlist index on the host and place it on ``device`` (the
+    card unless ``device="cpu"``)."""
+    device = resolve_device(device)
     cand, cand_tri = build_shortlist(points, cells, k)
     points = np.asarray(points, np.float32)
     return SurfaceIndex(

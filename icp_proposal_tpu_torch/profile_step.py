@@ -1,0 +1,93 @@
+"""Device-time breakdown of one MH setup's step on the card, by kernel.
+
+    python3 -m icp_proposal_tpu_torch.profile_step --setup bfm-partial
+    python3 -m icp_proposal_tpu_torch.profile_step --setup femur
+
+Builds the setup at its full width (femur stand-in GPMM-100, or the rank-200
+face stand-in with the partial-face setup), runs 3 warm-up steps of 2,048
+chains, then 5 steps under ``torch.profiler`` and prints, on one line each: the wall time per step, the device busy time per
+step (the sum of kernel durations; the port runs on one stream), the busy
+share, the number of device operations per step, and the device time per
+step of every kernel name, largest first.  The same window unprofiled is
+timed first, so the profiler's own cost shows.  Exits non-zero without a
+CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+N_CHAINS, WARMUP_STEPS, STEPS = 2048, 3, 5
+
+
+def _setup(name: str, device):
+    if name == "femur":
+        from icp_proposal_tpu_torch.apps.femur import (
+            load_standin_femur_data,
+            make_icp_proposal_setup,
+        )
+
+        data = load_standin_femur_data(device=device)
+        return data.model, make_icp_proposal_setup(data)
+    from icp_proposal_tpu_torch.apps.bfm import (
+        load_synthetic_face_data,
+        make_bfm_fitting_setup,
+    )
+
+    data = load_synthetic_face_data(rank=200, subdiv=4, device=device)
+    return data.model, make_bfm_fitting_setup(data, partial=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--setup", choices=("femur", "bfm-partial"),
+                        default="bfm-partial")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp_proposal_tpu_torch.sampling import mh
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    dev = torch.device("cuda", 0)
+    model, (_, mixture, evaluator) = _setup(args.setup, dev)
+    step = mh.make_mh_step(model, mixture, evaluator)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    carry = mh.init_carry(model, evaluator, init_state(model, N_CHAINS), mixture)
+    carry, _ = mh.run_chains(step, carry, WARMUP_STEPS, gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    carry, _ = mh.run_chains(step, carry, STEPS, gen)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t) / STEPS
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        carry, _ = mh.run_chains(step, carry, STEPS, gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t) / STEPS
+    by_name, n_ops = defaultdict(float), 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] += ev.device_time_total / 1e3 / STEPS  # µs → ms
+            n_ops += 1
+    busy = sum(by_name.values())
+    print(f"[profile] {args.setup}: {N_CHAINS} chains x {STEPS} steps; "
+          f"{torch.cuda.get_device_name(0)}")
+    print(f"[profile] wall {wall_ms:.3f} ms/step profiled, {plain_ms:.3f} unprofiled; "
+          f"device busy {busy:.3f} ms/step, busy share {busy / wall_ms:.3f} of the "
+          f"profiled wall, {busy / plain_ms:.3f} of the unprofiled; "
+          f"{n_ops / STEPS:.0f} device operations per step")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {ms:9.3f} ms/step  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.mesh import TriangleMesh, boundary_vertex_mask
 from icp_proposal_tpu_torch.ops.morton import morton_sort_faces
 from icp_proposal_tpu_torch.ops.surface_index import (
@@ -27,11 +28,12 @@ class TargetContext:
 
 
 def build_target_context(target: TriangleMesh, boundary_mask=None,
-                         device="cpu") -> TargetContext:
+                         device=DEFAULT_DEVICE) -> TargetContext:
     """Morton-sort the faces (as the reference does) and build the K = 64
     face shortlist index, always: it is how the card answers closest-point
     queries until the dense kernel K5 is ported."""
-    points = np.asarray(target.points, np.float32)
+    device = resolve_device(device)
+    points = np.array(target.points, np.float32)  # a writable copy
     cells = np.asarray(target.cells)
     if boundary_mask is None:
         boundary_mask = boundary_vertex_mask(cells, len(points))

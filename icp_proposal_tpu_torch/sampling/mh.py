@@ -41,12 +41,15 @@ class _FusionPlan(NamedTuple):
 
 def _fusion_plan(mixture: MixtureProgram, evaluator: EvaluatorProgram):
     """The fused-query plan, or None when the configuration doesn't allow
-    sharing (different contexts, no m2t spec, ICP ids not a subset)."""
+    sharing (different contexts, no Euclidean spec with a model→target
+    term, ICP ids not a subset).  The collective evaluator of the BFM
+    partial setup has no such term: that setup runs unfused, as in the
+    reference."""
     if evaluator.ctx is not mixture.ctx:
         return None
     spec = next((s for s in evaluator.specs
                  if isinstance(s, IndependentPointsSpec)
-                 and s.mode == "model_to_target"), None)
+                 and s.mode in ("model_to_target", "symmetric")), None)
     if spec is None:
         return None
     eval_ids = np.asarray(evaluator.model_ids(spec.name))
@@ -87,8 +90,9 @@ class ChainRecord(NamedTuple):
 
 
 class StepNoise(NamedTuple):
-    """All randomness of one step: standard normals per component, the
-    selected component and log u of the accept test."""
+    """All randomness of one step: standard normals per component (a pose
+    component reads its one scalar at z[:, c, 0]), the selected component
+    and log u of the accept test."""
 
     z: torch.Tensor  # [B, C, r]
     idx: torch.Tensor  # [B] int64

@@ -1,8 +1,8 @@
 """Proposal generators and their mixture, batched over chains.
 
-Counterpart of ``icp_proposal_tpu/sampling/proposals.py`` for the slice's
-mixture: the informed ICP proposal in both directions and the random-shape
-walk.  As in the reference, the mixture is evaluated densely: every
+Counterpart of ``icp_proposal_tpu/sampling/proposals.py`` for the ported
+mixtures: the informed ICP proposal in both directions, the random-shape
+walk and the single-axis random pose walks.  As in the reference, the mixture is evaluated densely: every
 component proposes for every chain, one is selected per chain, and the
 transition density is the logsumexp over components of log w_c + log q_c,
 with −∞ where a component cannot reach the state (pose or scale changed).
@@ -26,6 +26,7 @@ from icp_proposal_tpu_torch.sampling.context import TargetContext
 from icp_proposal_tpu_torch.sampling.state import FitState, pose_inverse_apply
 
 _LOG_2PI = math.log(2.0 * math.pi)
+_MODEL_SEED = 1024  # the reference's ICP model subset seed
 _TARGET_SEED = 1025  # the reference's ICP target subset seed (1024 + 1)
 
 
@@ -38,6 +39,33 @@ class RandomShapeSpec:
     @property
     def name(self):
         return f"RandomShape-{self.sigma}"
+
+
+@dataclass(frozen=True)
+class RotationSpec:
+    """Single-axis Euler-angle random walk (reference
+    ``GaussianAxisRotationProposal``). axis: 0=Roll(φ), 1=Pitch(θ), 2=Yaw(ψ)."""
+
+    axis: int
+    sigma: float = 0.01
+
+    @property
+    def name(self):
+        label = ("RotationRoll", "RotationPitch", "RotationYaw")[self.axis]
+        return f"{label}-{self.sigma}"
+
+
+@dataclass(frozen=True)
+class TranslationSpec:
+    """Single-axis translation random walk (reference
+    ``GaussianAxisTranslationProposal``). axis: 0=X, 1=Y, 2=Z."""
+
+    axis: int
+    sigma: float = 0.1
+
+    @property
+    def name(self):
+        return f"Translation{'XYZ'[self.axis]}-{self.sigma}"
 
 
 @dataclass(frozen=True)
@@ -60,7 +88,8 @@ class IcpSpec:
         return f"IcpProposal-{label}-{self.step_length}Step"
 
 
-ProposalSpec = Union[RandomShapeSpec, IcpSpec]
+ProposalSpec = Union[RandomShapeSpec, RotationSpec, TranslationSpec, IcpSpec]
+_POSE_SPECS = (RotationSpec, TranslationSpec)
 
 
 def mixed_proposal_icp(n_points: int, projection_direction: str = "model_and_target",
@@ -79,6 +108,21 @@ def mixed_proposal_icp(n_points: int, projection_direction: str = "model_and_tar
     if projection_direction == "model":
         return [(1.0, icp("model"))]
     return [(0.5, icp("target")), (0.5, icp("model"))]
+
+
+def mixed_random_pose_proposal(rot_yaw=0.01, rot_pitch=0.01, rot_roll=0.01,
+                               trans_x=0.1, trans_y=0.1, trans_z=0.1,
+                               ) -> List[Tuple[float, ProposalSpec]]:
+    """Reference ``mixedRandomPoseProposal`` (:29-39): equal-weight 6-way."""
+    w = 1.0 / 6.0
+    return [
+        (w, RotationSpec(axis=2, sigma=rot_yaw)),
+        (w, RotationSpec(axis=1, sigma=rot_pitch)),
+        (w, RotationSpec(axis=0, sigma=rot_roll)),
+        (w, TranslationSpec(axis=0, sigma=trans_x)),
+        (w, TranslationSpec(axis=1, sigma=trans_y)),
+        (w, TranslationSpec(axis=2, sigma=trans_z)),
+    ]
 
 
 def mixed_random_shape_proposal(steps=(0.1,)) -> List[Tuple[float, ProposalSpec]]:
@@ -104,6 +148,18 @@ def _pose_scale_equal(a: FitState, b: FitState) -> torch.Tensor:
             & torch.all(a.rot == b.rot, dim=-1)
             & torch.all(a.trans == b.trans, dim=-1)
             & torch.all(a.center == b.center, dim=-1))
+
+
+def _all_but_axis_equal(a: FitState, b: FitState, field: str, axis: int):
+    """[B] bool: everything but component ``axis`` of ``field`` ("rot" or
+    "trans") agrees exactly (the reference's cross-block −∞ check,
+    ``_all_but_rot_axis_equal`` and ``_all_but_trans_axis_equal``)."""
+    keep = torch.arange(3, device=a.rot.device) != axis
+    same = {name: torch.all(getattr(a, name) == getattr(b, name), dim=-1)
+            for name in ("rot", "trans", "center", "coeffs")}
+    same[field] = torch.all((getattr(a, field) == getattr(b, field)) | ~keep, dim=-1)
+    return (a.scale == b.scale) & same["rot"] & same["trans"] & same["center"] \
+        & same["coeffs"]
 
 
 def _guard(cond, logp):
@@ -210,18 +266,20 @@ class MixtureProgram:
 
     ``icp_model_ids``: the model vertices every ICP component observes (the
     flagship setup passes a subset of the evaluator's, so one closest-point
-    pass serves both); target vertices are the reference's seeded subset."""
+    pass serves both); None takes the reference's seeded, Morton-ordered
+    subset (seed 1024).  Target vertices are the reference's seeded subset
+    (seed 1025)."""
 
     def __init__(self, weighted_specs, gpmm, ctx: TargetContext, model_boundary,
-                 icp_model_ids, adapt=None):
+                 icp_model_ids=None, adapt=None):
         if adapt is not None:
             raise NotImplementedError(
                 "scale adaptation is not ported yet (ROADMAP queue 1, slice 7)")
         for _, s in weighted_specs:
-            if not isinstance(s, (IcpSpec, RandomShapeSpec)):
+            if not isinstance(s, (IcpSpec, RandomShapeSpec) + _POSE_SPECS):
                 raise NotImplementedError(
                     f"{type(s).__name__} is not ported yet (ROADMAP queue 1: "
-                    f"MALA is slice 7, pose proposals slice 8)")
+                    f"MALA is slice 7)")
         total = sum(w for w, _ in weighted_specs)
         self.weights = [w / total for w, _ in weighted_specs]
         self.specs = [s for _, s in weighted_specs]
@@ -231,17 +289,21 @@ class MixtureProgram:
                                                    device=gpmm.device))
         self.icp_components = {}
         tpts = ctx.points.cpu().numpy()
+        ref = gpmm.ref_points.cpu().numpy()
         for i, s in enumerate(self.specs):
             if not isinstance(s, IcpSpec):
                 continue
-            if len(icp_model_ids) < s.n_points:
+            model_ids = (morton_sort_ids(ref, seeded_vertex_subset(
+                gpmm.num_points, s.n_points, _MODEL_SEED))
+                if icp_model_ids is None else icp_model_ids)
+            if len(model_ids) < s.n_points:
                 raise ValueError(
-                    f"icp_model_ids has {len(icp_model_ids)} ids but {s.name} "
+                    f"icp_model_ids has {len(model_ids)} ids but {s.name} "
                     f"declares n_points={s.n_points}")
             target_ids = morton_sort_ids(
                 tpts, seeded_vertex_subset(len(tpts), s.n_points, _TARGET_SEED))
             self.icp_components[i] = IcpComponent(
-                s, gpmm, ctx, model_boundary, np.asarray(icp_model_ids[: s.n_points]),
+                s, gpmm, ctx, model_boundary, np.asarray(model_ids[: s.n_points]),
                 target_ids)
 
     @property
@@ -257,13 +319,19 @@ class MixtureProgram:
 
     def propose_all(self, state: FitState, factors_cur,
                     z: torch.Tensor) -> List[FitState]:
-        """One candidate per component from standard normals z [B, C, r]."""
+        """One candidate per component from standard normals z [B, C, r]; a
+        pose component reads its scalar draw at z[:, c, 0]."""
         candidates = []
         for i, spec in enumerate(self.specs):
             if isinstance(spec, IcpSpec):
                 cand = self.icp_components[i].propose(state, factors_cur[i], z[:, i])
-            else:
+            elif isinstance(spec, RandomShapeSpec):
                 cand = state._replace(coeffs=state.coeffs + spec.sigma * z[:, i])
+            else:
+                field = "rot" if isinstance(spec, RotationSpec) else "trans"
+                moved = getattr(state, field).clone()
+                moved[:, spec.axis] += spec.sigma * z[:, i, 0]
+                cand = state._replace(**{field: moved})
             candidates.append(cand)
         return candidates
 
@@ -275,11 +343,19 @@ class MixtureProgram:
             if isinstance(spec, IcpSpec):
                 lq = self.icp_components[i].log_q(from_state, to_state,
                                                   factors_from[i])
-            else:
+            elif isinstance(spec, RandomShapeSpec):
                 delta = to_state.coeffs - from_state.coeffs
                 r = delta.shape[-1]
                 logp = (-0.5 * torch.sum((delta / spec.sigma) ** 2, dim=-1)
                         - r * math.log(spec.sigma) - 0.5 * r * _LOG_2PI)
                 lq = _guard(_pose_scale_equal(from_state, to_state), logp)
+            else:
+                field = "rot" if isinstance(spec, RotationSpec) else "trans"
+                delta = (getattr(to_state, field)[:, spec.axis]
+                         - getattr(from_state, field)[:, spec.axis])
+                logp = (-0.5 * (delta / spec.sigma) ** 2 - math.log(spec.sigma)
+                        - 0.5 * _LOG_2PI)
+                lq = _guard(_all_but_axis_equal(from_state, to_state, field,
+                                                spec.axis), logp)
             comps.append(self._log_weights[i] + lq)
         return torch.logsumexp(torch.stack(comps), dim=0)

@@ -187,7 +187,7 @@ def test_index_closest_matches_jax(ref):
 
     ctx = convert.context_from_arrays(
         *(ref[f"ctx_{n}"] for n in ("points", "cells", "tri", "boundary",
-                                    "cand", "cand_tri")))
+                                    "cand", "cand_tri")), device="cpu")
     cp, d2, fidx = index_closest(ctx.index, _t(ref["fem_q"]))
     np.testing.assert_array_equal(fidx.numpy(), ref["ic_fidx"])
     np.testing.assert_allclose(d2.numpy(), ref["ic_d2"], rtol=1e-5)
@@ -202,7 +202,7 @@ def test_port_index_build_matches_reference_context(ref):
     from icp_proposal_tpu_torch.sampling.context import build_target_context
 
     tp, tc = read_stl(STANDIN / "map.stl")
-    ctx = build_target_context(make_mesh(tp, tc))
+    ctx = build_target_context(make_mesh(tp, tc), device="cpu")
     np.testing.assert_array_equal(ctx.cells.numpy(), ref["ctx_cells"])
     np.testing.assert_array_equal(ctx.boundary.numpy(), ref["ctx_boundary"])
     np.testing.assert_array_equal(ctx.index.cand.numpy(), ref["ctx_cand"])

@@ -34,7 +34,8 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 def models():
     points, cells = read_stl(STANDIN / "mean.stl")
     jm = build_femur_gpmm(points, cells, 100)
-    pm = convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in jm._asdict().items()})
+    pm = convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in jm._asdict().items()},
+                                 device="cpu")
     return jm, pm
 
 
@@ -48,7 +49,7 @@ def _states(r, seed=0):
         coeffs=rng.randn(B, r).astype(np.float32),
     )
     return jstate.FitState(**{k: jnp.asarray(v) for k, v in arrays.items()}), \
-        convert.state_from_arrays(**arrays)
+        convert.state_from_arrays(**arrays, device="cpu")
 
 
 def test_decode_pose_and_prior(models):

@@ -50,7 +50,7 @@ def _jax_standin(monkeypatch):
 
 def _port_standin(jdata, fuse=True):
     model = convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in
-                                        jdata.model._asdict().items()})
+                                        jdata.model._asdict().items()}, device="cpu")
     data = pfemur.FemurData(
         model=model, target=jdata.target,
         target_boundary_mask=jdata.target_boundary_mask,
@@ -63,10 +63,11 @@ def _port_standin(jdata, fuse=True):
 def _port_carry(jc):
     st = jc.state
     state = convert.state_from_arrays(
-        *(np.asarray(x) for x in (st.scale, st.rot, st.trans, st.center, st.coeffs)))
+        *(np.asarray(x) for x in (st.scale, st.rot, st.trans, st.center, st.coeffs)),
+        device="cpu")
     return convert.carry_from_arrays(
         state, np.asarray(jc.log_post), np.asarray(jc.named),
-        [tuple(np.asarray(a) for a in f) for f in jc.icp_factors])
+        [tuple(np.asarray(a) for a in f) for f in jc.icp_factors], device="cpu")
 
 
 def test_one_step_parity_full_width(monkeypatch):
@@ -126,7 +127,7 @@ def test_one_step_parity_full_width(monkeypatch):
 def test_fused_step_matches_unfused():
     """One fused closest-point pass gives bitwise the same chain as the
     separate ICP and evaluator passes."""
-    data = pfemur.load_standin_femur_data()
+    data = pfemur.load_standin_femur_data(device="cpu")
     ctx, mixture, evaluator = pfemur.make_icp_proposal_setup(data)
     plan = pmh._fusion_plan(mixture, evaluator)
     assert plan is not None and len(plan.icp_maps) == 1  # model direction only
@@ -150,20 +151,29 @@ def test_fused_step_matches_unfused():
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a CPU step leaves jax and the JAX
-    package out of sys.modules."""
+    """Importing every module of the port and running a CPU step of the
+    femur and the BFM partial setups leaves jax and the JAX package out of
+    sys.modules."""
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import icp_proposal_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from icp_proposal_tpu_torch.apps.bfm import load_synthetic_face_data, "
+        "make_bfm_fitting_setup\n"
         "from icp_proposal_tpu_torch.apps.femur import load_standin_femur_data, "
         "make_icp_proposal_setup\n"
         "from icp_proposal_tpu_torch.sampling import mh\n"
         "from icp_proposal_tpu_torch.sampling.state import init_state\n"
-        "data = load_standin_femur_data()\n"
-        "ctx, mix, ev = make_icp_proposal_setup(data)\n"
-        "step = mh.make_mh_step(data.model, mix, ev)\n"
-        "carry = mh.init_carry(data.model, ev, init_state(data.model, 2), mix)\n"
-        "carry, rec = step(carry, generator=torch.Generator().manual_seed(0))\n"
-        "assert torch.isfinite(carry.log_post).all()\n"
+        "for data, setup in ((load_standin_femur_data(device='cpu'), "
+        "make_icp_proposal_setup),\n"
+        "                    (load_synthetic_face_data(8, 2, device='cpu'), "
+        "lambda d: make_bfm_fitting_setup(d, partial=True))):\n"
+        "    ctx, mix, ev = setup(data)\n"
+        "    step = mh.make_mh_step(data.model, mix, ev)\n"
+        "    carry = mh.init_carry(data.model, ev, init_state(data.model, 2), mix)\n"
+        "    carry, rec = step(carry, generator=torch.Generator().manual_seed(0))\n"
+        "    assert torch.isfinite(carry.log_post).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_proposal_tpu' or m.startswith('icp_proposal_tpu.')]\n"
         "print('LOADED', bad)\n"
