@@ -8,21 +8,29 @@ Phases (each prints one line or a short block, and ends in
 1. device        the card, torch/CUDA/nvcc versions, name and power limit;
 2. build         nvcc builds every kernel in icp_proposal_tpu_torch/csrc into
                  build/, one compiler per source, all started together;
-3. kernels       K1–K4 against their plain PyTorch twins on the card at the
-                 femur path's per-chain shapes on 256 chains, with times;
+3. kernels       K1–K4 and K8 against their plain PyTorch twins on the card
+                 at the femur path's per-chain shapes on 256 chains, with
+                 times; K8's anchors against K3's under a rounding bound;
 4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
                  MH step at 2,048 chains through the kernels: warm-up, then
                  timed steps, with each kernel's launch count;
 5. check         8 chains stepped on the card and on the CPU (plain twins)
                  from the same carry with the same noise must agree;
-6. setup:bfm     the synthetic face stand-in at rank 200 (host build timed)
+6. main:registration  the femur registration entry point
+                 (``run_icp_proposal_registration``, flagship setup, coarse
+                 pass K8) at 2,048 chains: a warm-up run, a timed run of 3
+                 segments of 20 steps with a JSON log, reconstruction
+                 metrics (K5) and diagnostics, a resume from the log; then
+                 the step with coarse="exact" against coarse="dot";
+7. check:dot     as 5, for the flagship setup with coarse="dot";
+8. setup:bfm     the synthetic face stand-in at rank 200 (host build timed)
                  and the BFM partial-face fitting setup;
-7. kernels:bfm   K5 (shared and per-chain surfaces), K6 and K7 at r = 200
+9. kernels:bfm   K5 (shared and per-chain surfaces), K6 and K7 at r = 200
                  against their twins at the BFM path's shapes on 256 chains;
                  K1 at r = 200 timed beside K6;
-8. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
+10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
                  timed steps, launch counts;
-9. check:bfm     as 5, for the BFM partial setup.
+11. check:bfm    as 5, for the BFM partial setup.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  Then one JSON line with every kernel's numbers, and as
@@ -34,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N_CHAINS = 2048
 WARMUP_STEPS = 3
@@ -41,9 +50,17 @@ TIMED_STEPS = 20
 BFM_RANK, BFM_SUBDIV = 200, 4
 BFM_WARMUP_STEPS = 2
 BFM_TIMED_STEPS = 10
+REG_WARMUP_STEPS = 3
+REG_SEGMENT, REG_SEGMENTS = 20, 3  # the timed registration run: 3 segments of 20
+REG_CMP_STEPS = 10  # steps per turn of the coarse="exact" / "dot" comparison
 CMP_CHAINS = 256
 KERNEL_REPS = 20
-TOL = 1e-4  # K1/K2/K6/K7: |got − want| ≤ TOL + TOL·|want|; K3/K4/K5 ids, values: exact
+TOL = 1e-4  # K1/K2/K6/K7: |got − want| ≤ TOL + TOL·|want|; K3/K4/K5/K8 ids, values: exact
+# K8 against K3: a K8 anchor's true d² may exceed the exact minimum by at
+# most GAP_ULPS·(‖q‖ + maxᵥ‖v‖)², a rounding bound for the dot form's six
+# float32 operations (about 0.1 mm² at femur scale)
+GAP_ULPS = 2.0 ** -21
+BUILD = Path(__file__).resolve().parent / "build"
 
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -57,16 +74,28 @@ PEAK_HBM_BYTES = 3.35e12
 # it are lower bounds
 PAIR_FLOPS = 82
 NV_PAIR_FLOPS = 8  # nearest vertex: 3 differences, 3 products, 2 sums
+DOT_PAIR_FLOPS = 6  # dot-form nearest vertex: 3 products, 3 sums
 
 FEMUR_STEP_LAUNCHES = {"chol_solve": 2, "tri_solve_lt": 2, "nearest_vertices[shared]": 1,
                        "nearest_vertices[per_chain]": 1, "refine_shortlist": 1,
                        "surface_distances[shared]": 0,
                        "surface_distances[per_chain]": 0, "chol_solve_blocked": 0,
-                       "tri_solve_lt_blocked": 0}
+                       "tri_solve_lt_blocked": 0, "coarse_nearest_dot": 0}
 BFM_STEP_LAUNCHES = {"chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 1,
                      "nearest_vertices[per_chain]": 0, "refine_shortlist": 1,
                      "surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
-                     "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1}
+                     "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1,
+                     "coarse_nearest_dot": 0}
+# the femur step with coarse="dot": K8 takes the shared coarse pass from K3
+REG_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 0,
+                                                 "coarse_nearest_dot": 1})
+# launches of one verbose registration run outside its steps: the initial
+# carry's unfused queries (evaluator and model-direction ICP: K8 + K4 each;
+# target-direction ICP: K3 per chain; two factorizations) and the four K5
+# queries of the reconstruction metrics
+REG_RUN_LAUNCHES = {"coarse_nearest_dot": 2, "refine_shortlist": 2,
+                    "nearest_vertices[per_chain]": 1, "chol_solve": 2,
+                    "surface_distances[shared]": 4}
 SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     "chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
     "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
@@ -82,6 +111,8 @@ SOURCES = {  # record → (source in the port, TPU kernel it replaces)
                                      "icp_proposal_tpu/ops/closest_point_pallas.py:122"),
     "chol_solve_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:145"),
     "tri_solve_lt_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:293"),
+    "coarse_nearest_dot": ("csrc/closest_point.cu",
+                           "icp_proposal_tpu/ops/closest_point_pallas.py:465"),
 }
 VALUE_TOL = {"chol_solve", "tri_solve_lt", "chol_solve_blocked", "tri_solve_lt_blocked"}
 
@@ -190,8 +221,27 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
     return rec_f, rec_s, (m, rhs)
 
 
-def phase_kernels(torch, dev, data, ctx):
-    """K1–K4 against the plain twins at the femur path's shapes."""
+def _anchor_gaps(torch, q, points, ids, ids_exact, chunk=16):
+    """How far K8's anchors ``ids`` fall from the exact nearest vertex, in
+    float64: (number of anchors that differ from ``ids_exact``, max of the
+    anchor's d² − the exact minimum d², max of that gap over its rounding
+    bound GAP_ULPS·(‖q‖ + maxᵥ‖v‖)²)."""
+    p64, vmax = points.double(), float(points.double().norm(dim=-1).max())
+    gap_max = ratio_max = 0.0
+    for lo in range(0, q.shape[0], chunk):
+        q64 = q[lo:lo + chunk].double()
+        d2 = ((q64[:, :, None, :] - p64) ** 2).sum(-1)  # [n, P, V]
+        got = torch.gather(d2, -1, ids[lo:lo + chunk, :, None].long())[..., 0]
+        gap = got - d2.amin(-1)
+        bound = GAP_ULPS * (q64.norm(dim=-1) + vmax) ** 2
+        gap_max = max(gap_max, float(gap.max()))
+        ratio_max = max(ratio_max, float((gap / bound).max()))
+    return int((ids != ids_exact).sum()), gap_max, ratio_max
+
+
+def phase_kernels(torch, dev, data, ctx, ctx_dot):
+    """K1–K4 and K8 against the plain twins at the femur path's shapes; K8's
+    anchors against K3's."""
     import numpy as np
 
     from icp_proposal_tpu_torch.ops import chol_cuda as cc
@@ -234,6 +284,21 @@ def phase_kernels(torch, dev, data, ctx):
         lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri),
         _nbytes(q, nv, idx.cand, idx.cand_tri, f, w),
         PAIR_FLOPS * q.shape[0] * q.shape[1] * idx.k)
+
+    # K8: the dot-form coarse pass of ctx_dot's index on the same queries
+    va = ctx_dot.index.points_aug
+    ids8, ids8_p = cp.coarse_nearest_dot(q, va), cp.coarse_nearest_dot_plain(q, va)
+    _sync(torch)
+    records["coarse_nearest_dot"] = _record(
+        torch, *_id_errors(ids8, ids8_p), lambda: cp.coarse_nearest_dot(q, va),
+        lambda: cp.coarse_nearest_dot_plain(q, va), _nbytes(q, va, ids8),
+        DOT_PAIR_FLOPS * q.shape[0] * q.shape[1] * va.shape[0])
+    n_diff, gap, ratio = _anchor_gaps(torch, q, ctx_dot.index.points, ids8, nv)
+    print(f"[kernels] coarse_nearest_dot vs nearest_vertices[shared]: {n_diff} of "
+          f"{nv.numel()} anchors differ; largest true-d² gap above the exact minimum "
+          f"{gap:.3g} mm², {ratio:.3g} of its bound 2^-21·(‖q‖ + max‖v‖)²")
+    if ratio > 1.0:
+        raise AssertionError("K8 anchors exceed the rounding bound of the dot form")
     return records
 
 
@@ -303,7 +368,8 @@ def _wrappers():
 
     return (chol_cuda.chol_solve, chol_cuda.tri_solve_lt, chol_cuda.chol_solve_blocked,
             chol_cuda.tri_solve_lt_blocked, closest_point_cuda.nearest_vertices,
-            closest_point_cuda.refine_shortlist, closest_point_cuda.surface_distances)
+            closest_point_cuda.refine_shortlist, closest_point_cuda.surface_distances,
+            closest_point_cuda.coarse_nearest_dot)
 
 
 def _reset_counts():
@@ -346,13 +412,117 @@ def phase_main(torch, dev, tag, model, mixture, evaluator, warmup, timed, per_st
     print(f"[{tag}] {N_CHAINS} chains x {timed} steps in {dt:.3f} s: "
           f"{N_CHAINS * timed / dt:.1f} samples/s, {1e3 * dt / timed:.2f} ms/step, "
           f"acceptance {acc:.4f}; launches {launches}")
-    for name, n in per_step.items():
-        if launches[name] != n * timed:
-            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
-                                 f"expected {n} per step")
+    _check_launches(tag, launches, per_step, timed)
     if not torch.isfinite(carry.log_post).all():
         raise AssertionError(f"{tag}: non-finite log_post after the main path")
     print(f"[{tag}] log_post finite; mean {float(carry.log_post.mean()):.3f}")
+    return launches
+
+
+def _check_launches(tag, launches, per_step, steps, outside=None):
+    outside = outside or {}
+    for name, n in per_step.items():
+        want = n * steps + outside.get(name, 0)
+        if launches[name] != want:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
+                                 f"expected {want} ({n} per step)")
+
+
+def phase_registration(torch, dev, data):
+    """The registration entry point at ``N_CHAINS`` chains with the
+    flagship setup and coarse="dot": warm-up, a timed run with a JSON log
+    (launch counts asserted), a resume from the log, and the step's time
+    with coarse="exact" against coarse="dot" on the same chains → counts."""
+    import math
+
+    from icp_proposal_tpu_torch.apps.femur import (
+        make_icp_proposal_setup,
+        run_icp_proposal_registration,
+    )
+    from icp_proposal_tpu_torch.mesh import boundary_vertex_mask
+    from icp_proposal_tpu_torch.registration.comparison import (
+        evaluate_reconstruction,
+        evaluate_reconstruction_boundary_aware,
+    )
+    from icp_proposal_tpu_torch.sampling import diagnostics, loggers, mh
+    from icp_proposal_tpu_torch.sampling.state import transformed_mesh
+
+    tag = "main:registration"
+    common = dict(setup="flagship", coarse="dot", n_chains=N_CHAINS, data=data,
+                  accept_info_interval=REG_SEGMENT)
+    run_icp_proposal_registration(num_samples=REG_WARMUP_STEPS, verbose=False, **common)
+    _sync(torch)
+    BUILD.mkdir(exist_ok=True)
+    log = BUILD / "registration_log.json"
+    n_steps = REG_SEGMENT * REG_SEGMENTS
+    _reset_counts()
+    t = time.perf_counter()
+    result, _ = run_icp_proposal_registration(num_samples=n_steps, json_path=str(log),
+                                              seed=7, verbose=True, **common)
+    _sync(torch)
+    dt = time.perf_counter() - t
+    launches = _read_counts()
+    print(f"[{tag}] run_icp_proposal_registration(setup='flagship', coarse='dot'): "
+          f"{N_CHAINS} chains x {n_steps} steps in {REG_SEGMENTS} segments; "
+          f"FittingResult.samples_per_sec {result.samples_per_sec:.1f}; the whole call "
+          f"{dt:.3f} s (setup and metrics included); launches {launches}")
+    _check_launches(tag, launches, REG_STEP_LAUNCHES, n_steps, REG_RUN_LAUNCHES)
+    print(f"[{tag}] launches per step: " + ", ".join(
+        f"{name} {(launches[name] - REG_RUN_LAUNCHES.get(name, 0)) / n_steps:g}"
+        for name in ("coarse_nearest_dot", "nearest_vertices[shared]",
+                     "nearest_vertices[per_chain]", "refine_shortlist")))
+    print(f"[{tag}] acceptance {json.dumps(result.acceptance)}")
+    if len(result.json_records) != n_steps or len(loggers.load_log(log)) != n_steps:
+        raise AssertionError(f"{tag}: the JSON log must hold {n_steps} records")
+    best_mesh = transformed_mesh(data.model, result.best_state)
+    avg, hd = evaluate_reconstruction("SAMPLE", best_mesh, data.target, verbose=False)
+    mask = boundary_vertex_mask(data.target.cells, len(data.target.points))
+    b_avg, b_max = evaluate_reconstruction_boundary_aware("Sampling", best_mesh,
+                                                          data.target, mask, verbose=False)
+    coeffs = torch.as_tensor(result.records.coeffs[..., :5], device=dev)
+    rhat = diagnostics.split_rhat(coeffs).tolist()
+    ess = diagnostics.ess(coeffs).tolist()
+    print(f"[{tag}] best log value {result.best_log_value:.4f}; reconstruction average "
+          f"{avg:.4f} mm, Hausdorff {hd:.4f} mm; boundary-aware average {b_avg:.4f} mm, "
+          f"max {b_max:.4f} mm")
+    print(f"[{tag}] split-R̂ of coefficients 0-4 over the run "
+          f"{[round(x, 4) for x in rhat]}; ESS {[round(x, 1) for x in ess]}")
+    if not all(math.isfinite(x) for x in (result.best_log_value, avg, hd, b_avg, b_max,
+                                          *rhat, *ess)):
+        raise AssertionError(f"{tag}: non-finite result")
+
+    # resume from the log's last accepted record
+    resumed, _ = run_icp_proposal_registration(
+        num_samples=REG_SEGMENT, resume_log=str(log), resume_mode="last", verbose=False,
+        **common)
+    want = loggers.state_from_log(loggers.load_log(log), "last", device=dev)
+    for got, w in zip(resumed.initial_state, want):
+        if not torch.equal(got, w.expand_as(got)):
+            raise AssertionError(f"{tag}: the resumed run did not start from the "
+                                 "log's last accepted state")
+    print(f"[{tag}] resume_mode='last': {N_CHAINS} chains started from the log's last "
+          f"accepted record; {REG_SEGMENT} steps, acceptance "
+          f"{resumed.acceptance['overall']:.4f}")
+
+    # the femur step with the exact and the dot-form coarse pass, same chains
+    ms = {"exact": [], "dot": []}
+    runs = {}
+    for coarse in ms:
+        _, mix, ev = make_icp_proposal_setup(data, coarse=coarse)
+        runs[coarse] = (mh.make_mh_step(data.model, mix, ev),
+                        mh.init_carry(data.model, ev, result.final_states, mix))
+    for coarse in ("exact", "dot", "dot", "exact"):
+        step, carry = runs[coarse]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        _sync(torch)
+        t = time.perf_counter()
+        mh.run_chains(step, carry, REG_CMP_STEPS, gen)
+        _sync(torch)
+        ms[coarse].append(1e3 * (time.perf_counter() - t) / REG_CMP_STEPS)
+    print(f"[{tag}] femur step at {N_CHAINS} chains, turns exact/dot/dot/exact of "
+          f"{REG_CMP_STEPS} steps: coarse='exact' "
+          f"{', '.join(f'{x:.3f}' for x in ms['exact'])} ms/step; coarse='dot' "
+          f"{', '.join(f'{x:.3f}' for x in ms['dot'])} ms/step")
     return launches
 
 
@@ -455,13 +625,14 @@ def main() -> int:
     data = load_standin_femur_data(device=dev)
     setup = make_icp_proposal_setup(data)
     ctx, mixture, evaluator = setup
+    dot_setup = make_icp_proposal_setup(data, coarse="dot")
     _sync(torch)
     print(f"[setup] stand-in femur GPMM-100: rank {data.model.rank}, "
-          f"{data.model.num_points} vertices; K={ctx.index.k} index; "
-          f"{time.perf_counter() - t:.1f} s")
+          f"{data.model.num_points} vertices; K={ctx.index.k} index; flagship setups "
+          f"with coarse='exact' and 'dot'; {time.perf_counter() - t:.1f} s")
 
     # 3. kernels against plain twins
-    records = phase_kernels(torch, dev, data, ctx)
+    records = phase_kernels(torch, dev, data, ctx, dot_setup[0])
     _print_records("kernels", records)
     _sync(torch)
 
@@ -470,11 +641,22 @@ def main() -> int:
                                     WARMUP_STEPS, TIMED_STEPS, FEMUR_STEP_LAUNCHES)}
 
     # 5. check against the plain twins on the CPU
-    phase_check(torch, dev, "check", data.model, setup, lambda m: make_icp_proposal_setup(
-        FemurData(m, data.target, data.target_boundary_mask, data.model_boundary_mask)))
+    def cpu_femur(m, coarse="exact"):
+        return make_icp_proposal_setup(FemurData(m, data.target, data.target_boundary_mask,
+                                                 data.model_boundary_mask), coarse=coarse)
+
+    phase_check(torch, dev, "check", data.model, setup, cpu_femur)
     _sync(torch)
 
-    # 6. the BFM face stand-in at rank 200 and the partial-face setup
+    # 6. main path: the registration entry point, coarse pass K8
+    launches["registration"] = phase_registration(torch, dev, data)
+
+    # 7. check the coarse="dot" step against the plain twins on the CPU
+    phase_check(torch, dev, "check:dot", data.model, dot_setup,
+                lambda m: cpu_femur(m, coarse="dot"))
+    _sync(torch)
+
+    # 8. the BFM face stand-in at rank 200 and the partial-face setup
     t = time.perf_counter()
     face = load_synthetic_face_data(rank=BFM_RANK, subdiv=BFM_SUBDIV, device=dev)
     t_build = time.perf_counter() - t
@@ -488,18 +670,18 @@ def main() -> int:
           f"{len(face.target_partial.cells)} faces; host model build {t_build:.1f} s, "
           f"setup {time.perf_counter() - t:.1f} s")
 
-    # 7. K5, K6, K7 against plain twins
+    # 9. K5, K6, K7 against plain twins
     bfm_records = phase_kernels_bfm(torch, dev, face, bfm_evaluator)
     _print_records("kernels:bfm", bfm_records)
     records.update(bfm_records)
     _sync(torch)
 
-    # 8. main path: BFM partial
+    # 10. main path: BFM partial
     launches["bfm-partial"] = phase_main(
         torch, dev, "main:bfm-partial", face.model, bfm_mixture, bfm_evaluator,
         BFM_WARMUP_STEPS, BFM_TIMED_STEPS, BFM_STEP_LAUNCHES)
 
-    # 9. check against the plain twins on the CPU
+    # 11. check against the plain twins on the CPU
     phase_check(torch, dev, "check:bfm", face.model, bfm_setup,
                 lambda m: make_bfm_fitting_setup(dataclasses.replace(face, model=m),
                                                  partial=True))

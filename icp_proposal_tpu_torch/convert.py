@@ -17,7 +17,7 @@ import torch
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.mesh import make_mesh
 from icp_proposal_tpu_torch.models.gpmm import Gpmm, PosteriorFactors
-from icp_proposal_tpu_torch.ops.surface_index import SurfaceIndex
+from icp_proposal_tpu_torch.ops.surface_index import SurfaceIndex, pack_points_aug
 from icp_proposal_tpu_torch.sampling.context import TargetContext
 from icp_proposal_tpu_torch.sampling.mh import MhCarry
 from icp_proposal_tpu_torch.sampling.state import FitState
@@ -49,9 +49,10 @@ def gpmm_from_arrays(ref_points, cells, mean_disp, basis, variance, noise_varian
 
 
 def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
-                        device=DEFAULT_DEVICE) -> TargetContext:
+                        coarse: str = "exact", device=DEFAULT_DEVICE) -> TargetContext:
     """A ``TargetContext``; with ``cand``/``cand_tri`` it carries the
-    shortlist index over the same points and triangles."""
+    shortlist index over the same points and triangles, whose coarse pass
+    is ``coarse`` ("exact": K3, "dot": K8)."""
     device = resolve_device(device)
     points_t = _f32(points, device)
     tri_t = _f32(tri, device)
@@ -61,6 +62,7 @@ def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
             points=points_t, tri=tri_t,
             cand=torch.as_tensor(np.asarray(cand, np.int32), device=device),
             cand_tri=_f32(cand_tri, device),
+            points_aug=pack_points_aug(points_t), coarse=coarse,
         )
     return TargetContext(
         points=points_t,

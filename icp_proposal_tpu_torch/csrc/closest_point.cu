@@ -1,8 +1,9 @@
-// K3 and K4 of the port: the shortlist closest-point pass and the nearest
-// candidate vertex.  Compiled with -fmad=false: the tie rules compare float32
-// squared distances for equality, so every product and sum rounds on its
-// own, in the order the reference writes them, exactly as the plain PyTorch
-// twins in ops/closest_point_cuda.py do.
+// K3, K4, K5 and K8 of the port: the nearest vertex, the shortlist refine,
+// the dense closest-point query and the dot-form coarse nearest vertex.
+// Compiled with -fmad=false: the tie rules compare float32 squared distances
+// for equality, so every product and sum rounds on its own, in the order the
+// reference writes them, exactly as the plain PyTorch twins in
+// ops/closest_point_cuda.py do.
 //
 // K3 icp_nearest_vertices replaces _make_nv_kernel / _nv_call in
 // icp_proposal_tpu/ops/closest_point_pallas.py (reached through
@@ -52,6 +53,27 @@
 //   reduces the tile's corner AABB in shared memory (tile_bounds) and skips
 //   the tile when no query of the block can beat its running best against
 //   the box; results are the same as without.
+//
+// K8 icp_coarse_nearest_dot replaces _make_coarse_mxu_kernel /
+// _coarse_mxu_call in the same file (reached through coarse_nearest_mxu, the
+// reference's ICP_TPU_COARSE_MXU=1): the shortlist's coarse anchor in dot
+// form, ids = argminᵥ ‖v‖² − 2q·v over one shared surface, with the table
+// va = (−2x, −2y, −2z, ‖v‖²) per vertex (pack_points_aug).  The sum is
+// s = ((qx·ax + qy·ay) + qz·az) + ‖v‖², each product and sum rounded on its
+// own, ties to the lowest id (the Pallas kernel's net rule: lowest lane
+// within a chunk, strictly smaller across chunks).
+//   What bounds it: FP32 issue rate, 6 operations per (query, vertex) pair
+//   (256 × 404 × 1,622 pairs = 1.0 GFLOP at the smoke's shapes, 0.015 ms at
+//   67 TFLOP/s); bytes are tiny.  The TPU ran the product on the MXU at
+//   HIGHEST precision; tensor-core TF32 or bf16 inputs here would hit the
+//   anchor error the reference measured (2.3e2 mm², closest_point_pallas.py
+//   :449-457), so the products stay in FP32 on the CUDA cores.
+//   Design: as K3, one thread per query and one block per (128-query tile,
+//   chain); the [V, 4] table is staged through shared memory as float4 in
+//   tiles of min(V, 2,048) vertices (dynamic shared memory, so femur's 1,622
+//   take 26 KB and not 32: shared memory is what limits the blocks an SM
+//   holds) and every thread reads the same vertex at a time (a broadcast);
+//   a running minimum with a strict < over ascending ids.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -61,6 +83,7 @@ namespace {
 
 constexpr int kNvThreads = 128;
 constexpr int kNvChunk = 2048;
+constexpr int kDotChunk = 2048;  // K8's most vertices per shared-memory tile (32 KB)
 constexpr int kRefineWarps = 8;
 constexpr int kDenseTile = 128;  // faces per tile and queries per block (TF, TP)
 constexpr unsigned kFull = 0xffffffffu;
@@ -98,6 +121,46 @@ __global__ void nearest_vertices_kernel(const float* __restrict__ q,
         const float d2 = dx * dx + dy * dy + dz * dz;
         if (d2 < best) {
           best = d2;
+          best_id = lo + u;
+        }
+      }
+    }
+  }
+  if (active) ids[(size_t)b * p + qi] = best_id;
+}
+
+// K8: blockDim.x == kNvThreads queries of chain blockIdx.y
+__global__ void coarse_nearest_dot_kernel(const float* __restrict__ q,
+                                          const float* __restrict__ va,
+                                          int* __restrict__ ids, int p, int v,
+                                          int chunk) {
+  extern __shared__ float4 sva[];  // chunk vertices
+  const int b = blockIdx.y;
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = qi < p;
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (active) {
+    const float* qq = q + ((size_t)b * p + qi) * 3;
+    qx = qq[0];
+    qy = qq[1];
+    qz = qq[2];
+  }
+  float best = inf32();
+  int best_id = 0;
+  for (int lo = 0; lo < v; lo += chunk) {
+    const int n = min(chunk, v - lo);
+    __syncthreads();  // the previous tile is consumed
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const float* row = va + (size_t)(lo + t) * 4;
+      sva[t] = make_float4(row[0], row[1], row[2], row[3]);
+    }
+    __syncthreads();
+    if (active) {
+      for (int u = 0; u < n; ++u) {
+        const float4 a = sva[u];
+        const float s = ((qx * a.x + qy * a.y) + qz * a.z) + a.w;
+        if (s < best) {
+          best = s;
           best_id = lo + u;
         }
       }
@@ -362,6 +425,16 @@ int icp_surface_distances(const float* q, const float* pts, const int* cells, fl
   surface_distances_kernel<<<grid, kDenseTile, 0, (cudaStream_t)stream>>>(
       q, q_batched ? 3LL * p : 0LL, pts, pts_batched ? 3LL * v : 0LL, cells, d2, idx,
       p, f, cull);
+  return cudaGetLastError();
+}
+
+int icp_coarse_nearest_dot(const float* q, const float* va, int* ids, int batch, int p,
+                           int v, void* stream) {
+  if (batch == 0 || p == 0 || v == 0) return cudaSuccess;
+  const dim3 grid((p + kNvThreads - 1) / kNvThreads, batch);
+  const int chunk = v < kDotChunk ? v : kDotChunk;
+  coarse_nearest_dot_kernel<<<grid, kNvThreads, chunk * sizeof(float4),
+                              (cudaStream_t)stream>>>(q, va, ids, p, v, chunk);
   return cudaGetLastError();
 }
 

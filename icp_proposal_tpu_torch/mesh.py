@@ -13,7 +13,9 @@ import torch
 
 
 class TriangleMesh(NamedTuple):
-    """A host mesh: points [V, 3] float32, cells [F, 3] int32 (numpy)."""
+    """A mesh: points [V, 3] float32 and cells [F, 3] integer, as host numpy
+    arrays (``make_mesh``) or as tensors on a device
+    (``sampling.state.transformed_mesh``)."""
 
     points: np.ndarray
     cells: np.ndarray

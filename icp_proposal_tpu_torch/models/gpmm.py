@@ -183,13 +183,14 @@ def sample_posterior_coeffs(factors: PosteriorFactors,
     return factors.alpha_hat + tri_solve_lt(factors.chol_m, z.contiguous())
 
 
-def transition_logpdf(factors: PosteriorFactors,
-                      alpha_star: torch.Tensor) -> torch.Tensor:
-    """log N(α*; α̂, M⁻¹) per chain, with the ½·log det M normalizer (the
-    exact density; the reference's parity mode, which drops it, is not
-    ported yet)."""
+def transition_logpdf(factors: PosteriorFactors, alpha_star: torch.Tensor,
+                      include_logdet: bool = True) -> torch.Tensor:
+    """log N(α*; α̂, M⁻¹) per chain.  include_logdet=True adds the
+    ½·log det M normalizer (the exact density); False drops it, as the
+    reference's own density does (parity mode)."""
     delta = alpha_star - factors.alpha_hat  # [B, r]
     lt_delta = torch.einsum("bji,bj->bi", factors.chol_m, delta)  # Lᵀδ
     quad = torch.sum(lt_delta * lt_delta, dim=-1)
     r = alpha_star.shape[-1]
-    return -0.5 * quad - 0.5 * r * _LOG_2PI + 0.5 * factors.logdet_m
+    logp = -0.5 * quad - 0.5 * r * _LOG_2PI
+    return logp + 0.5 * factors.logdet_m if include_logdet else logp

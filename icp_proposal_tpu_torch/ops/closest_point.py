@@ -1,11 +1,12 @@
 """Batched point→surface closest-point helpers (plain PyTorch).
 
 Counterpart of ``icp_proposal_tpu/ops/closest_point.py``.  The hot queries
-go through the kernels of ``ops/closest_point_cuda.py``: K3/K4 behind the
-shortlist index, K5 for the dense queries (``surface_distances_auto``).
-This module holds their plain versions: the elementwise Ericson cascade
-(K4's, and the winner recompute), the dense nearest-vertex argmin (K3's)
-and the dense point→triangle argmin (K5's).  All round term by term in the
+go through the kernels of ``ops/closest_point_cuda.py``: K3 or K8 and K4
+behind the shortlist index, K5 for the dense queries
+(``surface_distances_auto``).  This module holds their plain versions: the
+elementwise Ericson cascade (K4's, and the winner recompute), the dense
+nearest-vertex argmin (K3's), its dot form (K8's) and the dense
+point→triangle argmin (K5's).  All round term by term in the
 Pallas kernels' order (``_tile_dist2``, closest_point_pallas.py:58-119), as
 the CUDA kernels compiled with -fmad=false do, so ids agree exactly.
 """
@@ -98,6 +99,26 @@ def nearest_vertices(queries, points):
     dz = queries[..., :, None, 2] - pts[..., None, :, 2]
     d2 = dx * dx + dy * dy + dz * dz  # [B, P, V]
     return torch.argmin(d2, dim=-1).to(torch.int32)  # first minimum on ties
+
+
+def coarse_nearest_dot(queries, points_aug):
+    """Dot-form coarse nearest vertex (K8's plain version): queries [B, P, 3]
+    against one shared table points_aug [V, 4] of rows (−2x, −2y, −2z, ‖v‖²)
+    (``surface_index.pack_points_aug``) → ids [B, P] int32, the argmin over
+    v of ((qx·ax + qy·ay) + qz·az) + ‖v‖², each product and sum rounded on
+    its own as K8 does; ties to the lowest id.  Works through the chains in
+    blocks of at most ``_DENSE_CHUNK`` (chain, query, vertex) triples."""
+    bsz, p = queries.shape[0], queries.shape[1]
+    ax, ay, az, n2 = points_aug.unbind(-1)  # [V] each
+    step = max(1, _DENSE_CHUNK // max(1, p * points_aug.shape[0]))
+    ids = [torch.empty((0, p), dtype=torch.int32, device=queries.device)]
+    for lo in range(0, bsz, step):
+        q = queries[lo:lo + step, :, None, :]  # [n, P, 1, 3]
+        s = q[..., 0] * ax + q[..., 1] * ay
+        s = s + q[..., 2] * az
+        s = s + n2  # [n, P, V]
+        ids.append(torch.argmin(s, dim=-1).to(torch.int32))  # first minimum
+    return torch.cat(ids)
 
 
 def surface_distances(queries, points, cells):

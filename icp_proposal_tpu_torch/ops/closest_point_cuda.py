@@ -1,8 +1,8 @@
-"""K3 ``nearest_vertices``, K4 ``refine_shortlist`` and K5
-``surface_distances``: wrappers and plain twins.
+"""K3 ``nearest_vertices``, K4 ``refine_shortlist``, K5 ``surface_distances``
+and K8 ``coarse_nearest_dot``: wrappers and plain twins.
 
-Counterpart of the nearest-vertex, shortlist-refine and dense-distance
-kernels of ``icp_proposal_tpu/ops/closest_point_pallas.py``.  The kernels are in
+Counterpart of the nearest-vertex, shortlist-refine, dense-distance and
+dot-form coarse kernels of ``icp_proposal_tpu/ops/closest_point_pallas.py``.  The kernels are in
 ``csrc/closest_point.cu``, whose header says what bounds each on the H100
 and how its design answers that.
 
@@ -24,6 +24,7 @@ _NO_ID = 2 ** 30
 
 nearest_vertices_plain = closest_point.nearest_vertices
 surface_distances_plain = closest_point.surface_distances
+coarse_nearest_dot_plain = closest_point.coarse_nearest_dot
 
 
 def nearest_vertices(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -163,3 +164,42 @@ def surface_distances(queries: torch.Tensor, points: torch.Tensor,
 
 surface_distances.launches = 0
 surface_distances.per_chain_launches = 0
+
+
+def coarse_nearest_dot(queries: torch.Tensor, points_aug: torch.Tensor) -> torch.Tensor:
+    """Dot-form coarse nearest vertex, the shortlist's coarse pass under
+    ``coarse="dot"``: argminᵥ ((qx·ax + qy·ay) + qz·az) + ‖v‖² per query,
+    ties to the lowest id.  queries [B, P, 3]; points_aug [V, 4], one
+    surface shared by all chains (``surface_index.pack_points_aug``), float32
+    contiguous → ids [B, P] int32.  As in the reference, only a shared
+    surface is taken: per-chain vertex sets go to ``nearest_vertices``.
+    The dot form rounds otherwise than ‖q − v‖², so near-tied anchors may
+    differ from K3's; the refine that follows is exact.
+
+    Kernel K8 (``csrc/closest_point.cu``) replaces ``_make_coarse_mxu_kernel``
+    / ``_coarse_mxu_call`` in ``icp_proposal_tpu/ops/closest_point_pallas.py``.
+    Bound by FP32 issue rate (6 operations per query-vertex pair, no tensor
+    cores: TF32 and bf16 inputs break the anchors' exactness); one thread per
+    query scans the [V, 4] table from shared memory, a broadcast."""
+    check_tensor(queries, "queries", torch.float32, (None, None, 3))
+    if points_aug.dim() != 2:
+        raise ValueError("coarse_nearest_dot takes one surface shared by all "
+                         f"chains ([V, 4]), got shape {tuple(points_aug.shape)}; "
+                         "per-chain vertex sets go to nearest_vertices")
+    check_tensor(points_aug, "points_aug", torch.float32, (None, 4))
+    if points_aug.shape[0] == 0:
+        raise ValueError("coarse_nearest_dot needs at least one vertex")
+    dev = kernel_device(queries, points_aug)
+    if dev.type == "cpu":
+        return coarse_nearest_dot_plain(queries, points_aug)
+    bsz, p = queries.shape[0], queries.shape[1]
+    if bsz > 65535:
+        raise ValueError(f"coarse_nearest_dot takes at most 65,535 chains, got {bsz}")
+    ids = torch.empty((bsz, p), dtype=torch.int32, device=dev)
+    launch("icp_coarse_nearest_dot", dev, queries.data_ptr(), points_aug.data_ptr(),
+           ids.data_ptr(), bsz, p, points_aug.shape[0])
+    coarse_nearest_dot.launches += 1
+    return ids
+
+
+coarse_nearest_dot.launches = 0

@@ -1,10 +1,14 @@
 """Shortlist index for closest-point queries against a static surface.
 
 Counterpart of ``icp_proposal_tpu/ops/surface_index.py``.  A query is split
-into a coarse nearest-vertex pass over the V target vertices (K3, shared
-mode) and an exact point→triangle refine over that vertex's K precomputed
-candidate faces (K4).  The winner's closest point and d² are then
-recomputed once, elementwise.
+into a coarse nearest-vertex pass over the V target vertices and an exact
+point→triangle refine over that vertex's K precomputed candidate faces
+(K4).  The winner's closest point and d² are then recomputed once,
+elementwise.  The coarse pass is chosen once, when the index is built:
+``coarse="exact"`` takes the subtractive nearest vertex (K3), ``"dot"`` the
+dot form argminᵥ ‖v‖² − 2q·v over ``points_aug`` (K8; the reference's
+``ICP_TPU_COARSE_MXU=1``), whose anchors may swap on near ties.  The refine
+is exact either way.
 
 The index is built on the host with numpy: the reference's chunked-numpy
 path, exact float64 distances plus top-K.  The reference's native OpenMP
@@ -18,13 +22,19 @@ import numpy as np
 import torch
 
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from icp_proposal_tpu_torch.ops.closest_point import closest_point_on_triangle
+from icp_proposal_tpu_torch.ops.closest_point import (
+    closest_point_on_triangle,
+    closest_points_on_surface,
+    surface_distances_auto,
+)
 from icp_proposal_tpu_torch.ops.closest_point_cuda import (
+    coarse_nearest_dot,
     nearest_vertices,
     refine_shortlist,
 )
 
 INDEX_K = 64  # the reference's shortlist width (context.build_target_context)
+COARSE_MODES = ("exact", "dot")  # K3, K8
 _CHUNK = 256  # query vertices per block of the host build
 
 
@@ -40,10 +50,31 @@ class SurfaceIndex:
     tri: torch.Tensor  # [F, 3, 3]
     cand: torch.Tensor  # [V, K] int32 — K nearest faces per vertex
     cand_tri: torch.Tensor  # [V, 9*K] f32
+    points_aug: torch.Tensor  # [V, 4] f32 rows (−2x, −2y, −2z, ‖v‖²), for K8
+    coarse: str = "exact"  # the coarse pass: "exact" (K3) or "dot" (K8)
+
+    def __post_init__(self):
+        check_coarse(self.coarse)
 
     @property
     def k(self) -> int:
         return self.cand.shape[1]
+
+
+def check_coarse(coarse: str) -> str:
+    if coarse not in COARSE_MODES:
+        raise ValueError(f"coarse must be one of {COARSE_MODES}, got {coarse!r}")
+    return coarse
+
+
+def pack_points_aug(points: torch.Tensor) -> torch.Tensor:
+    """points [V, 3] → [V, 4] float32 rows (−2x, −2y, −2z, ‖v‖²), no padding:
+    the reference's ``pack_points_aug`` transposed.  ‖v‖² is summed as
+    (x·x + y·y) + z·z, each product and sum rounded on its own, which is
+    bitwise the reference's row; −2v is exact."""
+    p = points.to(torch.float32)
+    n2 = p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2]
+    return torch.cat([-2.0 * p, n2[:, None]], dim=1).contiguous()
 
 
 def _np_point_tri_dist2(p: np.ndarray, tri: np.ndarray) -> np.ndarray:
@@ -126,48 +157,55 @@ def build_shortlist(points, cells, k: int = INDEX_K):
     return cand, cand_tri
 
 
-def build_surface_index(points, cells, k: int = INDEX_K,
+def build_surface_index(points, cells, k: int = INDEX_K, coarse: str = "exact",
                         device=DEFAULT_DEVICE) -> SurfaceIndex:
     """Build the shortlist index on the host and place it on ``device`` (the
-    card unless ``device="cpu"``)."""
+    card unless ``device="cpu"``); ``coarse`` picks the coarse pass."""
+    check_coarse(coarse)
     device = resolve_device(device)
     cand, cand_tri = build_shortlist(points, cells, k)
-    points = np.asarray(points, np.float32)
+    points_t = torch.as_tensor(np.asarray(points, np.float32), device=device)
     return SurfaceIndex(
-        points=torch.as_tensor(points, device=device),
-        tri=torch.as_tensor(points[np.asarray(cells)], device=device),
+        points=points_t,
+        tri=points_t[torch.as_tensor(np.asarray(cells), dtype=torch.int64,
+                                     device=device)],
         cand=torch.as_tensor(cand, device=device),
         cand_tri=torch.as_tensor(cand_tri, device=device),
+        points_aug=pack_points_aug(points_t),
+        coarse=coarse,
     )
 
 
 def index_closest(index: SurfaceIndex, queries: torch.Tensor):
     """queries [B, P, 3] → (cp [B, P, 3], d2 [B, P], face_idx [B, P] int32):
-    coarse nearest vertex (K3), exact refine over its shortlist (K4), then
-    the winner's closest point recomputed elementwise."""
+    coarse nearest vertex (K3, or K8 under ``coarse="dot"``), exact refine
+    over its shortlist (K4), then the winner's closest point recomputed
+    elementwise."""
     queries = queries.contiguous()
-    coarse = nearest_vertices(queries, index.points)
+    if index.coarse == "dot":
+        coarse = coarse_nearest_dot(queries, index.points_aug)
+    else:
+        coarse = nearest_vertices(queries, index.points)
     fidx, wtri = refine_shortlist(queries, coarse, index.cand, index.cand_tri)
     cp, d2 = closest_point_on_triangle(
         queries, wtri[..., 0:3], wtri[..., 3:6], wtri[..., 6:9])
     return cp, d2, fidx
 
 
-def _require_index(index: SurfaceIndex | None) -> SurfaceIndex:
-    if index is None:
-        raise NotImplementedError(
-            "a target context without a shortlist index needs the dense "
-            "closest-point kernel K5 (ROADMAP queue 2, K5)")
-    return index
+def closest_auto(queries, points, cells, index: SurfaceIndex | None):
+    """(cp, d2, face_idx) of queries [B, P, 3] on the surface (points [V, 3],
+    cells [F, 3]): through the index when there is one, else the dense
+    kernel K5.  Dispatch depends only on the index's presence, decided when
+    the context was built."""
+    if index is not None:
+        return index_closest(index, queries)
+    return closest_points_on_surface(queries.contiguous(), points,
+                                     cells.to(torch.int32))
 
 
-def closest_auto(queries, tri, index: SurfaceIndex | None):
-    """(cp, d2, face_idx) through the index; ``tri`` serves the dense path
-    of the reference, which waits for K5."""
-    return index_closest(_require_index(index), queries)
-
-
-def distances_auto(queries, tri, index: SurfaceIndex | None):
-    """(d2, face_idx) through the index (see ``closest_auto``)."""
-    _, d2, fidx = index_closest(_require_index(index), queries)
-    return d2, fidx
+def distances_auto(queries, points, cells, index: SurfaceIndex | None):
+    """(d2, face_idx) (see ``closest_auto``)."""
+    if index is not None:
+        _, d2, fidx = index_closest(index, queries)
+        return d2, fidx
+    return surface_distances_auto(queries.contiguous(), points, cells.to(torch.int32))

@@ -13,6 +13,7 @@ from icp_proposal_tpu_torch.ops.surface_index import (
     INDEX_K,
     SurfaceIndex,
     build_surface_index,
+    check_coarse,
 )
 
 
@@ -24,24 +25,36 @@ class TargetContext:
     cells: torch.Tensor  # [Ft, 3] int64
     tri: torch.Tensor  # [Ft, 3, 3]
     boundary: torch.Tensor  # [Vt] bool
-    index: SurfaceIndex | None = None  # shortlist index; None needs K5
+    index: SurfaceIndex | None = None  # shortlist index; None → dense K5
 
 
 def build_target_context(target: TriangleMesh, boundary_mask=None,
+                         morton_faces: bool = True, index_k: int = INDEX_K,
+                         build_index: bool = True, coarse: str = "exact",
                          device=DEFAULT_DEVICE) -> TargetContext:
-    """Morton-sort the faces (as the reference does) and build the K = 64
-    face shortlist index, always: it is how the card answers closest-point
-    queries until the dense kernel K5 is ported."""
+    """The target mesh on ``device`` (the card unless ``device="cpu"``).
+
+    morton_faces: sort the faces in Morton order, as the reference does.
+    build_index: build the K = ``index_k`` face shortlist index (the fast
+    path on the card; the reference builds it by default on a TPU); without
+    it every closest-point query takes the dense kernel K5.  coarse: the
+    index's coarse pass, "exact" (K3) or "dot" (K8).  Closest-point dispatch
+    depends only on what is decided here."""
+    check_coarse(coarse)
     device = resolve_device(device)
     points = np.array(target.points, np.float32)  # a writable copy
     cells = np.asarray(target.cells)
     if boundary_mask is None:
         boundary_mask = boundary_vertex_mask(cells, len(points))
-    cells = np.asarray(cells[morton_sort_faces(points, cells)], np.int32)
+    if morton_faces:
+        cells = cells[morton_sort_faces(points, cells)]
+    cells = np.asarray(cells, np.int32)
+    index = (build_surface_index(points, cells, k=index_k, coarse=coarse, device=device)
+             if build_index else None)
     return TargetContext(
         points=torch.as_tensor(points, device=device),
         cells=torch.as_tensor(cells, dtype=torch.int64, device=device),
         tri=torch.as_tensor(points[cells], device=device),
         boundary=torch.as_tensor(np.asarray(boundary_mask, bool), device=device),
-        index=build_surface_index(points, cells, k=INDEX_K, device=device),
+        index=index,
     )

@@ -149,7 +149,8 @@ class EvaluatorProgram:
         if spec.mode in ("model_to_target", "symmetric"):
             if shared_d2 is None:
                 q = points[:, self._model_ids_t[spec.name]]
-                shared_d2, _ = distances_auto(q, self.ctx.tri, self.ctx.index)
+                shared_d2, _ = distances_auto(q, self.ctx.points, self._target_cells,
+                                              self.ctx.index)
             terms.append(torch.sum(gaussian_logpdf(torch.sqrt(shared_d2), 0.0,
                                                    spec.sigma), dim=-1))
         if spec.mode in ("target_to_model", "symmetric"):

@@ -79,13 +79,17 @@ class MhCarry(NamedTuple):
 
 
 class ChainRecord(NamedTuple):
-    """Per-step record; ``coeffs`` holds the post-step chain state."""
+    """Per-step record; ``coeffs`` and ``pose`` hold the post-step chain
+    state (the candidate on accept, the previous state on reject), as in
+    the reference's ``ChainRecord``.  ``stack_records`` turns a run's list
+    of records into one with [B, T, ...] fields."""
 
     accepted: torch.Tensor  # [B] bool
     proposal_idx: torch.Tensor  # [B] int32
     log_product: torch.Tensor  # [B] candidate product value
     named: torch.Tensor  # [B, k] candidate named evaluator values
     coeffs: Optional[torch.Tensor] = None  # [B, r] (if stored)
+    pose: Optional[torch.Tensor] = None  # [B, 9] trans, rot, center (if stored)
     log_alpha: Optional[torch.Tensor] = None  # [B] (if stored)
 
 
@@ -154,8 +158,8 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
         shared_icp = shared_eval = None
         if plan is not None:
             q = cand_pts[:, plan.eval_ids]
-            cp_all, d2_all, fidx_all = closest_auto(q, mixture.ctx.tri,
-                                                    mixture.ctx.index)
+            ctx = mixture.ctx
+            cp_all, d2_all, fidx_all = closest_auto(q, ctx.points, ctx.cells, ctx.index)
             shared_icp = {i: (cp_all[:, m], fidx_all[:, m])
                           for i, m in plan.icp_maps.items()}
             shared_eval = {plan.spec_name: d2_all}
@@ -187,6 +191,8 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
             log_product=log_post_cand,
             named=named_cand,
             coeffs=new_state.coeffs if store_params else None,
+            pose=(torch.cat([new_state.trans, new_state.rot, new_state.center], dim=-1)
+                  if store_params else None),
             log_alpha=log_alpha if store_params else None,
         )
         return new_carry, record
@@ -220,3 +226,11 @@ def run_chains(step, carry: MhCarry, n_steps: int,
         carry, rec = step(carry, generator=generator)
         records.append(rec)
     return carry, records
+
+
+def stack_records(records) -> ChainRecord:
+    """A run's per-step records → one ``ChainRecord`` with [B, T, ...]
+    fields (chains first, then steps, as the reference's stacked trace);
+    fields that were not stored stay None."""
+    return ChainRecord(*(None if field[0] is None else torch.stack(field, dim=1)
+                         for field in zip(*records)))

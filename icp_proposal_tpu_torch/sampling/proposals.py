@@ -26,8 +26,7 @@ from icp_proposal_tpu_torch.sampling.context import TargetContext
 from icp_proposal_tpu_torch.sampling.state import FitState, pose_inverse_apply
 
 _LOG_2PI = math.log(2.0 * math.pi)
-_MODEL_SEED = 1024  # the reference's ICP model subset seed
-_TARGET_SEED = 1025  # the reference's ICP target subset seed (1024 + 1)
+_MODEL_SEED = 1024  # the reference's ICP model subset seed (targets: seed + 1)
 
 
 @dataclass(frozen=True)
@@ -220,7 +219,8 @@ class IcpComponent:
                 cp, fidx = shared_cp_fidx
             else:
                 q = cur_points[:, self._model_ids_t]
-                cp, _, fidx = closest_auto(q, self.ctx.tri, self.ctx.index)
+                cp, _, fidx = closest_auto(q, self.ctx.points, self.ctx.cells,
+                                           self.ctx.index)
             near = nearest_vertex_of_faces(self.ctx.cells, fidx, cp, self.ctx.points)
             obs_disp = pose_inverse_apply(state, cp) - self._ref_static
             return gp.posterior_factors_anisotropic_static(
@@ -249,29 +249,34 @@ class IcpComponent:
         return state._replace(coeffs=new_coeffs)
 
     def log_q(self, from_state: FitState, to_state: FitState,
-              factors_from: gp.PosteriorFactors):
-        """q(to|from) in exact mode: undo the relaxation, evaluate the
-        posterior density with ½·log det M, add the −r·log(stepLength)
-        Jacobian of the relaxation."""
+              factors_from: gp.PosteriorFactors, parity: bool = False):
+        """q(to|from): undo the relaxation and evaluate the posterior
+        coefficient density.  Exact mode (parity=False) adds the two terms
+        the reference omits: ½·log det M and the −r·log(stepLength) Jacobian
+        of the relaxation."""
         compensated = from_state.coeffs + (
             to_state.coeffs - from_state.coeffs) / self.spec.step_length
-        r = from_state.coeffs.shape[-1]
-        logp = (gp.transition_logpdf(factors_from, compensated)
-                - r * math.log(self.spec.step_length))
+        logp = gp.transition_logpdf(factors_from, compensated, include_logdet=not parity)
+        if not parity:
+            r = from_state.coeffs.shape[-1]
+            logp = logp - r * math.log(self.spec.step_length)
         return _guard(_pose_scale_equal(from_state, to_state), logp)
 
 
 class MixtureProgram:
     """A flattened, normalized proposal mixture over FitState.
 
-    ``icp_model_ids``: the model vertices every ICP component observes (the
-    flagship setup passes a subset of the evaluator's, so one closest-point
-    pass serves both); None takes the reference's seeded, Morton-ordered
-    subset (seed 1024).  Target vertices are the reference's seeded subset
-    (seed 1025)."""
+    ``parity=True`` evaluates the ICP components with the reference's own
+    transition density (no ½·log det M, no relaxation Jacobian); False is
+    the exact MH correction.  ``icp_model_ids``: the model vertices every
+    ICP component observes (the flagship setup passes a subset of the
+    evaluator's, so one closest-point pass serves both); None takes the
+    reference's seeded, Morton-ordered subset (``seed``).  Target vertices
+    are the seeded subset of ``seed + 1``."""
 
     def __init__(self, weighted_specs, gpmm, ctx: TargetContext, model_boundary,
-                 icp_model_ids=None, adapt=None):
+                 parity: bool = False, seed: int = _MODEL_SEED, adapt=None,
+                 icp_model_ids=None):
         if adapt is not None:
             raise NotImplementedError(
                 "scale adaptation is not ported yet (ROADMAP queue 1, slice 7)")
@@ -283,6 +288,8 @@ class MixtureProgram:
         total = sum(w for w, _ in weighted_specs)
         self.weights = [w / total for w, _ in weighted_specs]
         self.specs = [s for _, s in weighted_specs]
+        self.names = [s.name for s in self.specs]
+        self.parity = parity
         self.gpmm = gpmm
         self.ctx = ctx
         self._log_weights = torch.log(torch.tensor(self.weights, dtype=torch.float32,
@@ -294,14 +301,14 @@ class MixtureProgram:
             if not isinstance(s, IcpSpec):
                 continue
             model_ids = (morton_sort_ids(ref, seeded_vertex_subset(
-                gpmm.num_points, s.n_points, _MODEL_SEED))
+                gpmm.num_points, s.n_points, seed))
                 if icp_model_ids is None else icp_model_ids)
             if len(model_ids) < s.n_points:
                 raise ValueError(
                     f"icp_model_ids has {len(model_ids)} ids but {s.name} "
                     f"declares n_points={s.n_points}")
             target_ids = morton_sort_ids(
-                tpts, seeded_vertex_subset(len(tpts), s.n_points, _TARGET_SEED))
+                tpts, seeded_vertex_subset(len(tpts), s.n_points, seed + 1))
             self.icp_components[i] = IcpComponent(
                 s, gpmm, ctx, model_boundary, np.asarray(model_ids[: s.n_points]),
                 target_ids)
@@ -342,7 +349,7 @@ class MixtureProgram:
         for i, spec in enumerate(self.specs):
             if isinstance(spec, IcpSpec):
                 lq = self.icp_components[i].log_q(from_state, to_state,
-                                                  factors_from[i])
+                                                  factors_from[i], self.parity)
             elif isinstance(spec, RandomShapeSpec):
                 delta = to_state.coeffs - from_state.coeffs
                 r = delta.shape[-1]

@@ -10,8 +10,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from icp_proposal_tpu_torch.mesh import TriangleMesh
 from icp_proposal_tpu_torch.models.gpmm import Gpmm, instance_points
 
 
@@ -23,18 +25,24 @@ class FitState(NamedTuple):
     coeffs: torch.Tensor  # [B, r] shape coefficients
 
 
-def init_state(gpmm: Gpmm, n_chains: int) -> FitState:
-    """Zero pose, rotation center = reference-mesh centroid (computed on the
-    host, as the reference does), zero coefficients, for ``n_chains``
-    chains on the model's device."""
+def init_state(gpmm: Gpmm, n_chains: int, coeffs=None, center=None) -> FitState:
+    """Zero pose for ``n_chains`` chains on the model's device; rotation
+    center ``center`` [3] (default: the reference-mesh centroid, computed on
+    the host as the reference does) and coefficients ``coeffs`` [r]
+    (default zero), the same for every chain."""
     dev = gpmm.device
-    center = torch.as_tensor(gpmm.ref_points.cpu().numpy().mean(axis=0), device=dev)
+    if center is None:
+        center = gpmm.ref_points.cpu().numpy().mean(axis=0)
+    if coeffs is None:
+        coeffs = np.zeros(gpmm.rank, np.float32)
+    center = torch.as_tensor(center, dtype=torch.float32, device=dev)
+    coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev)
     return FitState(
         scale=torch.ones(n_chains, device=dev),
         rot=torch.zeros(n_chains, 3, device=dev),
         trans=torch.zeros(n_chains, 3, device=dev),
         center=center.expand(n_chains, 3).clone(),
-        coeffs=torch.zeros(n_chains, gpmm.rank, device=dev),
+        coeffs=coeffs.expand(n_chains, gpmm.rank).clone(),
     )
 
 
@@ -74,3 +82,17 @@ def transformed_points(gpmm: Gpmm, state: FitState) -> torch.Tensor:
     """scale ∘ pose ∘ shape applied to the reference mesh → [B, V, 3]."""
     shaped = instance_points(gpmm, state.coeffs)
     return state.scale[:, None, None] * pose_apply(state, shaped)
+
+
+def transformed_mesh(gpmm: Gpmm, state: FitState, chain: int = 0) -> TriangleMesh:
+    """Chain ``chain``'s current mesh: points [V, 3] and the model's cells,
+    as tensors on the model's device."""
+    one = FitState(*(x[chain:chain + 1] for x in state))
+    return TriangleMesh(points=transformed_points(gpmm, one)[0], cells=gpmm.cells)
+
+
+def flat_parameters(state: FitState) -> torch.Tensor:
+    """[B, 1+9+r] in the reference's ``allParameters`` order: scale,
+    translation, rotation, center, shape."""
+    return torch.cat([state.scale[:, None], state.trans, state.rot, state.center,
+                      state.coeffs], dim=-1)

@@ -28,6 +28,9 @@ def kernels_forced(monkeypatch):
     monkeypatch.setenv("ICP_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
+    # the JAX package caches its native library once any test loads it;
+    # drop that cache too, so the numpy index build runs in every order
+    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
 """The port's entry points put their tensors on the card unless the caller
 asks for the CPU, and never move to the CPU on their own."""
+import functools
 import inspect
 
 import numpy as np
@@ -12,12 +13,14 @@ from icp_proposal_tpu_torch.device import resolve_device
 from icp_proposal_tpu_torch.mesh import make_mesh
 from icp_proposal_tpu_torch.models import build_femur, gpmm
 from icp_proposal_tpu_torch.ops import surface_index
-from icp_proposal_tpu_torch.sampling import context
+from icp_proposal_tpu_torch.sampling import context, loggers
 
 _PTS = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
 _CELLS = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]], np.int32)
 _MODEL = dict(ref_points=_PTS, cells=_CELLS, mean_disp=np.zeros_like(_PTS),
               basis=np.ones((4, 3, 1)), variance=np.ones(1))
+_LOG = [{"index": 0, "name": "RandomShape-0.1", "logvalue": {"product": -1.0},
+         "status": True, "rigid": [0.0] * 9, "coeff": [0.0], "datetime": ""}]
 
 ENTRY_POINTS = {
     "apps.femur.load_standin_femur_data": (femur.load_standin_femur_data, ()),
@@ -27,6 +30,12 @@ ENTRY_POINTS = {
     "models.gpmm.make_gpmm": (gpmm.make_gpmm, tuple(_MODEL.values())),
     "sampling.context.build_target_context": (context.build_target_context,
                                               (make_mesh(_PTS, _CELLS),)),
+    "sampling.context.build_target_context[coarse=dot]": (
+        functools.partial(context.build_target_context, coarse="dot"),
+        (make_mesh(_PTS, _CELLS),)),
+    "apps.femur.run_icp_proposal_registration": (femur.run_icp_proposal_registration,
+                                                 (2,)),
+    "sampling.loggers.state_from_log": (loggers.state_from_log, (_LOG, "last")),
     "ops.surface_index.build_surface_index": (surface_index.build_surface_index,
                                               (_PTS, _CELLS, 2)),
     "convert.gpmm_from_arrays": (convert.gpmm_from_arrays,

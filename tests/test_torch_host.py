@@ -86,6 +86,7 @@ def test_standin_gpmm_identical(meshes):
 def test_index_build_agrees(meshes, monkeypatch):
     """Per-vertex sorted shortlist distances agree to 1e-6 relative."""
     monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")  # never rebuild a tracked library
+    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)  # nor use a loaded one
     points, cells = meshes["map"]
     cells = cells[jmorton.morton_sort_faces(points, cells)]
     ref = jindex.build_surface_index(points, cells, k=64)

@@ -4,8 +4,9 @@ The stand-in femur workload (GPMM-100 built on artifacts/posterior/mean.stl,
 rank 101; target artifacts/posterior/map.stl) is built once by the JAX
 package; the port starts from the same arrays through ``convert.py``.  The
 JAX step runs its Pallas kernels in interpret mode (ICP_TPU_FORCE_PALLAS=1,
-ICP_TPU_FORCE_CHOL_PALLAS=1, shortlist index on), the port its plain twins.
-Each port step starts from the JAX carry and takes the JAX step's own noise.
+ICP_TPU_FORCE_CHOL_PALLAS=1, shortlist index on; ICP_TPU_COARSE_MXU=1 for
+the port's coarse="dot"), the port its plain twins.  Each port step starts
+from the JAX carry and takes the JAX step's own noise.
 """
 import os
 import subprocess
@@ -27,11 +28,16 @@ STANDIN = REPO / "artifacts" / "posterior"
 N_CHAINS, N_STEPS = 4, 5
 
 
-def _jax_standin(monkeypatch):
-    """The JAX flagship setup on the stand-in, kernels forced on."""
+def _jax_standin(monkeypatch, setup="flagship", coarse="exact"):
+    """A JAX setup of the stand-in (flagship, parity or rw), kernels forced
+    on; coarse="dot" opts in to the dot-form coarse kernel."""
     monkeypatch.setenv("ICP_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
+    # the JAX package caches its native library once any test loads it;
+    # drop that cache too, so the numpy index build runs in every order
+    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)
+    monkeypatch.setenv("ICP_TPU_COARSE_MXU", "1" if coarse == "dot" else "0")
     from icp_proposal_tpu.apps import femur as jfemur
     from icp_proposal_tpu.io.stl import read_stl
     from icp_proposal_tpu.mesh import boundary_vertex_mask, make_mesh
@@ -45,17 +51,17 @@ def _jax_standin(monkeypatch):
         target_boundary_mask=boundary_vertex_mask(tc, len(tp)),
         model_boundary_mask=boundary_vertex_mask(mc, len(mp)),
     )
-    return data, jfemur.make_icp_proposal_setup(data)
+    return data, jfemur.SETUPS[setup](data)
 
 
-def _port_standin(jdata, fuse=True):
+def _port_standin(jdata, fuse=True, setup="flagship", coarse="exact"):
     model = convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in
                                         jdata.model._asdict().items()}, device="cpu")
     data = pfemur.FemurData(
         model=model, target=jdata.target,
         target_boundary_mask=jdata.target_boundary_mask,
         model_boundary_mask=jdata.model_boundary_mask)
-    ctx, mixture, evaluator = pfemur.make_icp_proposal_setup(data)
+    ctx, mixture, evaluator = pfemur.SETUPS[setup](data, coarse=coarse)
     step = pmh.make_mh_step(model, mixture, evaluator, store_params=True, fuse=fuse)
     return model, ctx, mixture, evaluator, step
 
@@ -70,19 +76,25 @@ def _port_carry(jc):
         [tuple(np.asarray(a) for a in f) for f in jc.icp_factors], device="cpu")
 
 
-def test_one_step_parity_full_width(monkeypatch):
-    """Rank 101, 4 chains, 5 steps: same proposal index, same accept
-    decision wherever |log α − log u| > 1e-3, log_post to rtol 1e-4."""
+def _step_parity(monkeypatch, setup, coarse, n_steps):
+    """n_steps of N_CHAINS chains of one setup in both packages from the
+    same carry with the same noise: same proposal index, same accept
+    decision wherever |log α − log u| > 1e-3, log_post to rtol 1e-4 →
+    (decisions compared, steps accepted)."""
     from icp_proposal_tpu.sampling import mh as jmh
     from icp_proposal_tpu.sampling.state import init_state as jinit_state
 
-    jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch)
-    model, ctx, mixture, evaluator, step = _port_standin(jdata)
+    jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch, setup, coarse)
+    model, ctx, mixture, evaluator, step = _port_standin(jdata, setup=setup,
+                                                         coarse=coarse)
     r = model.rank
     assert r == 101
+    assert mixture.names == jmix.names
+    assert getattr(mixture, "parity", False) == getattr(jmix, "parity", False)
     # the port builds the same context and index as the reference
     np.testing.assert_array_equal(ctx.cells.numpy(), jctx.cells)
     np.testing.assert_array_equal(ctx.index.cand.numpy(), jctx.index.cand)
+    assert ctx.index.coarse == coarse
 
     jstep = jmh.make_mh_step(jdata.model, jmix, jev, store_params=True)
     carry0 = jax.jit(lambda s: jmh.init_carry(jdata.model, jev, s, jmix))(
@@ -100,7 +112,7 @@ def test_one_step_parity_full_width(monkeypatch):
 
     noise_b = jax.jit(jax.vmap(noise_of))
     compared = accepted = 0
-    for s in range(N_STEPS):
+    for s in range(n_steps):
         keys = jax.random.split(jax.random.PRNGKey(100 + s), N_CHAINS)
         jnext, jrec = jstep_b(jcarry, keys)
         z, idx, log_u = (np.array(a) for a in noise_b(keys))
@@ -120,8 +132,80 @@ def test_one_step_parity_full_width(monkeypatch):
         compared += int(clear.sum())
         accepted += int(np.asarray(jrec.accepted).sum())
         jcarry = jnext
+    return compared, accepted
+
+
+def test_one_step_parity_full_width(monkeypatch):
+    """Rank 101, 4 chains, 5 steps of the flagship setup: same proposal
+    index, same accept decision wherever |log α − log u| > 1e-3, log_post to
+    rtol 1e-4."""
+    compared, accepted = _step_parity(monkeypatch, "flagship", "exact", N_STEPS)
     assert compared >= N_CHAINS * N_STEPS - 2  # near-ties are rare
     assert 0 < accepted < N_CHAINS * N_STEPS  # both decisions were exercised
+
+
+@pytest.mark.parametrize("setup, coarse", [("parity", "exact"), ("rw", "exact"),
+                                           ("flagship", "dot")])
+def test_one_step_parity_full_width_setups(monkeypatch, setup, coarse):
+    """As ``test_one_step_parity_full_width`` for the reference's parity
+    density (independent ICP subsets), the random walk, and the flagship
+    with the dot-form coarse pass (JAX: ICP_TPU_COARSE_MXU=1), 4 chains ×
+    2 steps each."""
+    compared, _ = _step_parity(monkeypatch, setup, coarse, 2)
+    assert compared >= N_CHAINS * 2 - 1
+
+
+def test_context_switches():
+    """build_target_context takes the reference's switches and the coarse
+    pass, decided once: no index (dense K5), no Morton sort, the shortlist
+    width, coarse="dot"; an unknown coarse pass raises."""
+    from icp_proposal_tpu_torch.io.stl import read_stl
+    from icp_proposal_tpu_torch.mesh import make_mesh
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+
+    tp, tc = read_stl(STANDIN / "map.stl")
+    mesh = make_mesh(tp, tc)
+    plain = build_target_context(mesh, morton_faces=False, build_index=False,
+                                 device="cpu")
+    assert plain.index is None
+    np.testing.assert_array_equal(plain.cells.numpy(), tc)
+    dot = build_target_context(mesh, index_k=8, coarse="dot", device="cpu")
+    assert dot.index.coarse == "dot" and dot.index.k == 8
+    assert dot.index.points_aug.shape == (len(tp), 4)
+    assert not np.array_equal(dot.cells.numpy(), tc)  # Morton order
+    assert build_target_context(mesh, index_k=8, device="cpu").index.coarse == "exact"
+    with pytest.raises(ValueError, match="coarse"):
+        build_target_context(mesh, coarse="mxu", device="cpu")
+
+
+def test_step_without_index_takes_the_dense_path():
+    """A context built with build_index=False sends the flagship step's
+    closest-point queries to the dense kernel K5 (its plain version here);
+    near the surface the shortlist index is exact, so one step through
+    either context gives the same candidate log posterior and decisions."""
+    import dataclasses
+
+    from icp_proposal_tpu_torch.sampling.evaluators import proximity_and_independent
+    from icp_proposal_tpu_torch.sampling.proposals import MixtureProgram
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    data = pfemur.load_standin_femur_data(device="cpu")
+    ctx, mixture, evaluator = pfemur.make_icp_proposal_setup(data)
+    dense = dataclasses.replace(ctx, index=None)
+    d_eval = proximity_and_independent(data.model, dense, mode="model_to_target",
+                                       sigma=2.0, n_points=4 * data.model.rank)
+    d_mix = MixtureProgram(list(zip(mixture.weights, mixture.specs)), data.model, dense,
+                           data.model_boundary_mask,
+                           icp_model_ids=d_eval.model_ids("distance")[::2])
+    out = []
+    for mix, ev in ((mixture, evaluator), (d_mix, d_eval)):
+        step = pmh.make_mh_step(data.model, mix, ev, store_params=True)
+        carry = pmh.init_carry(data.model, ev, init_state(data.model, 2), mix)
+        out.append(step(carry, generator=torch.Generator().manual_seed(4))[1])
+    (rec_i, rec_d) = out
+    assert torch.equal(rec_i.proposal_idx, rec_d.proposal_idx)
+    assert torch.equal(rec_i.accepted, rec_d.accepted)
+    torch.testing.assert_close(rec_d.log_product, rec_i.log_product, rtol=1e-6, atol=0)
 
 
 def test_fused_step_matches_unfused():
@@ -151,9 +235,11 @@ def test_fused_step_matches_unfused():
 
 
 def test_port_runs_without_jax():
-    """Importing every module of the port and running a CPU step of the
-    femur and the BFM partial setups leaves jax and the JAX package out of
-    sys.modules."""
+    """Importing every module of the port (the registration slice's loggers,
+    diagnostics, metrics, winding numbers and ``runfitting`` included),
+    running a CPU step of the femur and the BFM partial setups and a short
+    CPU registration run with coarse="dot" leaves jax and the JAX package
+    out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import icp_proposal_tpu_torch as pkg\n"
@@ -163,6 +249,7 @@ def test_port_runs_without_jax():
         "make_bfm_fitting_setup\n"
         "from icp_proposal_tpu_torch.apps.femur import load_standin_femur_data, "
         "make_icp_proposal_setup\n"
+        "from icp_proposal_tpu_torch.apps.femur import run_icp_proposal_registration\n"
         "from icp_proposal_tpu_torch.sampling import mh\n"
         "from icp_proposal_tpu_torch.sampling.state import init_state\n"
         "for data, setup in ((load_standin_femur_data(device='cpu'), "
@@ -174,6 +261,9 @@ def test_port_runs_without_jax():
         "    carry = mh.init_carry(data.model, ev, init_state(data.model, 2), mix)\n"
         "    carry, rec = step(carry, generator=torch.Generator().manual_seed(0))\n"
         "    assert torch.isfinite(carry.log_post).all()\n"
+        "res, _ = run_icp_proposal_registration(2, n_chains=2, setup='flagship', "
+        "coarse='dot', accept_info_interval=1, verbose=False, device='cpu')\n"
+        "assert len(res.json_records) == 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_proposal_tpu' or m.startswith('icp_proposal_tpu.')]\n"
         "print('LOADED', bad)\n"
