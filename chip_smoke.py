@@ -25,8 +25,10 @@ Phases (each prints one line or a short block, and ends in
 7. check:dot     as 5, for the flagship setup with coarse="dot";
 8. setup:bfm     the synthetic face stand-in at rank 200 (host build timed)
                  and the BFM partial-face fitting setup;
-9. kernels:bfm   K5 (shared and per-chain surfaces), K6 and K7 at r = 200
-                 against their twins at the BFM path's shapes on 256 chains;
+9. kernels:bfm   K5 (shared and per-chain surfaces; culled, the dense scan
+                 and the twin bitwise equal; the share of tiles and pairs the
+                 culled kernel visits), K6 and K7 at r = 200 against their
+                 twins at the BFM path's shapes on 256 and on 2,048 chains;
                  K1 at r = 200 timed beside K6;
 10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
                  timed steps, launch counts;
@@ -140,12 +142,12 @@ def _time_ms(torch, fn, reps=KERNEL_REPS):
     return start.elapsed_time(end) / reps
 
 
-def _paired_times(torch, kernel, plain, reps=KERNEL_REPS):
+def _paired_times(torch, kernel, plain, reps=KERNEL_REPS, plain_reps=None):
     """plain, kernel, kernel, plain in turns → (kernel ms, plain ms)."""
-    p1 = _time_ms(torch, plain, reps)
+    p1 = _time_ms(torch, plain, plain_reps or reps)
     k1 = _time_ms(torch, kernel, reps)
     k2 = _time_ms(torch, kernel, reps)
-    p2 = _time_ms(torch, plain, reps)
+    p2 = _time_ms(torch, plain, plain_reps or reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -167,8 +169,8 @@ def _id_errors(ids, ids_p):
 
 
 def _record(torch, err, mism, kernel, plain, n_bytes, n_flops, library=None,
-            reps=KERNEL_REPS):
-    k_ms, p_ms = _paired_times(torch, kernel, plain, reps)
+            reps=KERNEL_REPS, plain_reps=None):
+    k_ms, p_ms = _paired_times(torch, kernel, plain, reps, plain_reps)
     bound_ms, bound_by = _bound(n_bytes, n_flops)
     lib_ms = _time_ms(torch, library, reps) if library is not None else None
     return dict(max_abs_err=err, id_mismatches=mism, ms=k_ms, plain_ms=p_ms,
@@ -186,7 +188,10 @@ def _spd(torch, dev, rng, b, r, bad):
 
 
 def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
-    """A Cholesky kernel and its triangular solve against the plain twins."""
+    """A Cholesky kernel and its triangular solve against the plain twins.
+    No single PyTorch call computes the factor, the solve and log det, so
+    the factor's library column is None; ``torch.linalg.cholesky_ex`` (the
+    factor only) is timed beside it as ``factor_only_ms``."""
     import numpy as np
 
     from icp_proposal_tpu_torch.ops import chol_cuda as cc
@@ -205,17 +210,18 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
     chol_bytes = _nbytes(m, rhs, l, x, ld)
     chol_flops = b * (r ** 3 / 3 + 2 * r * r)  # factor + two substitutions
     rec_f = _record(torch, err, 0, lambda: factor(m, rhs),
-                    lambda: cc.chol_solve_plain(m, rhs), chol_bytes, chol_flops,
-                    library=lambda: torch.linalg.cholesky_ex(m))
+                    lambda: cc.chol_solve_plain(m, rhs), chol_bytes, chol_flops)
+    rec_f["factor_only_ms"] = _time_ms(torch, lambda: torch.linalg.cholesky_ex(m))
 
     lg = l[good].contiguous()
     z = torch.as_tensor(rng.randn(b - 1, r).astype(np.float32), device=dev)
     xt, xt_p = solve(lg, z), cc.tri_solve_lt_plain(lg, z)
     _sync(torch)
     torch.testing.assert_close(xt, xt_p, rtol=TOL, atol=TOL)
+    # the solve needs only L's lower triangle, r(r + 1)/2 floats per chain
+    tri_bytes = (b - 1) * r * (r + 1) // 2 * lg.element_size() + _nbytes(z, xt)
     rec_s = _record(torch, float((xt - xt_p).abs().max()), 0, lambda: solve(lg, z),
-                    lambda: cc.tri_solve_lt_plain(lg, z), _nbytes(lg, z, xt),
-                    (b - 1) * r * r,
+                    lambda: cc.tri_solve_lt_plain(lg, z), tri_bytes, (b - 1) * r * r,
                     library=lambda: torch.linalg.solve_triangular(
                         lg.transpose(-1, -2), z[..., None], upper=True))
     return rec_f, rec_s, (m, rhs)
@@ -302,27 +308,17 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
     return records
 
 
-def phase_kernels_bfm(torch, dev, data, evaluator):
-    """K5 (both modes), K6 and K7 against the plain twins at the BFM path's
-    shapes; K1 at r = 200 timed beside K6."""
+def _k5_records(torch, dev, rng, b, model, evaluator):
+    """K5 culled, the dense scan and the plain twin on the collective
+    evaluator's own queries at ``b`` chains moved off the mean: all three
+    bitwise equal (d² and ids), else raise; the culled kernel's share of
+    (query, tile) and (query, face) pairs from one counted call."""
     import numpy as np
 
-    from icp_proposal_tpu_torch.ops import chol_cuda as cc
     from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
     from icp_proposal_tpu_torch.sampling.state import init_state, transformed_points
 
-    rng = np.random.RandomState(1)
-    b, model, ctx = CMP_CHAINS, data.model, evaluator.ctx
-    records = {}
-    records["chol_solve_blocked"], records["tri_solve_lt_blocked"], (m, rhs) = (
-        _chol_records(torch, dev, rng, b, model.rank, cc.chol_solve_blocked,
-                      cc.tri_solve_lt_blocked, "K6"))
-    k1_ms, k6_ms = _paired_times(torch, lambda: cc.chol_solve(m, rhs, blocked=False),
-                                 lambda: cc.chol_solve_blocked(m, rhs))
-    print(f"[kernels:bfm] K1 chol_solve at r={model.rank}: {k1_ms:.4f} ms; K6 "
-          f"chol_solve_blocked {k6_ms:.4f} ms; {b} chains")
-
-    # K5 on the collective evaluator's own queries at chains moved off the mean
+    ctx = evaluator.ctx
     state = init_state(model, b)
     state = state._replace(coeffs=torch.as_tensor(
         rng.randn(b, model.rank).astype(np.float32) * 0.5, device=dev))
@@ -332,35 +328,99 @@ def phase_kernels_bfm(torch, dev, data, evaluator):
     ids_t = torch.as_tensor(evaluator.target_ids(name), dtype=torch.int64, device=dev)
     cases = {"shared": (pts[:, ids_m].contiguous(), ctx.points, ctx.cells.int()),
              "per_chain": (ctx.points[ids_t].contiguous(), pts, model.cells.int())}
+    records = {}
     for mode, args in cases.items():
         d2, fidx = cp.surface_distances(*args)
-        d2_c, fidx_c = cp.surface_distances(*args, cull=True)
+        d2_d, fidx_d = cp.surface_distances(*args, cull=False)
         d2_p, fidx_p = cp.surface_distances_plain(*args)
+        visits = torch.zeros(2, dtype=torch.int64, device=dev)
+        cp.surface_distances(*args, visits=visits)
         _sync(torch)
+        for what, (dd, ff) in (("the dense scan", (d2_d, fidx_d)),
+                               ("the plain twin", (d2_p, fidx_p))):
+            if not (torch.equal(d2, dd) and torch.equal(fidx, ff)):
+                raise AssertionError(f"K5 {mode} at {b} chains: the culled kernel differs "
+                                     f"from {what} ({int((fidx != ff).sum())} ids, "
+                                     f"{int((d2 != dd).sum())} d²)")
         err, mism = _id_errors(fidx, fidx_p)
         err = max(err, float((d2 - d2_p).abs().max()))
-        if not (torch.equal(d2_c, d2) and torch.equal(fidx_c, fidx)):
-            raise AssertionError(f"K5 {mode}: cull=True differs from cull=False")
         q, points, cells = args
-        pairs = b * q.shape[-2] * cells.shape[0]
-        records[f"surface_distances[{mode}]"] = _record(
-            torch, err, mism, lambda: cp.surface_distances(*args),
-            lambda: cp.surface_distances_plain(*args),
-            _nbytes(q, points, cells, d2, fidx), PAIR_FLOPS * pairs, reps=5)
+        p, f = q.shape[-2], cells.shape[0]
+        n_tiles = -(-f // cp.TILE_FACES)
+        tiles_seen, pairs_seen = (int(x) for x in visits.tolist())
+        n_bytes = _nbytes(q, points, cells, d2, fidx)
+        def dense():
+            return cp.surface_distances(*args, cull=False)
+
+        dense_ms = _time_ms(torch, dense, 5)  # dense, culled, culled, dense
+        rec = _record(torch, err, mism, lambda: cp.surface_distances(*args),
+                      lambda: cp.surface_distances_plain(*args), n_bytes,
+                      PAIR_FLOPS * pairs_seen, reps=5,
+                      plain_reps=1 if b > CMP_CHAINS else 5)
+        dense_ms = (dense_ms + _time_ms(torch, dense, 5)) / 2
+        rec.update(dense_ms=dense_ms,
+                   dense_bound_ms=_bound(n_bytes, PAIR_FLOPS * b * p * f)[0],
+                   tile_share=tiles_seen / (b * p * n_tiles), pair_share=pairs_seen / (b * p * f),
+                   chains=b)
+        records[f"surface_distances[{mode}]"] = rec
+    return records
+
+
+def phase_kernels_bfm(torch, dev, data, evaluator):
+    """K5 (both modes), K6 and K7 against the plain twins at the BFM path's
+    shapes on ``CMP_CHAINS`` and on ``N_CHAINS`` chains (the larger as
+    ``at_2048_chains`` in each record); K1 at r = 200 timed beside K6."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    rng = np.random.RandomState(1)
+    b, model = CMP_CHAINS, data.model
+    records = {}
+    records["chol_solve_blocked"], records["tri_solve_lt_blocked"], (m, rhs) = (
+        _chol_records(torch, dev, rng, b, model.rank, cc.chol_solve_blocked,
+                      cc.tri_solve_lt_blocked, "K6"))
+    k1_ms, k6_ms = _paired_times(torch, lambda: cc.chol_solve(m, rhs, blocked=False),
+                                 lambda: cc.chol_solve_blocked(m, rhs))
+    print(f"[kernels:bfm] K1 chol_solve at r={model.rank}: {k1_ms:.4f} ms; K6 "
+          f"chol_solve_blocked {k6_ms:.4f} ms; {b} chains")
+    records.update(_k5_records(torch, dev, rng, b, model, evaluator))
+    big = dict(zip(("chol_solve_blocked", "tri_solve_lt_blocked"), _chol_records(
+        torch, dev, rng, N_CHAINS, model.rank, cc.chol_solve_blocked,
+        cc.tri_solve_lt_blocked, "K6")[:2]))
+    big.update(_k5_records(torch, dev, rng, N_CHAINS, model, evaluator))
+    for name, rec in big.items():
+        records[name]["at_2048_chains"] = rec
     return records
 
 
 def _print_records(tag, records):
     for name, rec in records.items():
-        tol = TOL if name in VALUE_TOL else 0
-        held = f"rtol {TOL:g} + atol {TOL:g}" if tol else "exact"
-        lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
-        print(f"[{tag}] {name}: max_abs_err {rec['max_abs_err']:.3g} (held {held}), "
-              f"{rec['id_mismatches']} ids differ, kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), library {lib}, {CMP_CHAINS} chains")
-        if rec["id_mismatches"] or (not tol and rec["max_abs_err"]):
-            raise AssertionError(f"{name}: the kernel disagrees with its plain twin")
+        for chains, r in ((CMP_CHAINS, rec), (N_CHAINS, rec.get("at_2048_chains"))):
+            if r is not None:
+                _print_record(tag, name, r, chains)
+
+
+def _print_record(tag, name, rec, chains):
+    tol = TOL if name in VALUE_TOL else 0
+    held = f"rtol {TOL:g} + atol {TOL:g}" if tol else "exact"
+    lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+    print(f"[{tag}] {name}: max_abs_err {rec['max_abs_err']:.3g} (held {held}), "
+          f"{rec['id_mismatches']} ids differ, kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), library {lib}, {chains} chains")
+    if "factor_only_ms" in rec:
+        print(f"[{tag}] {name}: torch.linalg.cholesky_ex, the factor only (not "
+              f"the same function), {rec['factor_only_ms']:.4f} ms, {chains} chains")
+    if "dense_ms" in rec:
+        print(f"[{tag}] {name}: culled {rec['ms']:.4f} ms, dense scan "
+              f"{rec['dense_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; culled visits "
+              f"{rec['tile_share']:.4f} of the (query, tile) pairs and "
+              f"{rec['pair_share']:.4f} of the (query, face) pairs; bound over the pairs "
+              f"visited {rec['bound_ms']:.4f} ms, dense bound {rec['dense_bound_ms']:.4f} "
+              f"ms; culled = dense scan = plain twin bitwise; {chains} chains")
+    if rec["id_mismatches"] or (not tol and rec["max_abs_err"]):
+        raise AssertionError(f"{name}: the kernel disagrees with its plain twin")
 
 
 def _wrappers():

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "icp_tri_solve_lt": [_P, _P, _P, _I, _I, _P],
     "icp_nearest_vertices": [_P, _P, _P, _I, _I, _I, _I, _P],
     "icp_refine_shortlist": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "icp_surface_distances": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "icp_surface_distances": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P],
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
     "icp_tri_solve_lt_blocked": [_P, _P, _P, _I, _I, _P],
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],

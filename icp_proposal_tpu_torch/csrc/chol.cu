@@ -43,12 +43,28 @@
 //
 // K7 icp_tri_solve_lt_blocked replaces _tri_lt_blocked_kernel /
 // _tri_lt_blocked_call in the same file (taken by the same rule): Lᵀx = z,
-// dividing by max(Lⱼⱼ, 1e-30).
-//   What bounds it: the r-step dependency chain, as K2.
-//   Design: one warp per chain walks the column panels of L from the last
-//   to the first: it stages the panel's rows ≥ k0 in shared memory with
-//   coalesced row loads, then solves each column j as a dot product of
-//   column j below the diagonal with the solved x, reduced by shuffles.
+// dividing by max(Lⱼⱼ, 1e-30) (NaN stays NaN, as chol_pallas.py:317 does).
+//   What bounds it: the r dependent steps xⱼ = resⱼ / Lⱼⱼ, each needing the
+//   one before it; at 2,048 chains also the bytes of the lower triangle
+//   (164 MB at r = 200, 0.05 ms at 3.35 TB/s).  The earlier design (column
+//   panels staged in 54 KB of shared memory per two chains, each xⱼ a dot
+//   product finished by five dependent shuffles) put a five-shuffle tree and
+//   a synchronous panel load on that chain and held about one block per SM.
+//   Design: the axpy ("column") form, one warp per chain and no shared
+//   memory.  Lane l keeps the residual entries i ≡ l (mod 32) in registers
+//   (⌈r/32⌉ of them: 7 at r = 200, at most KMAX).  At step j, from r − 1
+//   down, the owner lane divides, one __shfl_sync broadcasts xⱼ and every
+//   lane subtracts Lⱼᵢ·xⱼ from its entries i < j, with row j of L read as
+//   coalesced lane loads of its entries i ≤ j only (the lower triangle, read
+//   once).  Rows do not depend on x, so each row is loaded kRowsAhead steps
+//   before its step into a ring of registers: the critical path per step is
+//   one division, one shuffle and one multiply-subtract, not a device-memory
+//   load and five shuffles.  The ring's slot of row j is j mod kRowsAhead, a
+//   compile-time index: the steps run in groups of kRowsAhead that start at
+//   j ≡ kRowsAhead − 1, and the loop over the 32-row blocks is unrolled so
+//   the residual entry of the step is a compile-time index too.  The sums
+//   run in another order than the twin's (as in K2): values agree to the
+//   tolerance, not bitwise.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
@@ -60,9 +76,10 @@ namespace {
 
 constexpr int kCholThreads = 256;
 constexpr int kTriWarps = 4;
-constexpr int kPanel = 32;  // K6/K7 panel width
+constexpr int kPanel = 32;  // K6 panel width
 constexpr int kPanelStride = kPanel + 1;  // odd: column walks hit 32 banks
-constexpr int kTriBlockedWarps = 2;
+constexpr int kTriRowWarps = 2;  // K7: chains (warps) per block
+constexpr int kRowsAhead = 4;    // K7: rows of L loaded ahead of their step; divides 32
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan32() { return __int_as_float(0x7fc00000); }
@@ -265,42 +282,71 @@ __global__ void chol_solve_blocked_kernel(const float* __restrict__ m,
   if (tid == 0) logdet[blockIdx.x] = acc;
 }
 
-__global__ void tri_solve_lt_blocked_kernel(const float* __restrict__ l,
-                                            const float* __restrict__ z,
-                                            float* __restrict__ x, int batch, int r) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= batch) return;  // whole warps leave; no block barrier follows
-  float* panel = smem + (size_t)warp * r * (kPanelStride + 1);  // [r - k0][kPanelStride]
-  float* xs = panel + r * kPanelStride;  // [r] x, zero until solved
-  const float* lb = l + (size_t)b * r * r;
-  const float* zb = z + (size_t)b * r;
-  for (int t = lane; t < r; t += 32) xs[t] = 0.0f;
-  for (int k0 = ((r - 1) / kPanel) * kPanel; k0 >= 0; k0 -= kPanel) {
-    const int w = min(kPanel, r - k0);
-    const int h = r - k0;
-    __syncwarp();
-    for (int t = lane; t < h * w; t += 32) {
-      const int i = t / w, c = t % w;
-      panel[i * kPanelStride + c] = lb[(size_t)(k0 + i) * r + k0 + c];
-    }
-    __syncwarp();
-    for (int j = w - 1; j >= 0; --j) {
-      float s = 0.0f;
-      for (int i = j + 1 + lane; i < h; i += 32) s += panel[i * kPanelStride + j] * xs[k0 + i];
+// K7: row j of L, entries i = lane + 32k ≤ j for k ≤ kmax, into row[k]
+// (zero elsewhere and for rows outside [0, r))
+template <int KMAX>
+__device__ __forceinline__ void load_lt_row(float (&row)[KMAX], const float* lb, int r,
+                                            int j, int lane, int kmax) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-      float d = panel[j * kPanelStride + j];
-      d = isnan(d) ? d : fmaxf(d, 1e-30f);
-      const float xj = (zb[k0 + j] - s) / d;
-      if (lane == 0) xs[k0 + j] = xj;
-      __syncwarp();
+  for (int k = 0; k < KMAX; ++k) {
+    const int i = lane + 32 * k;
+    if (k <= kmax) row[k] = (j >= 0 && j < r && i <= j) ? lb[(size_t)j * r + i] : 0.0f;
+  }
+}
+
+// K7: one warp per chain, r ≤ 32·KMAX
+template <int KMAX>
+__global__ void __launch_bounds__(kTriRowWarps * 32)
+    tri_solve_lt_rows_kernel(const float* __restrict__ l, const float* __restrict__ z,
+                             float* __restrict__ x, int batch, int r) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kTriRowWarps + (threadIdx.x >> 5);
+  if (b >= batch) return;  // whole warps leave; nothing synchronises the block
+  const float* lb = l + (size_t)b * r * r;
+  float res[KMAX];  // res[k]: entry lane + 32k, z minus the solved terms, then x
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int i = lane + 32 * k;
+    res[k] = i < r ? z[(size_t)b * r + i] : 0.0f;
+  }
+  // ring[j % kRowsAhead] holds row j; the first group starts at jtop ≥ r − 1,
+  // jtop ≡ kRowsAhead − 1, in the same 32-row block as r − 1
+  const int jtop = (r - 1) | (kRowsAhead - 1);
+  float ring[kRowsAhead][KMAX];
+#pragma unroll
+  for (int t = 0; t < kRowsAhead; ++t)
+    load_lt_row<KMAX>(ring[kRowsAhead - 1 - t], lb, r, jtop - t, lane, KMAX - 1);
+#pragma unroll
+  for (int s = KMAX - 1; s >= 0; --s) {
+    if (32 * s > jtop) continue;  // a block above the matrix (uniform)
+    for (int jj = min(31, jtop - 32 * s); jj >= 0; jj -= kRowsAhead) {
+#pragma unroll
+      for (int t = 0; t < kRowsAhead; ++t) {
+        const int slot = kRowsAhead - 1 - t;  // == j % kRowsAhead
+        const int owner = jj - t;
+        const int j = 32 * s + owner;
+        if (j < r) {
+          // on the owner lane ring[slot][s] is Lⱼⱼ and res[s] is resⱼ
+          const float dj = ring[slot][s];
+          const float d = isnan(dj) ? dj : fmaxf(dj, 1e-30f);
+          const float xj = __shfl_sync(kFull, res[s] / d, owner);
+#pragma unroll
+          for (int k = 0; k < s; ++k) res[k] -= ring[slot][k] * xj;
+          if (lane < owner) {
+            res[s] -= ring[slot][s] * xj;
+          } else if (lane == owner) {
+            res[s] = xj;
+          }
+        }
+        load_lt_row<KMAX>(ring[slot], lb, r, j - kRowsAhead, lane, s);
+      }
     }
   }
-  __syncwarp();
-  for (int t = lane; t < r; t += 32) x[(size_t)b * r + t] = xs[t];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int i = lane + 32 * k;
+    if (i < r) x[(size_t)b * r + i] = res[k];
+  }
 }
 
 // the matrix at row stride r|1, plus the two vectors
@@ -310,11 +356,6 @@ int chol_smem_bytes(int r) { return (int)(((size_t)r * (r | 1) + 2 * (size_t)r) 
 int chol_blocked_smem_bytes(int r) {
   return (int)(((size_t)r * kPanelStride + (size_t)kPanel * (r | 1) + 2 * (size_t)r) *
                sizeof(float));
-}
-
-// per warp: the panel and x
-int tri_blocked_smem_bytes(int r) {
-  return (int)((size_t)kTriBlockedWarps * r * (kPanelStride + 1) * sizeof(float));
 }
 
 cudaError_t allow_smem(const void* kernel, int bytes) {
@@ -364,12 +405,17 @@ int icp_chol_solve_blocked(const float* m, const float* rhs, float* l, float* x,
 int icp_tri_solve_lt_blocked(const float* l, const float* z, float* x, int batch, int r,
                              void* stream) {
   if (batch == 0) return cudaSuccess;
-  const int bytes = tri_blocked_smem_bytes(r);
-  cudaError_t e = allow_smem((const void*)tri_solve_lt_blocked_kernel, bytes);
-  if (e != cudaSuccess) return e;
-  const int blocks = (batch + kTriBlockedWarps - 1) / kTriBlockedWarps;
-  tri_solve_lt_blocked_kernel<<<blocks, kTriBlockedWarps * 32, bytes,
-                                (cudaStream_t)stream>>>(l, z, x, batch, r);
+  const int blocks = (batch + kTriRowWarps - 1) / kTriRowWarps;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (r <= 128) {
+    tri_solve_lt_rows_kernel<4><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
+  } else if (r <= 256) {
+    tri_solve_lt_rows_kernel<8><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
+  } else if (r <= 512) {
+    tri_solve_lt_rows_kernel<16><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
+  } else {
+    return cudaErrorInvalidValue;  // the wrapper refuses r > 512 first
+  }
   return cudaGetLastError();
 }
 

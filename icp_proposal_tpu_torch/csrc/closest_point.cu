@@ -35,24 +35,59 @@
 //
 // K5 icp_surface_distances replaces _make_kernel / _dist2_call in the same
 // file (reached through surface_distances_pallas, pack_triangles and
-// tile_bounds): the dense point→triangle min d² and argmin face of every
-// query against every face, with the same Ericson cascade as K4.  Ties go to
-// the lowest face index, as the Pallas kernel's net rule does (lowest lane
-// within a 128-face tile, strictly smaller d² across tiles).
-//   What bounds it: FP32 throughput.  ~100 operations per (query, face) pair
-//   and 2,048 × 800 × (3,199 + 3,872) ≈ 1.2·10¹⁰ pairs per BFM step; the
-//   bytes (queries, vertices, cells) are a few MB.
-//   Design: one thread per query, one block per (128-query tile, chain).
-//   Faces stream through shared memory in tiles of 128 as SoA rows; the
-//   block gathers each tile's corners itself from the vertex array (shared,
-//   or one per chain) and the [F, 3] cells, so the [B, 9, Fp] triangle soup
-//   of pack_triangles never exists in device memory.  Each thread keeps a
-//   running (min, argmin) in registers and scans faces in ascending order
-//   with a strict <.  The ragged last tile is masked instead of padded with
-//   far triangles; that changes no result.  With cull set, the block
-//   reduces the tile's corner AABB in shared memory (tile_bounds) and skips
-//   the tile when no query of the block can beat its running best against
-//   the box; results are the same as without.
+// tile_bounds): the point→triangle min d² and argmin face of every query
+// over every face, with the same Ericson cascade as K4.  The winner is the
+// least d², then the lowest face index (the Pallas kernel's net rule: lowest
+// lane within a 128-face tile, strictly smaller d² across tiles); a NaN d²
+// never wins, so a NaN query gets (+inf, face 0).
+//   What bounds it: FP32 issue rate on the pairs it evaluates.  Scanned
+//   densely, ~82 counted operations per (query, face) pair and
+//   2,048 × 800 × (3,202 + 3,872) ≈ 1.16·10¹⁰ pairs per BFM step; the bytes
+//   (queries, vertices, cells) are a few MB.  So the lever is the number of
+//   pairs: most faces lie far from a given query.
+//   Design: exact nearest-first tile culling per warp.
+//   * A pre-pass (tile_boxes_kernel) computes the corner AABB of each tile
+//     of 32 consecutive faces once per surface (once per call for a shared
+//     surface, once per chain for per-chain surfaces, gathered through
+//     cells: no triangle soup) and the largest vertex norm the box can hold.
+//     The tile is 32 faces and not the reference's 128: on the face
+//     stand-in (a sphere less a cap) 128-face boxes left ~40 % of the
+//     (query, face) pairs to evaluate and 32-face boxes ~20 %, counted by a
+//     float32 replay of this kernel's visit logic on the CPU; the ranking
+//     then covers 101 or 121 tiles, four keys a lane.
+//   * Each warp is one unit of work: 32 consecutive queries (Morton-sorted
+//     on the BFM path, so a compact patch).  It computes the distance from
+//     its queries' AABB to every tile box and visits the tiles nearest
+//     first, by repeated warp argmin over those keys in its own slice of
+//     shared memory.
+//   * A tile is skipped when no lane's own box distance lb² is within its
+//     running best plus the skip margin (__any_sync); the warp stops when
+//     the nearest remaining key exceeds every lane's best plus margin (a
+//     query's lb² is never below its warp's key: rounding is monotone).  No
+//     block barrier anywhere: warps of a block run apart.
+//   * A visited tile's faces pass through the warp's own 2 KB of shared
+//     memory, one face per lane, as a, b, c, ab = b − a and ac = c − a (four
+//     float4; the same subtractions as in the cascade, done once per face
+//     instead of once per pair, so bitwise the same).  The gather (cells,
+//     then corners) of the tile to consider next is issued into registers
+//     before the current tile is evaluated, so its latency overlaps the
+//     arithmetic; when that tile is then skipped, the gather is wasted and
+//     the next visit gathers anew.  Registers and not cp.async, because ab
+//     and ac are formed from the corners before they are stored.
+//   * Any visit order gives the dense result because a face wins on
+//     d² < best || (d² == best && id < best_id).
+//   Skip margin: skip when lb² > best + 2⁻¹⁷·(‖q‖ + maxᵥ‖v‖)² + 2⁻¹²⁶.  With
+//   u = 2⁻²⁴ and M the largest vertex norm, every product and sum rounded on
+//   its own (-fmad=false): ab, ac and the closest point a + v·ab + w·ac are
+//   each within ~20uM per coordinate of a point of the triangle (v, w
+//   clipped, v + w ≤ 1 + 3u), so within 35uM of the tile box; the cascade's
+//   final d² is at least (1 − 5u) of the squared distance of its computed
+//   point, and the computed lb² at most (1 + 5u) of the true one.  Hence a
+//   computed d² ≥ lb² − 81u·(‖q‖ + M)², while the margin is 128u·(‖q‖ + M)²:
+//   a skipped tile holds no face whose d² could reach the running best,
+//   ties included.  The 2⁻¹²⁶ term covers the absolute rounding of
+//   subnormal results.  cull = 0 visits every tile in ascending order (the
+//   dense scan the checks compare the culled kernel with).
 //
 // K8 icp_coarse_nearest_dot replaces _make_coarse_mxu_kernel /
 // _coarse_mxu_call in the same file (reached through coarse_nearest_mxu, the
@@ -85,7 +120,10 @@ constexpr int kNvThreads = 128;
 constexpr int kNvChunk = 2048;
 constexpr int kDotChunk = 2048;  // K8's most vertices per shared-memory tile (32 KB)
 constexpr int kRefineWarps = 8;
-constexpr int kDenseTile = 128;  // faces per tile and queries per block (TF, TP)
+constexpr int kTileFaces = 32;   // K5: faces per culling tile, one per lane
+constexpr int kCpWarps = 4;      // K5: warps per block, 32 queries each
+constexpr float kSkipScale = 7.62939453125e-06f;  // K5 skip margin: 2⁻¹⁷
+constexpr float kSkipFloor = 1.17549435e-38f;     // and 2⁻¹²⁶
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
@@ -178,13 +216,14 @@ __device__ __forceinline__ float clip01(float x) {
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-// _tile_dist2 (closest_point_pallas.py:58-119), term for term
-__device__ __forceinline__ float point_tri_dist2(float qx, float qy, float qz, const float* c) {
-  const float ax = c[0], ay = c[1], az = c[2];
-  const float bx = c[3], by = c[4], bz = c[5];
-  const float cx = c[6], cy = c[7], cz = c[8];
-  const float abx = bx - ax, aby = by - ay, abz = bz - az;
-  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
+// _tile_dist2 (closest_point_pallas.py:58-119), term for term, with the
+// edges ab = b − a and ac = c − a given
+__device__ __forceinline__ float point_tri_dist2_edges(float qx, float qy, float qz,
+                                                       float ax, float ay, float az,
+                                                       float bx, float by, float bz,
+                                                       float cx, float cy, float cz,
+                                                       float abx, float aby, float abz,
+                                                       float acx, float acy, float acz) {
   const float apx = qx - ax, apy = qy - ay, apz = qz - az;
   const float bpx = qx - bx, bpy = qy - by, bpz = qz - bz;
   const float cpx = qx - cx, cpy = qy - cy, cpz = qz - cz;
@@ -238,6 +277,13 @@ __device__ __forceinline__ float point_tri_dist2(float qx, float qy, float qz, c
   const float dy = qy - ((ay + v * aby) + w * acy);
   const float dz = qz - ((az + v * abz) + w * acz);
   return dx * dx + dy * dy + dz * dz;
+}
+
+// the same with the corners c = (ax ay az bx by bz cx cy cz)
+__device__ __forceinline__ float point_tri_dist2(float qx, float qy, float qz, const float* c) {
+  return point_tri_dist2_edges(qx, qy, qz, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7],
+                               c[8], c[3] - c[0], c[4] - c[1], c[5] - c[2], c[6] - c[0],
+                               c[7] - c[1], c[8] - c[2]);
 }
 
 // lexicographic (d², face id, slot) order
@@ -296,20 +342,139 @@ __global__ void refine_shortlist_kernel(const float* __restrict__ q,
   if (lane < 9) wtri[gq * 9 + lane] = trow[lane * k + bk];
 }
 
-// blockDim.x == kDenseTile: thread t stages face lo + t of each tile
-__global__ void surface_distances_kernel(const float* __restrict__ q,
-                                         long long q_batch_stride,
-                                         const float* __restrict__ pts,
-                                         long long pts_batch_stride,
-                                         const int* __restrict__ cells,
-                                         float* __restrict__ d2_out,
-                                         int* __restrict__ idx_out, int p, int f,
-                                         int cull) {
-  __shared__ float st[9][kDenseTile];  // tile corners, SoA: ax ay az bx ... cz
-  __shared__ float red[kDenseTile / 32][6];  // per-warp tile box (cull only)
+// K5 pre-pass: blockDim.x == kCpWarps·32, warp w of block x computes tile
+// x·kCpWarps + w of surface blockIdx.y (lane l its face l):
+// boxes[s, tile] = (lo x y z, hi x y z, the norm of the box's farthest
+// corner from the origin (≥ every vertex norm in it), 0).  A tile whose
+// corners are all NaN gets the empty box (+inf, −inf) and norm +inf.
+__global__ void tile_boxes_kernel(const float* __restrict__ pts, long long pts_batch_stride,
+                                  const int* __restrict__ cells, int f, int n_tiles,
+                                  float* __restrict__ boxes) {
+  const int lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * kCpWarps + (threadIdx.x >> 5);
+  if (tile >= n_tiles) return;  // whole warps leave
+  const int face = tile * kTileFaces + lane;
+  const float* pb = pts + (size_t)blockIdx.y * pts_batch_stride;
+  float box[6] = {inf32(), inf32(), inf32(), -inf32(), -inf32(), -inf32()};
+  if (face < f) {
+#pragma unroll
+    for (int corner = 0; corner < 3; ++corner) {
+      const float* v = pb + (size_t)cells[(size_t)face * 3 + corner] * 3;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        box[a] = fminf(box[a], v[a]);
+        box[3 + a] = fmaxf(box[3 + a], v[a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      box[a] = fminf(box[a], __shfl_xor_sync(kFull, box[a], off));
+      box[3 + a] = fmaxf(box[3 + a], __shfl_xor_sync(kFull, box[3 + a], off));
+    }
+  }
+  if (lane == 0) {
+    float* out = boxes + ((size_t)blockIdx.y * n_tiles + tile) * 8;
+    float m2 = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      out[a] = box[a];
+      out[3 + a] = box[3 + a];
+      const float m = fmaxf(fabsf(box[a]), fabsf(box[3 + a]));
+      m2 = m2 + m * m;
+    }
+    out[6] = sqrtf(m2);
+    out[7] = 0.0f;
+  }
+}
+
+// the squared distance from a box lo..hi (a point: lo == hi) to the box
+// bx[0..5]; fmaxf(·, 0) maps a NaN difference to 0, so it is never NaN
+__device__ __forceinline__ float box_dist2(const float* bx, float lx, float ly, float lz,
+                                           float hx, float hy, float hz) {
+  const float gx = fmaxf(fmaxf(bx[0] - hx, lx - bx[3]), 0.0f);
+  const float gy = fmaxf(fmaxf(bx[1] - hy, ly - bx[4]), 0.0f);
+  const float gz = fmaxf(fmaxf(bx[2] - hz, lz - bx[5]), 0.0f);
+  return gx * gx + gy * gy + gz * gz;
+}
+
+// the corners of face `face` (zeros where !ok)
+__device__ __forceinline__ void gather_face(float (&g)[9], const float* pb,
+                                            const int* cells, int face, bool ok) {
+  if (ok) {
+    const int* cf = cells + (size_t)face * 3;
+    const int i0 = cf[0], i1 = cf[1], i2 = cf[2];
+    const float* a = pb + (size_t)i0 * 3;
+    const float* b = pb + (size_t)i1 * 3;
+    const float* c = pb + (size_t)i2 * 3;
+    g[0] = a[0]; g[1] = a[1]; g[2] = a[2];
+    g[3] = b[0]; g[4] = b[1]; g[5] = b[2];
+    g[6] = c[0]; g[7] = c[1]; g[8] = c[2];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) g[i] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_min(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// the nearest tile not yet taken: the least (key, tile) over keys[0, n),
+// NaN marking a taken tile; the same on every lane; tile INT_MAX when none
+__device__ __forceinline__ int nearest_tile(const float* keys, int n, int lane,
+                                            float& key) {
+  int tile = INT_MAX;
+  key = 0.0f;
+  for (int t = lane; t < n; t += 32) {
+    const float k = keys[t];
+    if (!isnan(k) && (tile == INT_MAX || k < key)) {
+      key = k;
+      tile = t;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ok = __shfl_xor_sync(kFull, key, off);
+    const int ot = __shfl_xor_sync(kFull, tile, off);
+    if (ot != INT_MAX && (tile == INT_MAX || ok < key || (ok == key && ot < tile))) {
+      key = ok;
+      tile = ot;
+    }
+  }
+  return tile;
+}
+
+// K5: blockDim.x == kCpWarps·32, warp w of block x takes queries
+// (x·kCpWarps + w)·32 .. +31 of chain blockIdx.y.  boxes == nullptr: the
+// dense scan.  visits, when given, gains (active queries × tiles visited,
+// active queries × faces visited) per warp.
+__global__ void __launch_bounds__(kCpWarps * 32)
+    surface_distances_kernel(const float* __restrict__ q, long long q_batch_stride,
+                             const float* __restrict__ pts, long long pts_batch_stride,
+                             const int* __restrict__ cells,
+                             const float* __restrict__ boxes, long long boxes_batch_stride,
+                             float* __restrict__ d2_out, int* __restrict__ idx_out, int p,
+                             int f, int n_tiles, unsigned long long* __restrict__ visits) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int qi = blockIdx.x * kDenseTile + t;
+  const int q0 = (blockIdx.x * kCpWarps + warp) * 32;
+  if (q0 >= p) return;  // whole warps leave; nothing synchronises the block
+  float4* stage = smem4 + warp * kTileFaces * 4;  // a tile as (a b c ab ac), 4 float4 a face
+  float* keys = reinterpret_cast<float*>(smem4 + kCpWarps * kTileFaces * 4) + warp * n_tiles;
+  const int qi = q0 + lane;
   const bool active = qi < p;
   float qx = 0.0f, qy = 0.0f, qz = 0.0f;
   if (active) {
@@ -319,72 +484,86 @@ __global__ void surface_distances_kernel(const float* __restrict__ q,
     qz = qq[2];
   }
   const float* pb = pts + (size_t)b * pts_batch_stride;
+  const bool cull = boxes != nullptr;
+  const float* bb = cull ? boxes + (size_t)b * boxes_batch_stride : nullptr;
+  // a NaN query keeps (+inf, 0) whatever is visited: it asks for nothing
+  const bool live = active && !(isnan(qx) || isnan(qy) || isnan(qz));
   float best = inf32();
   int best_id = 0;
-  for (int lo = 0; lo < f; lo += kDenseTile) {
-    const int n = min(kDenseTile, f - lo);
-    __syncthreads();  // the previous tile is consumed
-    if (t < n) {
-      const int* cf = cells + (size_t)(lo + t) * 3;
-#pragma unroll
-      for (int corner = 0; corner < 3; ++corner) {
-        const float* v = pb + (size_t)cf[corner] * 3;
-        st[3 * corner][t] = v[0];
-        st[3 * corner + 1][t] = v[1];
-        st[3 * corner + 2][t] = v[2];
-      }
+  float margin = 0.0f;
+  float thr = live ? inf32() : -inf32();  // lb² > thr: nothing in the tile can win
+  float key = 0.0f;
+  int tile = n_tiles > 0 ? 0 : INT_MAX;  // the tile to consider next
+  if (cull) {
+    const float lx = warp_min(live ? qx : inf32()), hx = warp_max(live ? qx : -inf32());
+    const float ly = warp_min(live ? qy : inf32()), hy = warp_max(live ? qy : -inf32());
+    const float lz = warp_min(live ? qz : inf32()), hz = warp_max(live ? qz : -inf32());
+    float vmax = 0.0f;
+    for (int t = lane; t < n_tiles; t += 32) {
+      const float* bx = bb + (size_t)t * 8;
+      keys[t] = box_dist2(bx, lx, ly, lz, hx, hy, hz);
+      vmax = fmaxf(vmax, bx[6]);
     }
-    __syncthreads();
+    vmax = warp_max(vmax);
+    const float s = sqrtf(qx * qx + qy * qy + qz * qz) + vmax;
+    margin = kSkipScale * (s * s) + kSkipFloor;
+    __syncwarp();
+    tile = nearest_tile(keys, n_tiles, lane, key);
+  }
+  unsigned long long n_seen = 0, n_faces = 0;
+  float g[9];        // the corners of one face of tile `fetched`, one face per lane
+  int fetched = -1;  // the tile whose gather g holds
+  while (tile != INT_MAX) {
+    const int visit = tile;
     if (cull) {
-      // the tile's box: each thread its face's corners, then a warp and a
-      // block reduction; a thread without a face contributes an empty box
-      float box[6];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        box[a] = t < n ? fminf(fminf(st[a][t], st[3 + a][t]), st[6 + a][t]) : inf32();
-        box[3 + a] = t < n ? fmaxf(fmaxf(st[a][t], st[3 + a][t]), st[6 + a][t]) : -inf32();
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          box[a] = fminf(box[a], __shfl_xor_sync(kFull, box[a], off));
-          box[3 + a] = fmaxf(box[3 + a], __shfl_xor_sync(kFull, box[3 + a], off));
-        }
-      }
-      if ((t & 31) == 0) {
-#pragma unroll
-        for (int a = 0; a < 6; ++a) red[t >> 5][a] = box[a];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float lo_a = red[0][a], hi_a = red[0][3 + a];
-        for (int w = 1; w < kDenseTile / 32; ++w) {
-          lo_a = fminf(lo_a, red[w][a]);
-          hi_a = fmaxf(hi_a, red[w][3 + a]);
-        }
-        box[a] = lo_a;
-        box[3 + a] = hi_a;
-      }
-      // squared distance from the query to the box (tile_bounds' test)
-      const float dx = fmaxf(fmaxf(box[0] - qx, qx - box[3]), 0.0f);
-      const float dy = fmaxf(fmaxf(box[1] - qy, qy - box[4]), 0.0f);
-      const float dz = fmaxf(fmaxf(box[2] - qz, qz - box[5]), 0.0f);
-      const float lb2 = dx * dx + dy * dy + dz * dz;
-      if (!__syncthreads_or(active && lb2 < best)) continue;  // block-uniform
+      if (key > warp_max(thr)) break;  // every tile left is beyond every best
+      if (lane == 0) keys[visit] = __int_as_float(0x7fc00000);  // taken
+      __syncwarp();
+      tile = nearest_tile(keys, n_tiles, lane, key);  // the one to consider next
+      const float lb2 = box_dist2(bb + (size_t)visit * 8, qx, qy, qz, qx, qy, qz);
+      if (!__any_sync(kFull, lb2 <= thr)) continue;
+    } else {
+      tile = visit + 1 < n_tiles ? visit + 1 : INT_MAX;
     }
-    if (active) {
-      for (int u = 0; u < n; ++u) {
-        float c[9];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) c[i] = st[i][u];
-        const float d2 = point_tri_dist2(qx, qy, qz, c);
-        if (d2 < best) {
-          best = d2;
-          best_id = lo + u;
-        }
+    const int lo = visit * kTileFaces;
+    const int n = min(kTileFaces, f - lo);
+    if (fetched != visit) gather_face(g, pb, cells, lo + lane, lane < n);
+    ++n_seen;
+    n_faces += n;
+    __syncwarp();  // the previous tile is consumed
+    {
+      float4* slot = stage + 4 * lane;
+      slot[0] = make_float4(g[0], g[1], g[2], g[3]);
+      slot[1] = make_float4(g[4], g[5], g[6], g[7]);
+      slot[2] = make_float4(g[8], g[3] - g[0], g[4] - g[1], g[5] - g[2]);
+      slot[3] = make_float4(g[6] - g[0], g[7] - g[1], g[8] - g[2], 0.0f);
+    }
+    __syncwarp();
+    // the gather of the tile considered next overlaps this tile's arithmetic
+    fetched = tile;
+    if (tile != INT_MAX) {
+      const int nlo = tile * kTileFaces;
+      gather_face(g, pb, cells, nlo + lane, nlo + lane < f);
+    }
+    for (int u = 0; u < n; ++u) {
+      const float4 f0 = stage[4 * u], f1 = stage[4 * u + 1];
+      const float4 f2 = stage[4 * u + 2], f3 = stage[4 * u + 3];
+      const float d2 = point_tri_dist2_edges(qx, qy, qz, f0.x, f0.y, f0.z, f0.w, f1.x,
+                                             f1.y, f1.z, f1.w, f2.x, f2.y, f2.z, f2.w,
+                                             f3.x, f3.y, f3.z);
+      const int id = lo + u;
+      if (d2 < best || (d2 == best && id < best_id)) {
+        best = d2;
+        best_id = id;
       }
+    }
+    if (live) thr = best + margin;
+  }
+  if (visits != nullptr) {
+    const unsigned long long n_active = __popc(__ballot_sync(kFull, active));
+    if (lane == 0) {
+      atomicAdd(&visits[0], n_active * n_seen);
+      atomicAdd(&visits[1], n_active * n_faces);
     }
   }
   if (active) {
@@ -417,14 +596,34 @@ int icp_refine_shortlist(const float* q, const int* coarse, const int* cand,
   return cudaGetLastError();
 }
 
-int icp_surface_distances(const float* q, const float* pts, const int* cells, float* d2,
-                          int* idx, int batch, int p, int v, int f, int q_batched,
-                          int pts_batched, int cull, void* stream) {
+// boxes: scratch of n_tiles·8 floats per surface (one surface, or batch
+// with pts_batched), used when cull; visits: nullptr or two counters
+int icp_surface_distances(const float* q, const float* pts, const int* cells, float* boxes,
+                          unsigned long long* visits, float* d2, int* idx, int batch, int p,
+                          int v, int f, int q_batched, int pts_batched, int cull,
+                          void* stream) {
   if (batch == 0 || p == 0) return cudaSuccess;
-  const dim3 grid((p + kDenseTile - 1) / kDenseTile, batch);
-  surface_distances_kernel<<<grid, kDenseTile, 0, (cudaStream_t)stream>>>(
-      q, q_batched ? 3LL * p : 0LL, pts, pts_batched ? 3LL * v : 0LL, cells, d2, idx,
-      p, f, cull);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = (f + kTileFaces - 1) / kTileFaces;
+  const long long pts_stride = pts_batched ? 3LL * v : 0LL;
+  if (cull && n_tiles > 0) {
+    const dim3 grid((n_tiles + kCpWarps - 1) / kCpWarps, pts_batched ? batch : 1);
+    tile_boxes_kernel<<<grid, kCpWarps * 32, 0, st>>>(pts, pts_stride, cells, f, n_tiles,
+                                                      boxes);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int bytes = kCpWarps * (kTileFaces * 4 * (int)sizeof(float4) +
+                                (cull ? n_tiles * (int)sizeof(float) : 0));
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        surface_distances_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((p + kCpWarps * 32 - 1) / (kCpWarps * 32), batch);
+  surface_distances_kernel<<<grid, kCpWarps * 32, bytes, st>>>(
+      q, q_batched ? 3LL * p : 0LL, pts, pts_stride, cells, cull ? boxes : nullptr,
+      pts_batched ? 8LL * n_tiles : 0LL, d2, idx, p, f, n_tiles, visits);
   return cudaGetLastError();
 }
 

@@ -173,17 +173,21 @@ tri_solve_lt.launches = 0
 
 
 def tri_solve_lt_blocked(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``tri_solve_lt`` through the blocked kernel, same contract.
+    """``tri_solve_lt`` through the blocked kernel, same contract; r ≤ 512.
 
     Kernel K7 (``csrc/chol.cu``) replaces ``_tri_lt_blocked_kernel`` in
     ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by the r dependent
-    steps, as K2; one warp per chain stages 32-column panels of L in shared
-    memory and solves each column as a shuffle-reduced dot product."""
+    steps (at 2,048 chains also by the bytes of the lower triangle).  One
+    warp per chain in the axpy form: each lane keeps its residual entries
+    in registers, the owner of xⱼ divides and one shuffle broadcasts it,
+    and the rows of L stream into registers four steps ahead of their use,
+    so a step waits on one division, one shuffle and one multiply-subtract.
+    No shared memory."""
     bsz, r, dev = _tri_args(chol, z)
     if dev.type == "cpu":
         return tri_solve_lt_plain(chol, z)
-    if 2 * r * 34 * 4 > MAX_SMEM_BYTES:  # two warps, each a [r, 33] panel and x
-        raise ValueError(f"tri_solve_lt_blocked takes r ≤ 427, got r={r}")
+    if r > 512:  # 16 residual entries per lane at most
+        raise ValueError(f"tri_solve_lt_blocked takes r ≤ 512, got r={r}")
     x = torch.empty_like(z)
     launch("icp_tri_solve_lt_blocked", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
            bsz, r)

@@ -126,7 +126,9 @@ def surface_distances(queries, points, cells):
     version): queries [B, P, 3] or [P, 3] (shared by all chains), points
     [V, 3] (shared) or [B, V, 3] (one mesh per chain), cells [F, 3] →
     (d2 [B, P] float32, face_idx [B, P] int32); ties to the lowest face
-    index.  Works through the chains in blocks of at most ``_DENSE_CHUNK``
+    index.  A NaN d² never wins, as in K5 and the Pallas kernel's running
+    minimum: a query with no finite d² (a NaN query) gets (+inf, 0).
+    Works through the chains in blocks of at most ``_DENSE_CHUNK``
     (chain, query, face) triples."""
     q_batched, p_batched = queries.dim() == 3, points.dim() == 3
     if not (q_batched or p_batched):
@@ -145,15 +147,17 @@ def surface_distances(queries, points, cells):
         t = (tri[lo:hi] if p_batched else tri)[:, None]  # [n, 1, F, 3, 3]
         _, d2 = closest_point_on_triangle(q, t[..., 0, :], t[..., 1, :],
                                           t[..., 2, :])  # [n, P, F]
+        d2 = d2.masked_fill_(torch.isnan(d2), float("inf"))
         d2s.append(torch.amin(d2, dim=-1))
         ids.append(torch.argmin(d2, dim=-1).to(torch.int32))
     return torch.cat(d2s), torch.cat(ids)
 
 
 def surface_distances_auto(queries, points, cells):
-    """Dense (d2, face_idx) through K5 (``closest_point_cuda.surface_distances``,
-    whose wrapper takes the plain version for tensors on the CPU); same
-    arguments as ``surface_distances``."""
+    """(d2, face_idx) through the culled K5
+    (``closest_point_cuda.surface_distances``, bitwise the dense scan; its
+    wrapper takes the plain version for tensors on the CPU); same arguments
+    as ``surface_distances``."""
     from icp_proposal_tpu_torch.ops.closest_point_cuda import surface_distances as k5
 
     return k5(queries, points, cells)

@@ -120,22 +120,31 @@ def refine_shortlist(queries: torch.Tensor, coarse: torch.Tensor,
 refine_shortlist.launches = 0
 
 
+TILE_FACES = 32  # K5's culling tile (kTileFaces in csrc/closest_point.cu)
+
+
 def surface_distances(queries: torch.Tensor, points: torch.Tensor,
-                      cells: torch.Tensor, cull: bool = False):
-    """Dense point→triangle min d² and nearest face per query, ties to the
-    lowest face index: queries [B, P, 3] or [P, 3] (shared by all chains),
-    points [V, 3] (shared) or [B, V, 3] (one mesh per chain), float32
-    contiguous; cells [F, 3] int32 contiguous → (d2 [B, P] float32,
-    face_idx [B, P] int32).
+                      cells: torch.Tensor, cull: bool = True,
+                      visits: torch.Tensor | None = None):
+    """Point→triangle min d² and nearest face per query, ties to the lowest
+    face index, a NaN d² never winning (a NaN query gets (+inf, 0)):
+    queries [B, P, 3] or [P, 3] (shared by all chains), points [V, 3]
+    (shared) or [B, V, 3] (one mesh per chain), float32 contiguous; cells
+    [F, 3] int32 contiguous → (d2 [B, P] float32, face_idx [B, P] int32).
 
     Kernel K5 (``csrc/closest_point.cu``) replaces ``_make_kernel`` /
     ``_dist2_call`` in ``icp_proposal_tpu/ops/closest_point_pallas.py``.
     Unlike ``pack_triangles``, it takes vertices and cells, not a triangle
-    soup, and gathers each 128-face tile's corners itself.  ``cull=True``
-    skips tiles whose bounding box cannot beat any query's running best
-    (``tile_bounds``; the reference's ``ICP_TPU_CULLING``), with the same
-    results.  Bound by FP32 throughput, ~100 operations per (query, face)
-    pair; one thread per query, faces through shared memory."""
+    soup.  Bound by FP32 issue rate on the (query, face) pairs it evaluates
+    (~82 operations a pair), so it evaluates few: each warp of 32 queries
+    visits the 128-face tiles nearest first by their bounding boxes
+    (``tile_bounds``) and skips a tile when no query can reach its running
+    best plus a stated rounding margin, so the result is bitwise the dense
+    scan's.  ``cull=False`` is that dense scan (every tile in ascending
+    order), kept only as what the checks compare the culled kernel with.
+    ``visits``, an int64 CUDA tensor of 2 that the call adds to, counts
+    (active queries × tiles visited, × faces visited); None on the main
+    path."""
     q_batched, p_batched = queries.dim() == 3, points.dim() == 3
     if not (q_batched or p_batched):
         raise ValueError("surface_distances needs a chain dimension on the "
@@ -146,17 +155,27 @@ def surface_distances(queries: torch.Tensor, points: torch.Tensor,
     check_tensor(points, "points", torch.float32,
                  (bsz, None, 3) if p_batched else (None, 3))
     check_tensor(cells, "cells", torch.int32, (None, 3))
-    dev = kernel_device(queries, points, cells)
+    if visits is not None:
+        check_tensor(visits, "visits", torch.int64, (2,))
+    dev = kernel_device(queries, points, cells,
+                        *(() if visits is None else (visits,)))
     if dev.type == "cpu":
+        if visits is not None:
+            raise ValueError("visits counts the CUDA kernel's tile visits; "
+                             "the plain version has none")
         return surface_distances_plain(queries, points, cells)
     if bsz > 65535:
         raise ValueError(f"surface_distances takes at most 65,535 chains, got {bsz}")
-    p = queries.shape[-2]
+    p, f = queries.shape[-2], cells.shape[0]
+    n_tiles = -(-f // TILE_FACES)
     d2 = torch.empty((bsz, p), dtype=torch.float32, device=dev)
     idx = torch.empty((bsz, p), dtype=torch.int32, device=dev)
+    boxes = (torch.empty((bsz if p_batched else 1, n_tiles, 8), dtype=torch.float32,
+                         device=dev) if cull else None)
     launch("icp_surface_distances", dev, queries.data_ptr(), points.data_ptr(),
-           cells.data_ptr(), d2.data_ptr(), idx.data_ptr(), bsz, p, points.shape[-2],
-           cells.shape[0], int(q_batched), int(p_batched), int(cull))
+           cells.data_ptr(), None if boxes is None else boxes.data_ptr(),
+           None if visits is None else visits.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+           bsz, p, points.shape[-2], f, int(q_batched), int(p_batched), int(cull))
     surface_distances.launches += 1
     surface_distances.per_chain_launches += int(p_batched)
     return d2, idx

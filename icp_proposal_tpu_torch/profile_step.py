@@ -5,16 +5,18 @@
 
 Builds the setup at its full width (femur stand-in GPMM-100, or the rank-200
 face stand-in with the partial-face setup), runs 3 warm-up steps of 2,048
-chains, then 5 steps under ``torch.profiler`` and prints, on one line each: the wall time per step, the device busy time per
-step (the sum of kernel durations; the port runs on one stream), the busy
-share, the number of device operations per step, and the device time per
-step of every kernel name, largest first.  The same window unprofiled is
+chains, then 5 steps under ``torch.profiler`` and prints, on one line each:
+the card's name and power limit (``nvidia-smi``), the wall time per step,
+the device busy time per step (the sum of kernel durations; the port runs
+on one stream), the busy share, the number of device operations per step,
+and the device time per step of every kernel name, largest first.  The same window unprofiled is
 timed first, so the profiler's own cost shows.  Exits non-zero without a
 CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -78,8 +80,11 @@ def main(argv=None) -> int:
             by_name[ev.name] += ev.device_time_total / 1e3 / STEPS  # µs → ms
             n_ops += 1
     busy = sum(by_name.values())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[:1]
     print(f"[profile] {args.setup}: {N_CHAINS} chains x {STEPS} steps; "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; nvidia-smi: {', '.join(smi) or 'none'}")
     print(f"[profile] wall {wall_ms:.3f} ms/step profiled, {plain_ms:.3f} unprofiled; "
           f"device busy {busy:.3f} ms/step, busy share {busy / wall_ms:.3f} of the "
           f"profiled wall, {busy / plain_ms:.3f} of the unprofiled; "

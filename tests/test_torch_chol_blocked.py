@@ -127,3 +127,40 @@ def test_cuda_blocked_kernels_match_plain(cuda, r):
     torch.cuda.synchronize()
     assert chol_cuda.tri_solve_lt_blocked.launches == n7 + 1
     torch.testing.assert_close(xt, chol_cuda.tri_solve_lt_plain(lg, zgg), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [105, 200, 201, 256])
+def test_cuda_tri_solve_lt_blocked_ranks(cuda, r):
+    """K7 against its twin at the smallest blocked rank, the face model's
+    rank, one past it and the most its 8-register form holds (32 · 8)."""
+    rng = np.random.RandomState(100 + r)
+    b = 96
+    chol = np.linalg.cholesky(_spd_batch(rng, b, r).astype(np.float64)).astype(np.float32)
+    z = rng.randn(b, r).astype(np.float32)
+    lg, zg = torch.as_tensor(chol, device=cuda), torch.as_tensor(z, device=cuda)
+    n7 = chol_cuda.tri_solve_lt_blocked.launches
+    x = chol_cuda.tri_solve_lt_blocked(lg, zg)
+    torch.cuda.synchronize()
+    assert chol_cuda.tri_solve_lt_blocked.launches == n7 + 1
+    torch.testing.assert_close(x, chol_cuda.tri_solve_lt_plain(lg, zg), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_tri_solve_lt_blocked_nan_diagonal(cuda):
+    """A NaN pivot Lⱼⱼ (what K6 leaves for a non-SPD chain) makes xⱼ and
+    every x before it NaN, in K7 as in the twin; x after it and the other
+    chains stay finite and agree."""
+    rng = np.random.RandomState(3)
+    b, r, j = 8, 200, 120
+    chol = np.linalg.cholesky(_spd_batch(rng, b, r).astype(np.float64)).astype(np.float32)
+    chol[2, j, j] = np.nan
+    z = rng.randn(b, r).astype(np.float32)
+    lg, zg = torch.as_tensor(chol, device=cuda), torch.as_tensor(z, device=cuda)
+    x = chol_cuda.tri_solve_lt_blocked(lg, zg)
+    x_p = chol_cuda.tri_solve_lt_plain(lg, zg)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(x), torch.isnan(x_p))
+    assert torch.isnan(x[2, :j + 1]).all() and torch.isfinite(x[2, j + 1:]).all()
+    fin = torch.isfinite(x_p)
+    torch.testing.assert_close(x[fin], x_p[fin], **TOL)
