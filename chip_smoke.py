@@ -9,8 +9,11 @@ Phases (each prints one line or a short block, and ends in
 2. build         nvcc builds every kernel in icp_proposal_tpu_torch/csrc into
                  build/, one compiler per source, all started together;
 3. kernels       K1–K4 and K8 against their plain PyTorch twins on the card
-                 at the femur path's per-chain shapes on 256 chains, with
-                 times; K8's anchors against K3's under a rounding bound;
+                 at the femur path's per-chain shapes on 256 chains (K1 and
+                 K2 also on 2,048), with times; K1 timed in turns against
+                 torch.linalg.cholesky_ex (the factor only); its tile size,
+                 shared memory per chain and CTAs per SM; K8's anchors
+                 against K3's under a rounding bound;
 4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
                  MH step at 2,048 chains through the kernels: warm-up, then
                  timed steps, with each kernel's launch count;
@@ -29,7 +32,8 @@ Phases (each prints one line or a short block, and ends in
                  and the twin bitwise equal; the share of tiles and pairs the
                  culled kernel visits), K6 and K7 at r = 200 against their
                  twins at the BFM path's shapes on 256 and on 2,048 chains;
-                 K1 at r = 200 timed beside K6;
+                 K6 timed in turns against cholesky_ex, with its launch
+                 configuration; K1 (4 warps) at r = 200 timed beside K6;
 10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
                  timed steps, launch counts;
 11. check:bfm    as 5, for the BFM partial setup.
@@ -191,7 +195,9 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
     """A Cholesky kernel and its triangular solve against the plain twins.
     No single PyTorch call computes the factor, the solve and log det, so
     the factor's library column is None; ``torch.linalg.cholesky_ex`` (the
-    factor only) is timed beside it as ``factor_only_ms``."""
+    factor only) is timed in turns with the kernel (cholesky_ex, kernel,
+    kernel, cholesky_ex) as ``factor_only_ms`` beside the kernel's
+    ``ms_vs_factor_only``."""
     import numpy as np
 
     from icp_proposal_tpu_torch.ops import chol_cuda as cc
@@ -207,11 +213,13 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
         raise AssertionError(f"{prefix}: a non-SPD pivot must give NaN")
     err = max(float((g[good] - w[good]).abs().max())
               for g, w in ((l, l_p), (x, x_p), (ld, ld_p)))
-    chol_bytes = _nbytes(m, rhs, l, x, ld)
+    # a factor needs M's lower triangle only, r(r + 1)/2 floats per chain
+    chol_bytes = b * r * (r + 1) // 2 * m.element_size() + _nbytes(rhs, l, x, ld)
     chol_flops = b * (r ** 3 / 3 + 2 * r * r)  # factor + two substitutions
     rec_f = _record(torch, err, 0, lambda: factor(m, rhs),
                     lambda: cc.chol_solve_plain(m, rhs), chol_bytes, chol_flops)
-    rec_f["factor_only_ms"] = _time_ms(torch, lambda: torch.linalg.cholesky_ex(m))
+    rec_f["ms_vs_factor_only"], rec_f["factor_only_ms"] = _paired_times(
+        torch, lambda: factor(m, rhs), lambda: torch.linalg.cholesky_ex(m))
 
     lg = l[good].contiguous()
     z = torch.as_tensor(rng.randn(b - 1, r).astype(np.float32), device=dev)
@@ -225,6 +233,21 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
                     library=lambda: torch.linalg.solve_triangular(
                         lg.transpose(-1, -2), z[..., None], upper=True))
     return rec_f, rec_s, (m, rhs)
+
+
+def _print_tiled_config(torch, tag, name, r, warps):
+    """Print the launch of the tiled K1/K6 kernel at rank r: tile edge,
+    shared memory per chain as the launch sizes it, and CTAs (chains) per SM
+    from CUDA's occupancy calculator."""
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    nt = -(-r // cc.TILE)
+    smem, ctas = cc.tiled_smem_bytes(r, warps), cc.tiled_ctas_per_sm(r, warps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[{tag}] {name} launch at r={r}: tile {cc.TILE}, padded to {nt * cc.TILE}, "
+          f"{nt * (nt + 1) // 2} packed lower tiles, {warps} warps, {smem} B of "
+          f"shared memory per chain, {ctas} CTAs (chains) per SM, "
+          f"{ctas * sms} chains resident on {sms} SMs")
 
 
 def _anchor_gaps(torch, q, points, ids, ids_exact, chunk=16):
@@ -258,6 +281,10 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
     records = {}
     records["chol_solve"], records["tri_solve_lt"], _ = _chol_records(
         torch, dev, rng, b, r, cc.chol_solve, cc.tri_solve_lt, "K1")
+    _print_tiled_config(torch, "kernels", "chol_solve", r, cc.K1_WARPS)
+    big = _chol_records(torch, dev, rng, N_CHAINS, r, cc.chol_solve, cc.tri_solve_lt, "K1")
+    records["chol_solve"]["at_2048_chains"] = big[0]
+    records["tri_solve_lt"]["at_2048_chains"] = big[1]
 
     # K3: shared target vertices (P = 4·rank) and per-chain meshes (P = 2·rank)
     ref = data.model.ref_points
@@ -380,6 +407,9 @@ def phase_kernels_bfm(torch, dev, data, evaluator):
     records["chol_solve_blocked"], records["tri_solve_lt_blocked"], (m, rhs) = (
         _chol_records(torch, dev, rng, b, model.rank, cc.chol_solve_blocked,
                       cc.tri_solve_lt_blocked, "K6"))
+    _print_tiled_config(torch, "kernels:bfm", "chol_solve_blocked", model.rank, cc.K6_WARPS)
+    _print_tiled_config(torch, "kernels:bfm", "chol_solve (K1, forced)", model.rank,
+                        cc.K1_WARPS)
     k1_ms, k6_ms = _paired_times(torch, lambda: cc.chol_solve(m, rhs, blocked=False),
                                  lambda: cc.chol_solve_blocked(m, rhs))
     print(f"[kernels:bfm] K1 chol_solve at r={model.rank}: {k1_ms:.4f} ms; K6 "
@@ -410,8 +440,11 @@ def _print_record(tag, name, rec, chains):
           f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']}), library {lib}, {chains} chains")
     if "factor_only_ms" in rec:
-        print(f"[{tag}] {name}: torch.linalg.cholesky_ex, the factor only (not "
-              f"the same function), {rec['factor_only_ms']:.4f} ms, {chains} chains")
+        faster = rec["ms_vs_factor_only"] < rec["factor_only_ms"]
+        print(f"[{tag}] {name}: turns with torch.linalg.cholesky_ex (the factor only, "
+              f"not the same function): kernel {rec['ms_vs_factor_only']:.4f} ms, "
+              f"cholesky_ex {rec['factor_only_ms']:.4f} ms; kernel faster: {faster}; "
+              f"{chains} chains")
     if "dense_ms" in rec:
         print(f"[{tag}] {name}: culled {rec['ms']:.4f} ms, dense scan "
               f"{rec['dense_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; culled visits "

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
     "icp_tri_solve_lt_blocked": [_P, _P, _P, _I, _I, _P],
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],
+    # (r, warps): no stream, not a launch
+    "icp_chol_tiled_smem_bytes": [_I, _I],
+    "icp_chol_tiled_ctas_per_sm": [_I, _I],
 }
 
 

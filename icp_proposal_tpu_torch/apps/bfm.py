@@ -108,7 +108,7 @@ def load_synthetic_face_data(rank: int = 24, subdiv: int = 3, seed: int = 0,
     )
 
 
-def make_bfm_fitting_setup(data: BfmData, partial: bool):
+def make_bfm_fitting_setup(data: BfmData, partial: bool, parity: bool = False):
     """The two BFM fitting configurations (reference
     ``BfmFittingComplete.scala:62-76`` / ``BfmFittingPartial.scala:65-83``),
     exact densities:
@@ -119,8 +119,9 @@ def make_bfm_fitting_setup(data: BfmData, partial: bool):
                   partial:  collective avg/max boundary-aware, symmetric,
                             σ_avg = 0.3, max rate 1.0, mean 0.1, 4·rank points
 
-    → (ctx, mixture, evaluator) on the model's device.  The reference's
-    parity mode is not ported yet (ROADMAP queue 1, slice 7)."""
+    parity=True evaluates the ICP component with the reference's own
+    transition density (no ½·log det M, no relaxation Jacobian).
+    → (ctx, mixture, evaluator) on the model's device."""
     from icp_proposal_tpu_torch.sampling.context import build_target_context
     from icp_proposal_tpu_torch.sampling.evaluators import (
         proximity_and_collective_hausdorff_boundary_aware,
@@ -149,7 +150,7 @@ def make_bfm_fitting_setup(data: BfmData, partial: bool):
             )),
             (0.05, mixed_random_shape_proposal()),
         ),
-        model, ctx, data.model_boundary_mask,
+        model, ctx, data.model_boundary_mask, parity=parity,
     )
     if partial:
         evaluator = proximity_and_collective_hausdorff_boundary_aware(

@@ -95,11 +95,18 @@ def make_icp_proposal_setup(data: FemurData, parity: bool = False, coarse: str =
     return ctx, mixture, evaluator
 
 
-def make_random_walk_setup(data: FemurData, coarse: str = "exact"):
+def make_random_walk_setup(data: FemurData, shape_steps=(0.1,), sigma_eval: float = 2.0,
+                           adapt: bool = False, coarse: str = "exact"):
     """Random-walk-only configuration (the comparison chain of the
-    reference's ``RunMHRandomInitComparison.scala``): random-shape walks of
-    σ = 0.1, Euclidean model→target evaluator, σ = 2, over 4·rank points.
-    Its adaptive variant ("rw-adapt") comes with slice 7."""
+    reference's ``RunMHRandomInitComparison.scala``): random-shape walks
+    with one component per step size in ``shape_steps``, Euclidean
+    model→target evaluator of σ = ``sigma_eval`` over 4·rank points.
+    ``adapt=True`` (scale adaptation, "rw-adapt") comes with slice 7 and
+    raises until then."""
+    if adapt:
+        raise NotImplementedError(
+            "make_random_walk_setup(adapt=True) needs scale adaptation, which is not "
+            "ported yet (ROADMAP queue 1, slice 7)")
     from icp_proposal_tpu_torch.sampling.context import build_target_context
     from icp_proposal_tpu_torch.sampling.evaluators import proximity_and_independent
     from icp_proposal_tpu_torch.sampling.proposals import (
@@ -110,10 +117,10 @@ def make_random_walk_setup(data: FemurData, coarse: str = "exact"):
     model = data.model
     ctx = build_target_context(data.target, data.target_boundary_mask, coarse=coarse,
                                device=model.device)
-    mixture = MixtureProgram(mixed_random_shape_proposal((0.1,)), model, ctx,
+    mixture = MixtureProgram(mixed_random_shape_proposal(shape_steps), model, ctx,
                              data.model_boundary_mask)
     evaluator = proximity_and_independent(
-        model, ctx, mode="model_to_target", sigma=2.0, n_points=4 * model.rank)
+        model, ctx, mode="model_to_target", sigma=sigma_eval, n_points=4 * model.rank)
     return ctx, mixture, evaluator
 
 
@@ -132,13 +139,19 @@ SETUPS = {
     "parity": lambda data, coarse="exact": make_icp_proposal_setup(
         data, parity=True, coarse=coarse),
     "rw": make_random_walk_setup,
-    "rw-adapt": _slice_7("rw-adapt"),
+    "rw-adapt": lambda data, coarse="exact": make_random_walk_setup(
+        data, adapt=True, coarse=coarse),
     "hybrid": _slice_7("hybrid"),
     "mala": _slice_7("mala"),
 }
 
 # The reference's recommended default (its argmax of ESS per wall second).
 RECOMMENDED_SETUP = "rw"
+
+
+def recommended_setup() -> str:
+    """Name of the recommended exact-mode configuration (``RECOMMENDED_SETUP``)."""
+    return RECOMMENDED_SETUP
 
 
 def run_icp_proposal_registration(num_samples: int = 10000, n_chains: int = 1,

@@ -1,19 +1,55 @@
-// K1 and K2 of the port: the per-chain r×r GP-posterior factor and solves.
+// K1, K2, K6 and K7 of the port: the per-chain r×r GP-posterior factor and solves.
 //
 // K1 icp_chol_solve replaces _chol_kernel / _chol_call in
-// icp_proposal_tpu/ops/chol_pallas.py (reached through chol_solve).  Per
-// chain: lower L with M = L Lᵀ (zeros above the diagonal), x = M⁻¹·rhs and
-// log det M = Σⱼ log dⱼ; a pivot dⱼ ≤ 0 gives NaN from that column on, as
-// chol_pallas.py:103 does, and the MH step rejects the NaN.
-//   What bounds it here: latency and block-wide synchronisation, not bytes.
-//   A 101×101 factor reads and writes ~80 KB per chain but needs r dependent
-//   pivot steps, each a __syncthreads pair across the block.
-//   Design: one thread block per chain, the whole matrix in shared memory
-//   (row stride r|1, odd, so a column walk touches 32 different banks;
-//   41.6 KB at r = 101), right-looking factorisation over the lower
-//   triangle with one warp per trailing row, then forward and back
-//   substitution by warp 0 while the other warps stream L out.  Thousands
-//   of chains give the card enough independent blocks to hide the latency.
+// icp_proposal_tpu/ops/chol_pallas.py (reached through chol_solve), the
+// reference's kernel for r ≤ 104.  K6 icp_chol_solve_blocked replaces
+// _chol_blocked_kernel / _chol_blocked_call in the same file, which the
+// reference takes where _pick_bl(ceil8(r)) is None (every rank ≥ 105; the
+// rank-200 face model).  One contract: per chain, lower L with M = L Lᵀ
+// (zeros above the diagonal), x = M⁻¹·rhs and log det M = Σⱼ log dⱼ; a pivot
+// dⱼ ≤ 0 gives NaN from that column on, as chol_pallas.py:103 does, and the
+// MH step rejects the NaN.  Only M's lower triangle is read.
+//   What bounds them here: latency, not bytes.  A factor is r dependent pivot
+//   steps (2.7 MFLOP at r = 200); at 2,048 chains the bytes (the lower
+//   triangle of M in, L out) take 0.15 ms at 3.35 TB/s.  The earlier kernels
+//   spent two block barriers on every pivot (400 at r = 200), and K6 read L
+//   back from device memory for its left-looking update and solved in one
+//   warp from device memory.
+//   Design: one template, chol_solve_tiled_kernel<kWarps>, one block per
+//   chain; K1 launches it with 4 warps, K6 with 8.  r is padded to
+//   rp = 16⌈r/16⌉ with identity rows and columns, as the reference's blocked
+//   kernel pads (chol_pallas.py:164-166): padded pivots factor to 1 and add
+//   log 1 = 0.  The lower triangle lives in shared memory as packed 16×16
+//   tiles, tile (I, J), I ≥ J, at (I(I+1)/2 + J)·256 floats (93 KB at
+//   r = 200, two chains per SM; 215 KB at kMaxRank = 320).  Inside a tile a
+//   row is 16 floats whose four 16-byte chunks are permuted by (i >> 1) & 3
+//   (swz), so a chunk read by 8 rows and a column walk spread over the banks.
+//   Right-looking by panels K = 0…nt−1 with two block barriers a panel:
+//     (a) every warp with work in the panel loads tile (K, K) into registers
+//         (lane: row lane & 15, columns 8·(lane >> 4)…+7) and factors it with
+//         shuffles, 16 pivot steps and no block barrier; 1/√dⱼ is rsqrtf, and
+//         log dⱼ is taken after the tile, off the pivot chain;
+//     (b) each of those warps writes its Lᵀ_KK (1/√dⱼ on the diagonal) to
+//         its own 1 KB scratch and solves X·L_KKᵀ = A_IK for two tiles below
+//         at a time, a lane a row, reading Lᵀ_KK as broadcasts;
+//     barrier;
+//     (c) trailing update A_IJ −= L_IK·L_JKᵀ, K < J ≤ I, a tile per warp at a
+//         time: each warp takes a contiguous run of the tiles in row-major
+//         order and keeps its row's L_IK in registers, and a lane
+//         accumulates 8 outputs (rows i, i + 8; columns c, c + 4, c + 8,
+//         c + 12) over k = 0…15 from 16-byte shared loads with explicit
+//         fmaf; warp 0 writes (K, K) back;
+//     barrier.
+//   Then warp 0 runs L y = rhs and Lᵀ x = y from the shared tiles in K7's
+//   register axpy form (lane l keeps the residual entries i ≡ l mod 32; a
+//   step is one product by 1/√dⱼ, one shuffle, one fmaf a lane, with the
+//   next step's column or row of L loaded a step ahead), while the other
+//   warps stream L out, coalesced, with zeros above the diagonal and the
+//   padding dropped, and warp 1 then sums log det in pivot order.  Lanes
+//   of a warp differ by selects, not branches, in the pivot steps and the
+//   substitutions: per-lane branches there cost more than the arithmetic.
+//   Sums run in another order than the twin's: values agree to the
+//   tolerance, not bitwise.
 //
 // K2 icp_tri_solve_lt replaces _tri_lt_kernel / _tri_lt_call in the same
 // file (reached through tri_solve_lt): solve Lᵀx = z, dividing by
@@ -23,23 +59,6 @@
 //   Design: one warp per chain, back substitution down the columns of L:
 //   step j reads row j of L with coalesced lane loads and updates a running
 //   residual that the warp keeps in shared memory; no block-wide barrier.
-//
-// K6 icp_chol_solve_blocked replaces _chol_blocked_kernel /
-// _chol_blocked_call in the same file, which the reference takes where
-// _pick_bl(ceil8(r)) is None (every rank ≥ 105; the rank-200 face model).
-// Same contract as K1.
-//   What bounds it: as K1, the r dependent pivot steps.  K1 at r = 200 needs
-//   161 KB of shared memory per block, so one chain per SM is in flight.
-//   Design: one block per chain, left-looking over column panels of
-//   kPanel = 32 columns, so a block holds one [r, 32] panel plus the
-//   [32, k0] row block of L the panel's update reads (54 KB at r = 200,
-//   four chains per SM).  Per panel: load M's columns, subtract
-//   L[rows, :k0]·L[panel cols, :k0]ᵀ with L read back from device memory
-//   (written by this block's earlier panels), factor the panel's columns
-//   right-looking, run the forward substitution over them, write them out.
-//   The back substitution walks rows of L in device memory, as K2 does.
-//   The ragged last panel is narrower: no padding, which gives what the
-//   reference's identity padding gives (padded pivots add log 1 = 0).
 //
 // K7 icp_tri_solve_lt_blocked replaces _tri_lt_blocked_kernel /
 // _tri_lt_blocked_call in the same file (taken by the same rule): Lᵀx = z,
@@ -72,86 +91,349 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kCholThreads = 256;
+constexpr int kTile = 16;                  // K1/K6: tile edge
+constexpr int kTileElems = kTile * kTile;  // floats in a tile
+constexpr int kMaxRank = 320;              // K1/K6: 210 packed tiles fill a block's 227 KB
+constexpr int kMaxRes = kMaxRank / 32;     // K1/K6 substitution: residual entries a lane
+constexpr int kK1Warps = 4;                // K1: warps per chain (more chains per SM)
+constexpr int kK6Warps = 8;                // K6: warps per chain
 constexpr int kTriWarps = 4;
-constexpr int kPanel = 32;  // K6 panel width
-constexpr int kPanelStride = kPanel + 1;  // odd: column walks hit 32 banks
 constexpr int kTriRowWarps = 2;  // K7: chains (warps) per block
 constexpr int kRowsAhead = 4;    // K7: rows of L loaded ahead of their step; divides 32
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan32() { return __int_as_float(0x7fc00000); }
 
-__global__ void chol_solve_kernel(const float* __restrict__ m,
-                                  const float* __restrict__ rhs,
-                                  float* __restrict__ l, float* __restrict__ x,
-                                  float* __restrict__ logdet, int r) {
-  extern __shared__ float smem[];
-  const int ld = r | 1;
-  float* a = smem;          // [r][ld] the matrix, factored in place
-  float* vec = a + r * ld;  // [r] rhs → y → x
-  float* ild = vec + r;     // [r] 1/√dⱼ
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t mat = (size_t)blockIdx.x * r * r;
-  const size_t row = (size_t)blockIdx.x * r;
+// K1/K6: offset of element (i, c) inside a tile, and of tile (I, J), I ≥ J
+__device__ __forceinline__ int swz(int i, int c) {
+  return i * kTile + ((((c >> 2) ^ (i >> 1)) & 3) << 2) + (c & 3);
+}
+__device__ __forceinline__ int tile_off(int I, int J) {
+  return (I * (I + 1) / 2 + J) * kTileElems;
+}
+// chunk q (columns 4q…4q+3) of row i of a tile
+__device__ __forceinline__ float4 ld_chunk(const float* t, int i, int q) {
+  return *reinterpret_cast<const float4*>(t + i * kTile + (((q ^ (i >> 1)) & 3) << 2));
+}
+__device__ __forceinline__ void st_chunk(float* t, int i, int q, float4 v) {
+  *reinterpret_cast<float4*>(t + i * kTile + (((q ^ (i >> 1)) & 3) << 2)) = v;
+}
 
-  for (int t = tid; t < r * r; t += blockDim.x) a[(t / r) * ld + t % r] = m[mat + t];
-  for (int t = tid; t < r; t += blockDim.x) vec[t] = rhs[row + t];
+// K1/K6 (a): factor the diagonal tile held across the warp as
+// a[t] = A[fi][8·fh + t] (fi = lane & 15, fh = lane >> 4) in place: L on and
+// below the diagonal, entries above left as they were.  Lanes differ only
+// in selects, never in branches.  Each lane keeps pivot fi's dⱼ and 1/√dⱼ
+// (dl, il), so log dⱼ and the stores of 1/√dⱼ stay off the pivot chain.
+__device__ __forceinline__ void factor_diag(float (&a)[8], int fi, int fh, float& dl,
+                                            float& il) {
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    const int jh = j >> 3, jt = j & 7;
+    float d = __shfl_sync(kFull, a[jt], j + 16 * jh);  // A[j][j]
+    if (!(d > 0.0f)) d = nan32();                      // non-SPD pivot → NaN
+    const float inv = rsqrtf(d);
+    const float s = d * inv;
+    dl = fi == j ? d : dl;
+    il = fi == j ? inv : il;
+    const bool mine = fh == jh;
+    a[jt] = mine && fi > j ? a[jt] * inv : (mine && fi == j ? s : a[jt]);
+    if (j == kTile - 1) break;  // no trailing entries after the last pivot
+    const float lij = __shfl_sync(kFull, a[jt], fi + 16 * jh);  // L[fi][j]
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (j >= 8 && t <= j - 8) continue;  // columns ≤ j in both halves
+      const float lkj = __shfl_sync(kFull, a[jt], 8 * fh + t + 16 * jh);  // L[8fh + t][j]
+      const int k = 8 * fh + t;
+      const float upd = fmaf(-lij, lkj, a[t]);
+      a[t] = k > j && k <= fi ? upd : a[t];
+    }
+  }
+}
+
+// K1/K6 (b): row fi of tile (I, K) ← row fi of A_IK · L_KK⁻ᵀ, with scr = L_KKᵀ
+// (row c holds column c of L_KK below the diagonal, 1/L_cc on it)
+__device__ __forceinline__ void solve_row(float* t, int fi, const float* scr) {
+  float x[kTile];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = ld_chunk(t, fi, q);
+    x[4 * q] = v.x, x[4 * q + 1] = v.y, x[4 * q + 2] = v.z, x[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int c = 0; c < kTile; ++c) {
+    float lc[kTile];
+#pragma unroll
+    for (int q = c >> 2; q < 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(scr + c * kTile)[q];
+      lc[4 * q] = v.x, lc[4 * q + 1] = v.y, lc[4 * q + 2] = v.z, lc[4 * q + 3] = v.w;
+    }
+    x[c] *= lc[c];
+#pragma unroll
+    for (int cp = c + 1; cp < kTile; ++cp) x[cp] = fmaf(-x[c], lc[cp], x[cp]);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    st_chunk(t, fi, q, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+}
+
+// K1/K6 (c): A_IJ −= L_IK·L_JKᵀ over one tile; lane: rows ri = lane >> 2 and
+// ri + 8, columns cq + 4u (cq = lane & 3, u = 0…3), read with the operands
+// and written once.  li holds rows ri and ri + 8 of L_IK, chunk by chunk.
+__device__ __forceinline__ void update_tile(float* aij, const float4 (&li)[2][4],
+                                            const float* ljk, int lane) {
+  const int ri = lane >> 2, cq = lane & 3;
+  float acc[2][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    acc[0][u] = aij[swz(ri, cq + 4 * u)];
+    acc[1][u] = aij[swz(ri + 8, cq + 4 * u)];
+  }
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq) {
+    const float4 l0 = li[0][kq], l1 = li[1][kq];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 lj = ld_chunk(ljk, cq + 4 * u, kq);
+      acc[0][u] = fmaf(-l0.x, lj.x, acc[0][u]);
+      acc[0][u] = fmaf(-l0.y, lj.y, acc[0][u]);
+      acc[0][u] = fmaf(-l0.z, lj.z, acc[0][u]);
+      acc[0][u] = fmaf(-l0.w, lj.w, acc[0][u]);
+      acc[1][u] = fmaf(-l1.x, lj.x, acc[1][u]);
+      acc[1][u] = fmaf(-l1.y, lj.y, acc[1][u]);
+      acc[1][u] = fmaf(-l1.z, lj.z, acc[1][u]);
+      acc[1][u] = fmaf(-l1.w, lj.w, acc[1][u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    aij[swz(ri, cq + 4 * u)] = acc[0][u];
+    aij[swz(ri + 8, cq + 4 * u)] = acc[1][u];
+  }
+}
+
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+    chol_solve_tiled_kernel(const float* __restrict__ m, const float* __restrict__ rhs,
+                            float* __restrict__ l, float* __restrict__ x,
+                            float* __restrict__ logdet, int r) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nt = (r + kTile - 1) / kTile;
+  const int rp = nt * kTile;
+  const int n_tiles = nt * (nt + 1) / 2;
+  float* tiles = reinterpret_cast<float*>(smem4);      // [n_tiles][256] packed lower tiles
+  float* scr = tiles + (n_tiles + warp) * kTileElems;  // [256] this warp's L_KKᵀ
+  float* ild = tiles + (n_tiles + kWarps) * kTileElems;  // [rp] 1/√dⱼ
+  float* logd = ild + rp;                                // [rp] log dⱼ
+  const float* mb = m + (size_t)blockIdx.x * r * r;
+
+  // M's lower triangle into the packed tiles, two rows a warp at a time with
+  // all their loads issued before the first store; identity in the padding,
+  // zeros above the diagonal
+  for (int i0 = 2 * warp; i0 < rp; i0 += 2 * kWarps) {
+    float v[2][kMaxRes];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h;
+#pragma unroll
+      for (int q = 0; q < kMaxRes; ++q) {
+        const int c = lane + 32 * q;
+        v[h][q] = i == c ? 1.0f : 0.0f;
+        if (i < r && c <= i) v[h][q] = mb[(size_t)i * r + c];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h;  // rp is even, so i < rp
+#pragma unroll
+      for (int q = 0; q < kMaxRes; ++q) {
+        const int c = lane + 32 * q;
+        if (c < ((i >> 4) + 1) * kTile)
+          tiles[tile_off(i >> 4, c >> 4) + swz(i & 15, c & 15)] = v[h][q];
+      }
+    }
+  }
   __syncthreads();
 
-  float acc = 0.0f;  // Σ log dⱼ, kept by thread 0 in pivot order
-  for (int j = 0; j < r; ++j) {
-    float d = a[j * ld + j];
-    if (!(d > 0.0f)) d = __int_as_float(0x7fc00000);  // non-SPD pivot → NaN
-    const float s = sqrtf(d);
-    const float inv = 1.0f / s;
-    for (int i = j + 1 + tid; i < r; i += blockDim.x) a[i * ld + j] *= inv;
-    if (tid == 0) {
-      acc += logf(d);
-      ild[j] = inv;
+  const int fi = lane & 15, fh = lane >> 4;
+  for (int K = 0; K < nt; ++K) {
+    const int below = nt - 1 - K;
+    float a[8];
+    if (warp == 0 || 2 * warp < below) {
+      // (a) the diagonal tile, factored in registers
+      const float* dk = tiles + tile_off(K, K);
+      const float4 c0 = ld_chunk(dk, fi, 2 * fh), c1 = ld_chunk(dk, fi, 2 * fh + 1);
+      a[0] = c0.x, a[1] = c0.y, a[2] = c0.z, a[3] = c0.w;
+      a[4] = c1.x, a[5] = c1.y, a[6] = c1.z, a[7] = c1.w;
+      float dl = 0.0f, il = 0.0f;  // this lane's pivot fi: dⱼ and 1/√dⱼ
+      factor_diag(a, fi, fh, dl, il);
+      if (warp == 0 && fh == 0) {
+        ild[K * kTile + fi] = il;
+        logd[K * kTile + fi] = logf(dl);
+      }
+      // (b) Lᵀ_KK into this warp's scratch, then the tiles below, two at a time
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int c = 8 * fh + t;
+        if (fi >= c) scr[c * kTile + fi] = fi > c ? a[t] : il;
+      }
+      __syncwarp();
+      for (int q = warp; 2 * q < below; q += kWarps) {
+        const int I = K + 1 + 2 * q + fh;
+        if (I < nt) solve_row(tiles + tile_off(I, K), fi, scr);
+      }
     }
     __syncthreads();
-    if (tid == 0) a[j * ld + j] = s;  // no thread reads the diagonal below
-    // trailing lower triangle: A[i][k] -= L[i][j]·L[k][j] for j < k ≤ i
-    for (int i = j + 1 + warp; i < r; i += nwarps) {
-      const float lij = a[i * ld + j];
-      for (int k = j + 1 + lane; k <= i; k += 32) a[i * ld + k] -= lij * a[k * ld + j];
+    // (c) the trailing update; warp 0 writes the factored diagonal tile back
+    if (warp == 0) {
+      float* dk = tiles + tile_off(K, K);
+      st_chunk(dk, fi, 2 * fh, make_float4(a[0], a[1], a[2], a[3]));
+      st_chunk(dk, fi, 2 * fh + 1, make_float4(a[4], a[5], a[6], a[7]));
+    }
+    // Each warp takes a contiguous run of the trailing tiles in row-major
+    // order (row I holds J = K+1…I) and keeps its row's L_IK in registers.
+    const int m_rows = nt - 1 - K;
+    const int n_upd = m_rows * (m_rows + 1) / 2;
+    const int u_end = (warp + 1) * n_upd / kWarps;
+    int u = warp * n_upd / kWarps;
+    int I = K + 1, J = u;
+    while (J >= I - K) J -= I++ - K;
+    J += K + 1;
+    float4 li[2][4];
+    for (bool fresh = true; u < u_end; ++u, fresh = false) {
+      if (fresh || J == K + 1) {
+        const float* lik = tiles + tile_off(I, K);
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          li[0][kq] = ld_chunk(lik, lane >> 2, kq);
+          li[1][kq] = ld_chunk(lik, (lane >> 2) + 8, kq);
+        }
+      }
+      update_tile(tiles + tile_off(I, J), li, tiles + tile_off(J, K), lane);
+      if (++J > I) J = K + 1, ++I;
     }
     __syncthreads();
   }
 
+  const size_t row = (size_t)blockIdx.x * r;
   if (warp == 0) {
-    // L y = rhs: yⱼ = resⱼ/√dⱼ, then resᵢ -= Lᵢⱼ yⱼ below the diagonal
-    for (int j = 0; j < r; ++j) {
-      const float yj = vec[j] * ild[j];
-      __syncwarp();
-      for (int i = j + 1 + lane; i < r; i += 32) vec[i] -= a[i * ld + j] * yj;
-      if (lane == 0) vec[j] = yj;
-      __syncwarp();
+    float res[kMaxRes];  // res[k]: entry lane + 32k, rhs → y → x
+#pragma unroll
+    for (int k = 0; k < kMaxRes; ++k) {
+      const int i = lane + 32 * k;
+      res[k] = i < r ? rhs[row + i] : 0.0f;
     }
-    // Lᵀ x = y: xⱼ = resⱼ/√dⱼ, then resᵢ -= Lⱼᵢ xⱼ above it (row j of L)
-    for (int j = r - 1; j >= 0; --j) {
-      const float xj = vec[j] * ild[j];
-      __syncwarp();
-      for (int i = lane; i < j; i += 32) vec[i] -= a[j * ld + i] * xj;
-      if (lane == 0) vec[j] = xj;
-      __syncwarp();
+    // L y = rhs: yⱼ = resⱼ/√dⱼ, then resᵢ −= Lᵢⱼ·yⱼ below the diagonal.
+    // Lᵢⱼ for i = lane + 32k sits at rowoff[k] + coff(j): (i >> 1) & 3, the
+    // row's swizzle, is (lane >> 1) & 3 for every k
+    // (rows past the padding point at row 0: their loads are discarded)
+    int rowoff[kMaxRes];
+#pragma unroll
+    for (int k = 0; k < kMaxRes; ++k) {
+      const int i = lane + 32 * k;
+      rowoff[k] = i < rp ? tile_off(i >> 4, 0) + (i & 15) * kTile : 0;
+    }
+    const int lsw = (lane >> 1) & 3;
+    // column j of L and 1/√dⱼ, loaded one step ahead of step j (zeros where
+    // the step does not update).  Every lane loads; a select, not a branch,
+    // drops what the step does not use (the column past the last, j = rp,
+    // reads the scratch behind the tiles)
+    float lcol[kMaxRes];
+    float dj = ild[0];
+#pragma unroll
+    for (int k = 0; k < kMaxRes; ++k) {
+      const int i = lane + 32 * k;
+      const float v = tiles[rowoff[k] + (lsw << 2)];
+      lcol[k] = i > 0 && i < r ? v : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < kMaxRes; ++s) {
+      if (32 * s >= r) break;
+      const int jend = min(32, r - 32 * s);
+#pragma unroll 4
+      for (int jj = 0; jj < jend; ++jj) {
+        const int j = 32 * s + jj;
+        const float yj = __shfl_sync(kFull, res[s] * dj, jj);
+#pragma unroll
+        for (int k = s; k < kMaxRes; ++k) res[k] = fmaf(-lcol[k], yj, res[k]);
+        if (lane == jj) res[s] = yj;
+        const int jn = j + 1;  // the next step's column
+        const int coff = (jn >> 4) * kTileElems + ((((jn >> 2) & 3) ^ lsw) << 2) + (jn & 3);
+        dj = ild[min(jn, r - 1)];
+#pragma unroll
+        for (int k = s; k < kMaxRes; ++k) {
+          const int i = lane + 32 * k;
+          const float v = tiles[rowoff[k] + coff];
+          lcol[k] = i > jn && i < r ? v : 0.0f;
+        }
+      }
+    }
+    // Lᵀ x = y: xⱼ = resⱼ/√dⱼ, then resᵢ −= Lⱼᵢ·xⱼ above it (row j of L).
+    // Lⱼᵢ for i = lane + 32k sits at roff(j) + 512k: column i lies in tile
+    // column (lane >> 4) + 2k at in-row offset swizzled by (j >> 1) & 3
+    // row j of L and 1/√dⱼ, loaded one step ahead of step j; every lane
+    // loads (past the row's end the address stays inside the tiles and the
+    // scratch behind them) and a select drops what the step does not use
+    auto lrow_of = [&](int j) {
+      return tiles + tile_off(j >> 4, 0) + (j & 15) * kTile + (lane >> 4) * kTileElems +
+             ((((lane >> 2) & 3) ^ ((j >> 1) & 3)) << 2) + (lane & 3);
+    };
+    float lrow[kMaxRes];
+    {
+      const float* p = lrow_of(r - 1);
+#pragma unroll
+      for (int k = 0; k < kMaxRes; ++k) {
+        if (32 * k >= r) break;  // (uniform) no block of rows past the matrix
+        const float v = p[2 * k * kTileElems];
+        lrow[k] = lane + 32 * k < r - 1 ? v : 0.0f;
+      }
+    }
+    dj = ild[r - 1];
+#pragma unroll
+    for (int s = kMaxRes - 1; s >= 0; --s) {
+      if (32 * s >= r) continue;
+#pragma unroll 4
+      for (int jj = min(31, r - 1 - 32 * s); jj >= 0; --jj) {
+        const int j = 32 * s + jj;
+        const float xj = __shfl_sync(kFull, res[s] * dj, jj);
+#pragma unroll
+        for (int k = 0; k <= s; ++k) res[k] = fmaf(-lrow[k], xj, res[k]);
+        if (lane == jj) res[s] = xj;
+        const int jn = max(j - 1, 0);  // the next step's row
+        const float* p = lrow_of(jn);
+        dj = ild[jn];
+#pragma unroll
+        for (int k = 0; k <= s; ++k) {
+          const float v = p[2 * k * kTileElems];
+          lrow[k] = lane + 32 * k < jn ? v : 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxRes; ++k) {
+      const int i = lane + 32 * k;
+      if (i < r) x[row + i] = res[k];
     }
   } else {
-    // the other warps write L (zeros above the diagonal) meanwhile
-    for (int t = tid - 32; t < r * r; t += blockDim.x - 32) {
-      const int i = t / r, k = t % r;
-      l[mat + t] = k <= i ? a[i * ld + k] : 0.0f;
+    // the other warps write L meanwhile: zeros above the diagonal, no padding
+    float* lb = l + (size_t)blockIdx.x * r * r;
+    for (int i = warp - 1; i < r; i += kWarps - 1) {
+      for (int c = lane; c < r; c += 32)
+        lb[(size_t)i * r + c] =
+            c <= i ? tiles[tile_off(i >> 4, c >> 4) + swz(i & 15, c & 15)] : 0.0f;
+    }
+    // and warp 1 sums log det in pivot order
+    if (warp == 1 && lane == 0) {
+      float logsum = 0.0f;
+      for (int j = 0; j < r; ++j) logsum += logd[j];
+      logdet[blockIdx.x] = logsum;
     }
   }
-  __syncthreads();
-  for (int t = tid; t < r; t += blockDim.x) x[row + t] = vec[t];
-  if (tid == 0) logdet[blockIdx.x] = acc;
 }
 
 __global__ void tri_solve_lt_kernel(const float* __restrict__ l,
@@ -177,109 +459,6 @@ __global__ void tri_solve_lt_kernel(const float* __restrict__ l,
     __syncwarp();
   }
   for (int t = lane; t < r; t += 32) x[(size_t)b * r + t] = res[t];
-}
-
-// L is read back after this block wrote it, so it is not __restrict__ const:
-// the loads must not take the read-only (non-coherent) path.
-__global__ void chol_solve_blocked_kernel(const float* __restrict__ m,
-                                          const float* __restrict__ rhs, float* l,
-                                          float* __restrict__ x,
-                                          float* __restrict__ logdet, int r) {
-  extern __shared__ float smem[];
-  const int rs = r | 1;
-  float* panel = smem;                     // [r - k0][kPanelStride] rows k0.. of the panel
-  float* rblk = panel + r * kPanelStride;  // [kPanel][rs] L[k0 + c][0..k0)
-  float* vec = rblk + kPanel * rs;         // [r] rhs → y → x
-  float* ild = vec + r;                    // [r] 1/√dⱼ
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nt = blockDim.x;
-  const size_t mat = (size_t)blockIdx.x * r * r;
-  const size_t row = (size_t)blockIdx.x * r;
-  const float* mb = m + mat;
-  float* lb = l + mat;
-
-  for (int t = tid; t < r; t += nt) vec[t] = rhs[row + t];
-  float acc = 0.0f;  // Σ log dⱼ, kept by thread 0 in pivot order
-  for (int k0 = 0; k0 < r; k0 += kPanel) {
-    const int w = min(kPanel, r - k0);
-    const int h = r - k0;
-    for (int t = tid; t < h * w; t += nt) {
-      const int i = t / w, c = t % w;
-      panel[i * kPanelStride + c] = mb[(size_t)(k0 + i) * r + k0 + c];
-    }
-    for (int t = tid; t < w * k0; t += nt) {
-      const int c = t / k0, s = t % k0;
-      rblk[c * rs + s] = lb[(size_t)(k0 + c) * r + s];
-    }
-    __syncthreads();
-    // left-looking update of the panel's lower part: P[i][c] -= L[k0+i, :k0]·L[k0+c, :k0]
-    if (k0 > 0) {
-      for (int t = tid; t < h * w; t += nt) {
-        const int i = t / w, c = t % w;
-        if (i < c) continue;
-        const float* li = lb + (size_t)(k0 + i) * r;
-        const float* rc = rblk + c * rs;
-        float sum = 0.0f;
-        for (int s = 0; s < k0; ++s) sum += li[s] * rc[s];
-        panel[i * kPanelStride + c] -= sum;
-      }
-      __syncthreads();
-    }
-    // factor the panel's columns, right-looking inside the panel
-    for (int j = 0; j < w; ++j) {
-      float d = panel[j * kPanelStride + j];
-      if (!(d > 0.0f)) d = nan32();  // non-SPD pivot → NaN
-      const float s = sqrtf(d);
-      const float inv = 1.0f / s;
-      for (int i = j + 1 + tid; i < h; i += nt) panel[i * kPanelStride + j] *= inv;
-      if (tid == 0) {
-        acc += logf(d);
-        ild[k0 + j] = inv;
-      }
-      __syncthreads();
-      if (tid == 0) panel[j * kPanelStride + j] = s;  // no thread reads it below
-      const int wc = w - j - 1;
-      for (int t = tid; t < (h - j - 1) * wc; t += nt) {
-        const int i = j + 1 + t / wc, c = j + 1 + t % wc;
-        if (i >= c)
-          panel[i * kPanelStride + c] -= panel[i * kPanelStride + j] * panel[c * kPanelStride + j];
-      }
-      __syncthreads();
-    }
-    if (warp == 0) {
-      // forward substitution over the panel's pivots: yⱼ = resⱼ/√dⱼ, then
-      // resᵢ -= Lᵢⱼ yⱼ below the diagonal
-      for (int j = 0; j < w; ++j) {
-        const float yj = vec[k0 + j] * ild[k0 + j];
-        __syncwarp();
-        for (int i = j + 1 + lane; i < h; i += 32) vec[k0 + i] -= panel[i * kPanelStride + j] * yj;
-        if (lane == 0) vec[k0 + j] = yj;
-        __syncwarp();
-      }
-    }
-    // the panel's columns of L, zeros above the diagonal
-    for (int t = tid; t < r * w; t += nt) {
-      const int i = t / w, c = t % w;
-      lb[(size_t)i * r + k0 + c] = i >= k0 + c ? panel[(i - k0) * kPanelStride + c] : 0.0f;
-    }
-    __syncthreads();
-  }
-  if (warp == 0) {
-    // Lᵀ x = y: xⱼ = resⱼ/√dⱼ, then resᵢ -= Lⱼᵢ xⱼ above it (row j of L)
-    for (int j = r - 1; j >= 0; --j) {
-      const float xj = vec[j] * ild[j];
-      __syncwarp();
-      const float* lrow = lb + (size_t)j * r;
-      for (int i = lane; i < j; i += 32) vec[i] -= lrow[i] * xj;
-      if (lane == 0) vec[j] = xj;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int t = tid; t < r; t += nt) x[row + t] = vec[t];
-  if (tid == 0) logdet[blockIdx.x] = acc;
 }
 
 // K7: row j of L, entries i = lane + 32k ≤ j for k ≤ kmax, into row[k]
@@ -349,18 +528,41 @@ __global__ void __launch_bounds__(kTriRowWarps * 32)
   }
 }
 
-// the matrix at row stride r|1, plus the two vectors
-int chol_smem_bytes(int r) { return (int)(((size_t)r * (r | 1) + 2 * (size_t)r) * sizeof(float)); }
-
-// the panel, the row block of L, the two vectors
-int chol_blocked_smem_bytes(int r) {
-  return (int)(((size_t)r * kPanelStride + (size_t)kPanel * (r | 1) + 2 * (size_t)r) *
+// K1/K6: the packed lower tiles, one scratch tile a warp, 1/√dⱼ and log dⱼ
+int tiled_smem_bytes(int r, int warps) {
+  const int nt = (r + kTile - 1) / kTile;
+  return (int)((((size_t)nt * (nt + 1) / 2 + warps) * kTileElems + 2 * (size_t)nt * kTile) *
                sizeof(float));
 }
 
-cudaError_t allow_smem(const void* kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// K1/K6: raise the kernel's dynamic shared-memory ceiling to what
+// r = kMaxRank needs, once per device (bit d of `done`), not on every launch
+template <int kWarps>
+cudaError_t allow_tiled_smem() {
+  static std::atomic<unsigned> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute((const void*)chol_solve_tiled_kernel<kWarps>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           tiled_smem_bytes(kMaxRank, kWarps));
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <int kWarps>
+int launch_chol_tiled(const float* m, const float* rhs, float* l, float* x, float* logdet,
+                      int batch, int r, void* stream) {
+  if (batch == 0) return cudaSuccess;
+  if (r > kMaxRank) return cudaErrorInvalidValue;  // the wrapper refuses r > kMaxRank first
+  const int bytes = tiled_smem_bytes(r, kWarps);
+  cudaError_t e = allow_tiled_smem<kWarps>();
+  if (e != cudaSuccess) return e;
+  chol_solve_tiled_kernel<kWarps><<<batch, kWarps * 32, bytes, (cudaStream_t)stream>>>(
+      m, rhs, l, x, logdet, r);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -369,16 +571,7 @@ extern "C" {
 
 int icp_chol_solve(const float* m, const float* rhs, float* l, float* x, float* logdet,
                    int batch, int r, void* stream) {
-  if (batch == 0) return cudaSuccess;
-  const int bytes = chol_smem_bytes(r);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-  }
-  chol_solve_kernel<<<batch, kCholThreads, bytes, (cudaStream_t)stream>>>(
-      m, rhs, l, x, logdet, r);
-  return cudaGetLastError();
+  return launch_chol_tiled<kK1Warps>(m, rhs, l, x, logdet, batch, r, stream);
 }
 
 int icp_tri_solve_lt(const float* l, const float* z, float* x, int batch, int r,
@@ -393,13 +586,28 @@ int icp_tri_solve_lt(const float* l, const float* z, float* x, int batch, int r,
 
 int icp_chol_solve_blocked(const float* m, const float* rhs, float* l, float* x,
                            float* logdet, int batch, int r, void* stream) {
-  if (batch == 0) return cudaSuccess;
-  const int bytes = chol_blocked_smem_bytes(r);
-  cudaError_t e = allow_smem((const void*)chol_solve_blocked_kernel, bytes);
-  if (e != cudaSuccess) return e;
-  chol_solve_blocked_kernel<<<batch, kCholThreads, bytes, (cudaStream_t)stream>>>(
-      m, rhs, l, x, logdet, r);
-  return cudaGetLastError();
+  return launch_chol_tiled<kK6Warps>(m, rhs, l, x, logdet, batch, r, stream);
+}
+
+// dynamic shared memory a block of the K1/K6 kernel with `warps` warps
+// takes at rank r, as its launch sizes it; -1 past kMaxRank
+int icp_chol_tiled_smem_bytes(int r, int warps) {
+  return r > kMaxRank ? -1 : tiled_smem_bytes(r, warps);
+}
+
+// blocks of the K1/K6 kernel with `warps` warps one SM holds at rank r (the
+// occupancy calculator: registers, shared memory, threads); -1 on an error
+int icp_chol_tiled_ctas_per_sm(int r, int warps) {
+  if ((warps != kK1Warps && warps != kK6Warps) || r > kMaxRank) return -1;
+  const bool k1 = warps == kK1Warps;
+  const void* kernel = k1 ? (const void*)chol_solve_tiled_kernel<kK1Warps>
+                          : (const void*)chol_solve_tiled_kernel<kK6Warps>;
+  int n = 0;
+  if ((k1 ? allow_tiled_smem<kK1Warps>() : allow_tiled_smem<kK6Warps>()) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, warps * 32,
+                                                    tiled_smem_bytes(r, warps)) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 int icp_tri_solve_lt_blocked(const float* l, const float* z, float* x, int batch, int r,

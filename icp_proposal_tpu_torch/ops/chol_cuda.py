@@ -17,9 +17,12 @@ from __future__ import annotations
 
 import torch
 
-from icp_proposal_tpu_torch._build import check_tensor, kernel_device, launch
+from icp_proposal_tpu_torch._build import check_tensor, kernel_device, launch, load_library
 
 MAX_SMEM_BYTES = 227 * 1024  # a block's shared-memory ceiling on sm_90
+TILE = 16  # K1/K6 tile edge (kTile in csrc/chol.cu)
+MAX_RANK = 320  # K1/K6: the largest r whose packed lower tiles fit a block (kMaxRank)
+K1_WARPS, K6_WARPS = 4, 8  # warps per chain of K1 and K6 (kK1Warps, kK6Warps)
 
 
 def _pick_bl(r: int) -> int | None:
@@ -56,10 +59,36 @@ def _tri_args(chol: torch.Tensor, z: torch.Tensor):
     return bsz, r, kernel_device(chol, z)
 
 
-def _chol_smem_bytes(r: int) -> int:
-    """Shared memory K1 needs: the matrix at row stride r|1, plus two vectors
-    (as chol_smem_bytes in csrc/chol.cu)."""
-    return (r * (r | 1) + 2 * r) * 4
+def tiled_smem_bytes(r: int, warps: int) -> int:
+    """Shared memory a chain of K1/K6 takes at rank r, as the kernel's launch
+    sizes it: the packed lower 16×16 tiles of M padded to 16⌈r/16⌉, one
+    scratch tile per warp, and 1/√dⱼ and log dⱼ per pivot."""
+    n = load_library().icp_chol_tiled_smem_bytes(r, warps)
+    if n < 0:
+        raise ValueError(f"r={r} is over the limit r ≤ {MAX_RANK}")
+    return n
+
+
+def tiled_ctas_per_sm(r: int, warps: int) -> int:
+    """Blocks (chains) of the K1/K6 kernel with ``warps`` warps that one SM
+    of the current card holds at rank r, from CUDA's occupancy calculator."""
+    n = load_library().icp_chol_tiled_ctas_per_sm(r, warps)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for r={r}, warps={warps}")
+    return n
+
+
+def _launch_tiled(name: str, m: torch.Tensor, rhs: torch.Tensor, bsz: int, r: int, dev):
+    if r > MAX_RANK:
+        raise ValueError(
+            f"{name} takes r ≤ {MAX_RANK} (the packed lower tiles of a larger M "
+            f"overflow the {MAX_SMEM_BYTES} B of shared memory a block holds), got r={r}")
+    l = torch.empty_like(m)
+    x = torch.empty_like(rhs)
+    logdet = torch.empty(bsz, dtype=torch.float32, device=dev)
+    launch(f"icp_{name}", dev, m.data_ptr(), rhs.data_ptr(), l.data_ptr(), x.data_ptr(),
+           logdet.data_ptr(), bsz, r)
+    return l, x, logdet
 
 
 def chol_solve_plain(m: torch.Tensor, rhs: torch.Tensor):
@@ -78,40 +107,28 @@ def chol_solve_plain(m: torch.Tensor, rhs: torch.Tensor):
 def chol_solve(m: torch.Tensor, rhs: torch.Tensor, blocked: bool | None = None):
     """Per chain, for SPD M [B, r, r] and rhs [B, r] (float32, contiguous):
     → (L [B, r, r] lower with zeros above the diagonal, x = M⁻¹·rhs [B, r],
-    log det M [B]).  On CUDA a pivot ≤ 0 makes that chain's factor NaN from
-    the pivot's column on (and x, log det NaN).  ``blocked`` None routes by
-    ``uses_blocked(r)``; True or False forces K6 or K1 (K1 takes r ≤ 239).
+    log det M [B]).  Only M's lower triangle is read.  On CUDA a pivot ≤ 0
+    makes that chain's factor NaN from the pivot's column on (and x, log det
+    NaN).  ``blocked`` None routes by ``uses_blocked(r)``; True or False
+    forces K6 or K1.  On CUDA r ≤ ``MAX_RANK``.
 
     Kernel K1 (``csrc/chol.cu``) replaces ``_chol_kernel`` in
-    ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by latency and
-    block-wide barriers (r dependent pivot steps), not bytes; one block per
-    chain keeps the matrix in shared memory so each step is two barriers
-    and no device-memory traffic."""
+    ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by latency (r dependent
+    pivot steps), not bytes.  One block of 4 warps per chain runs the tiled
+    right-looking factor that K6 runs with 8: the lower triangle as packed
+    16×16 tiles in shared memory, two block barriers per 16 pivots, then
+    both substitutions from shared memory in one warp."""
     bsz, r, dev = _chol_args(m, rhs)
     if dev.type == "cpu":
         return chol_solve_plain(m, rhs)
     if uses_blocked(r) if blocked is None else blocked:
         return chol_solve_blocked(m, rhs)
-    if _chol_smem_bytes(r) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"chol_solve needs {_chol_smem_bytes(r)} B of shared memory at r={r}, "
-            f"over the {MAX_SMEM_BYTES} B a block holds (r ≤ 239)")
-    l = torch.empty_like(m)
-    x = torch.empty_like(rhs)
-    logdet = torch.empty(bsz, dtype=torch.float32, device=dev)
-    launch("icp_chol_solve", dev, m.data_ptr(), rhs.data_ptr(), l.data_ptr(),
-           x.data_ptr(), logdet.data_ptr(), bsz, r)
+    out = _launch_tiled("chol_solve", m, rhs, bsz, r, dev)
     chol_solve.launches += 1
-    return l, x, logdet
+    return out
 
 
 chol_solve.launches = 0
-
-
-def _blocked_smem_bytes(r: int) -> int:
-    """Shared memory K6 needs: a [r, 33] panel, the [32, r|1] row block of L
-    and two vectors (as chol_blocked_smem_bytes in csrc/chol.cu)."""
-    return (r * 33 + 32 * (r | 1) + 2 * r) * 4
 
 
 def chol_solve_blocked(m: torch.Tensor, rhs: torch.Tensor):
@@ -119,21 +136,14 @@ def chol_solve_blocked(m: torch.Tensor, rhs: torch.Tensor):
 
     Kernel K6 (``csrc/chol.cu``) replaces ``_chol_blocked_kernel`` in
     ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by the r dependent pivot
-    steps, as K1; one block per chain holds one 32-column panel (54 KB at
-    r = 200 against K1's 161 KB), so four chains per SM are in flight."""
+    steps, as K1, whose tiled kernel it launches with 8 warps per chain (93 KB
+    of tiles at r = 200: two chains per SM).  On CUDA r ≤ ``MAX_RANK``."""
     bsz, r, dev = _chol_args(m, rhs)
     if dev.type == "cpu":
         return chol_solve_plain(m, rhs)
-    if _blocked_smem_bytes(r) > MAX_SMEM_BYTES:
-        raise ValueError(f"chol_solve_blocked needs {_blocked_smem_bytes(r)} B of "
-                         f"shared memory at r={r}, over {MAX_SMEM_BYTES} B")
-    l = torch.empty_like(m)
-    x = torch.empty_like(rhs)
-    logdet = torch.empty(bsz, dtype=torch.float32, device=dev)
-    launch("icp_chol_solve_blocked", dev, m.data_ptr(), rhs.data_ptr(), l.data_ptr(),
-           x.data_ptr(), logdet.data_ptr(), bsz, r)
+    out = _launch_tiled("chol_solve_blocked", m, rhs, bsz, r, dev)
     chol_solve_blocked.launches += 1
-    return l, x, logdet
+    return out
 
 
 chol_solve_blocked.launches = 0

@@ -61,9 +61,11 @@ def _port_carry(jc):
         [tuple(np.asarray(a) for a in f) for f in jc.icp_factors], device="cpu")
 
 
+@pytest.mark.parametrize("parity", [False, True], ids=["exact", "parity"])
 @pytest.mark.parametrize("partial", [True, False], ids=["partial", "complete"])
-def test_bfm_step_parity(jdata, kernels_forced, partial):
-    """Rank 12, 4 chains, 5 steps of the BFM partial and complete setups:
+def test_bfm_step_parity(jdata, kernels_forced, partial, parity):
+    """Rank 12, 4 chains, 5 steps of the BFM partial and complete setups,
+    with exact densities and with the reference's own (``parity=True``):
     same proposal index, same accept decision wherever
     |log α − log u| > 1e-3, log posterior within rtol 1e-4."""
     from icp_proposal_tpu.apps import bfm as jbfm
@@ -71,9 +73,10 @@ def test_bfm_step_parity(jdata, kernels_forced, partial):
     from icp_proposal_tpu.sampling.proposals import IcpSpec, RandomShapeSpec
     from icp_proposal_tpu.sampling.state import init_state as jinit_state
 
-    jctx, jmix, jev = jbfm.make_bfm_fitting_setup(jdata, partial)
+    jctx, jmix, jev = jbfm.make_bfm_fitting_setup(jdata, partial, parity=parity)
     pdata = _port_data(jdata)
-    ctx, mixture, evaluator = pbfm.make_bfm_fitting_setup(pdata, partial)
+    ctx, mixture, evaluator = pbfm.make_bfm_fitting_setup(pdata, partial, parity=parity)
+    assert mixture.parity == jmix.parity == parity
     np.testing.assert_array_equal(ctx.cells.numpy(), jctx.cells)
     np.testing.assert_array_equal(ctx.index.cand.numpy(), jctx.index.cand)
     assert evaluator.named_keys == jev.named_keys

@@ -28,9 +28,10 @@ STANDIN = REPO / "artifacts" / "posterior"
 N_CHAINS, N_STEPS = 4, 5
 
 
-def _jax_standin(monkeypatch, setup="flagship", coarse="exact"):
-    """A JAX setup of the stand-in (flagship, parity or rw), kernels forced
-    on; coarse="dot" opts in to the dot-form coarse kernel."""
+def _jax_standin(monkeypatch, setup="flagship", coarse="exact", **setup_kw):
+    """A JAX setup of the stand-in (flagship, parity or rw, with ``setup_kw``
+    passed on), kernels forced on; coarse="dot" opts in to the dot-form
+    coarse kernel."""
     monkeypatch.setenv("ICP_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
@@ -51,17 +52,17 @@ def _jax_standin(monkeypatch, setup="flagship", coarse="exact"):
         target_boundary_mask=boundary_vertex_mask(tc, len(tp)),
         model_boundary_mask=boundary_vertex_mask(mc, len(mp)),
     )
-    return data, jfemur.SETUPS[setup](data)
+    return data, jfemur.SETUPS[setup](data, **setup_kw)
 
 
-def _port_standin(jdata, fuse=True, setup="flagship", coarse="exact"):
+def _port_standin(jdata, fuse=True, setup="flagship", coarse="exact", **setup_kw):
     model = convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in
                                         jdata.model._asdict().items()}, device="cpu")
     data = pfemur.FemurData(
         model=model, target=jdata.target,
         target_boundary_mask=jdata.target_boundary_mask,
         model_boundary_mask=jdata.model_boundary_mask)
-    ctx, mixture, evaluator = pfemur.SETUPS[setup](data, coarse=coarse)
+    ctx, mixture, evaluator = pfemur.SETUPS[setup](data, coarse=coarse, **setup_kw)
     step = pmh.make_mh_step(model, mixture, evaluator, store_params=True, fuse=fuse)
     return model, ctx, mixture, evaluator, step
 
@@ -76,17 +77,18 @@ def _port_carry(jc):
         [tuple(np.asarray(a) for a in f) for f in jc.icp_factors], device="cpu")
 
 
-def _step_parity(monkeypatch, setup, coarse, n_steps):
-    """n_steps of N_CHAINS chains of one setup in both packages from the
+def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
+    """n_steps of N_CHAINS chains of one setup (``setup_kw`` passed to both
+    packages' setup functions) in both packages from the
     same carry with the same noise: same proposal index, same accept
     decision wherever |log α − log u| > 1e-3, log_post to rtol 1e-4 →
     (decisions compared, steps accepted)."""
     from icp_proposal_tpu.sampling import mh as jmh
     from icp_proposal_tpu.sampling.state import init_state as jinit_state
 
-    jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch, setup, coarse)
+    jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch, setup, coarse, **setup_kw)
     model, ctx, mixture, evaluator, step = _port_standin(jdata, setup=setup,
-                                                         coarse=coarse)
+                                                         coarse=coarse, **setup_kw)
     r = model.rank
     assert r == 101
     assert mixture.names == jmix.names
@@ -153,6 +155,49 @@ def test_one_step_parity_full_width_setups(monkeypatch, setup, coarse):
     2 steps each."""
     compared, _ = _step_parity(monkeypatch, setup, coarse, 2)
     assert compared >= N_CHAINS * 2 - 1
+
+
+def test_one_step_parity_random_walk_options(monkeypatch):
+    """The random walk with two step sizes (two mixture components) and an
+    evaluator σ of 3, passed to both packages' ``make_random_walk_setup``:
+    one step of 4 chains agrees as above."""
+    compared, _ = _step_parity(monkeypatch, "rw", "exact", 1, shape_steps=(0.05, 0.2),
+                               sigma_eval=3.0)
+    assert compared >= N_CHAINS - 1
+
+
+@pytest.mark.parametrize("name", ["femur.make_random_walk_setup",
+                                  "bfm.make_bfm_fitting_setup",
+                                  "femur.make_icp_proposal_setup"])
+def test_setup_signatures_match_the_reference(name):
+    """A caller with the reference's signature can call the port's setup
+    functions: the same parameter names, order and defaults, with the
+    coarse pass (``coarse``) as the port's only extra."""
+    import importlib
+    import inspect
+
+    mod, fn = name.split(".")
+    ref = inspect.signature(getattr(importlib.import_module(
+        f"icp_proposal_tpu.apps.{mod}"), fn)).parameters
+    port = inspect.signature(getattr(importlib.import_module(
+        f"icp_proposal_tpu_torch.apps.{mod}"), fn)).parameters
+    assert set(port) - set(ref) <= {"coarse"}
+    assert [p for p in port if p != "coarse"] == list(ref)
+    for p in ref:
+        assert port[p].default == ref[p].default, p
+
+
+def test_recommended_setup_and_adapt():
+    """``recommended_setup()`` names the reference's recommendation; the
+    random walk's scale adaptation is slice 7's and raises until then."""
+    from icp_proposal_tpu.apps import femur as jfemur
+
+    assert pfemur.recommended_setup() == jfemur.recommended_setup() == "rw"
+    assert pfemur.recommended_setup() in pfemur.SETUPS
+    for setup in (lambda: pfemur.make_random_walk_setup(None, adapt=True),
+                  lambda: pfemur.SETUPS["rw-adapt"](None)):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            setup()
 
 
 def test_context_switches():
