@@ -9,11 +9,13 @@ Phases (each prints one line or a short block, and ends in
 2. build         nvcc builds every kernel in icp_proposal_tpu_torch/csrc into
                  build/, one compiler per source, all started together;
 3. kernels       K1–K4 and K8 against their plain PyTorch twins on the card
-                 at the femur path's per-chain shapes on 256 chains (K1 and
-                 K2 also on 2,048), with times; K1 timed in turns against
+                 at the femur path's per-chain shapes on 256 and on 2,048
+                 chains, with times; K1 timed in turns against
                  torch.linalg.cholesky_ex (the factor only); its tile size,
-                 shared memory per chain and CTAs per SM; K8's anchors
-                 against K3's under a rounding bound;
+                 shared memory per chain and CTAs per SM; K3's launch in
+                 both modes (queries a lane, threads, blocks, shared memory,
+                 CTAs per SM); K8's anchors against K3's under a rounding
+                 bound;
 4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
                  MH step at 2,048 chains through the kernels: warm-up, then
                  timed steps, with each kernel's launch count;
@@ -268,24 +270,32 @@ def _anchor_gaps(torch, q, points, ids, ids_exact, chunk=16):
     return int((ids != ids_exact).sum()), gap_max, ratio_max
 
 
-def phase_kernels(torch, dev, data, ctx, ctx_dot):
-    """K1–K4 and K8 against the plain twins at the femur path's shapes; K8's
-    anchors against K3's."""
-    import numpy as np
-
-    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+def _print_nv_config(torch, tag, b, p, v, per_chain):
+    """Print K3's launch at these shapes: queries a lane holds, threads per
+    block, blocks, dynamic shared memory per block and CTAs per SM (from
+    CUDA's occupancy calculator)."""
     from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
 
-    rng = np.random.RandomState(0)
-    b, r, v = CMP_CHAINS, data.model.rank, data.model.num_points
-    records = {}
-    records["chol_solve"], records["tri_solve_lt"], _ = _chol_records(
-        torch, dev, rng, b, r, cc.chol_solve, cc.tri_solve_lt, "K1")
-    _print_tiled_config(torch, "kernels", "chol_solve", r, cc.K1_WARPS)
-    big = _chol_records(torch, dev, rng, N_CHAINS, r, cc.chol_solve, cc.tri_solve_lt, "K1")
-    records["chol_solve"]["at_2048_chains"] = big[0]
-    records["tri_solve_lt"]["at_2048_chains"] = big[1]
+    cfg = cp.nearest_vertices_config(b, p, v, per_chain)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mode = "per_chain" if per_chain else "shared"
+    print(f"[{tag}] nearest_vertices[{mode}] launch at B={b}, P={p}, V={v}: Q={cfg['q']} "
+          f"queries a lane, {cfg['threads']} threads per block, {cfg['blocks']} blocks, "
+          f"{cfg['smem_bytes']} B of dynamic shared memory per block, "
+          f"{cfg['ctas_per_sm']} CTAs per SM on {sms} SMs")
 
+
+def _closest_records(torch, dev, rng, b, data, ctx, ctx_dot):
+    """K3 (both modes), K4 and K8 against their plain twins at the femur
+    path's shapes on ``b`` chains → (records, queries, K3's shared ids).
+    At ``N_CHAINS`` the twins run once a turn (they take tens of ms)."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
+
+    r, v = data.model.rank, data.model.num_points
+    plain_reps = 2 if b > CMP_CHAINS else None
+    records = {}
     # K3: shared target vertices (P = 4·rank) and per-chain meshes (P = 2·rank)
     ref = data.model.ref_points
     q = (ref[torch.as_tensor(rng.randint(0, v, (b, 4 * r)), device=dev)]
@@ -302,7 +312,8 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
         records[f"nearest_vertices[{mode}]"] = _record(
             torch, *_id_errors(ids, ids_p), lambda: cp.nearest_vertices(qq, pts),
             lambda: cp.nearest_vertices_plain(qq, pts), _nbytes(qq, pts, ids),
-            NV_PAIR_FLOPS * pairs)
+            NV_PAIR_FLOPS * pairs, plain_reps=plain_reps)
+        del ids_p
     nv = cp.nearest_vertices(q, ctx.index.points)
 
     # K4: the K = 64 shortlist of each query's coarse vertex
@@ -316,7 +327,8 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
         lambda: cp.refine_shortlist(q, nv, idx.cand, idx.cand_tri),
         lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri),
         _nbytes(q, nv, idx.cand, idx.cand_tri, f, w),
-        PAIR_FLOPS * q.shape[0] * q.shape[1] * idx.k)
+        PAIR_FLOPS * q.shape[0] * q.shape[1] * idx.k, plain_reps=plain_reps)
+    del f_p, w_p
 
     # K8: the dot-form coarse pass of ctx_dot's index on the same queries
     va = ctx_dot.index.points_aug
@@ -325,13 +337,42 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
     records["coarse_nearest_dot"] = _record(
         torch, *_id_errors(ids8, ids8_p), lambda: cp.coarse_nearest_dot(q, va),
         lambda: cp.coarse_nearest_dot_plain(q, va), _nbytes(q, va, ids8),
-        DOT_PAIR_FLOPS * q.shape[0] * q.shape[1] * va.shape[0])
+        DOT_PAIR_FLOPS * q.shape[0] * q.shape[1] * va.shape[0], plain_reps=plain_reps)
+    return records, q, nv, ids8
+
+
+def phase_kernels(torch, dev, data, ctx, ctx_dot):
+    """K1–K4 and K8 against the plain twins at the femur path's shapes on
+    ``CMP_CHAINS`` and ``N_CHAINS`` chains (the larger as ``at_2048_chains``
+    in each record); K3's launches; K8's anchors against K3's."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    rng = np.random.RandomState(0)
+    b, r, v = CMP_CHAINS, data.model.rank, data.model.num_points
+    records = {}
+    records["chol_solve"], records["tri_solve_lt"], _ = _chol_records(
+        torch, dev, rng, b, r, cc.chol_solve, cc.tri_solve_lt, "K1")
+    _print_tiled_config(torch, "kernels", "chol_solve", r, cc.K1_WARPS)
+    big = dict(zip(("chol_solve", "tri_solve_lt"), _chol_records(
+        torch, dev, rng, N_CHAINS, r, cc.chol_solve, cc.tri_solve_lt, "K1")[:2]))
+
+    closest, q, nv, ids8 = _closest_records(torch, dev, rng, b, data, ctx, ctx_dot)
+    records.update(closest)
     n_diff, gap, ratio = _anchor_gaps(torch, q, ctx_dot.index.points, ids8, nv)
     print(f"[kernels] coarse_nearest_dot vs nearest_vertices[shared]: {n_diff} of "
           f"{nv.numel()} anchors differ; largest true-d² gap above the exact minimum "
           f"{gap:.3g} mm², {ratio:.3g} of its bound 2^-21·(‖q‖ + max‖v‖)²")
     if ratio > 1.0:
         raise AssertionError("K8 anchors exceed the rounding bound of the dot form")
+    del q, nv, ids8
+    big.update(_closest_records(torch, dev, rng, N_CHAINS, data, ctx, ctx_dot)[0])
+    for chains in (CMP_CHAINS, N_CHAINS):
+        _print_nv_config(torch, "kernels", chains, 4 * r, ctx.index.points.shape[0], False)
+        _print_nv_config(torch, "kernels", chains, 2 * r, v, True)
+    for name, rec in big.items():
+        records[name]["at_2048_chains"] = rec
     return records
 
 

@@ -41,17 +41,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pointers..., ints..., stream
     "icp_chol_solve": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "icp_tri_solve_lt": [_P, _P, _P, _I, _I, _P],
+    "icp_tri_solve_lt_rows": [_P, _P, _P, _I, _I, _P],
     "icp_nearest_vertices": [_P, _P, _P, _I, _I, _I, _I, _P],
     "icp_refine_shortlist": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "icp_surface_distances": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "icp_tri_solve_lt_blocked": [_P, _P, _P, _I, _I, _P],
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],
     # (r, warps): no stream, not a launch
     "icp_chol_tiled_smem_bytes": [_I, _I],
     "icp_chol_tiled_ctas_per_sm": [_I, _I],
+    # (batch, p, v, per_chain, int[5] out): no stream, not a launch
+    "icp_nearest_vertices_config": [_I, _I, _I, _I, _P],
 }
 
 

@@ -51,39 +51,32 @@
 //   Sums run in another order than the twin's: values agree to the
 //   tolerance, not bitwise.
 //
-// K2 icp_tri_solve_lt replaces _tri_lt_kernel / _tri_lt_call in the same
-// file (reached through tri_solve_lt): solve Lᵀx = z, dividing by
-// max(Lⱼⱼ, 1e-30) as chol_pallas.py:342 does.
-//   What bounds it: the r-step dependency chain, each step a dependent read
-//   of one row of L (latency, ~40 KB read per chain).
-//   Design: one warp per chain, back substitution down the columns of L:
-//   step j reads row j of L with coalesced lane loads and updates a running
-//   residual that the warp keeps in shared memory; no block-wide barrier.
-//
-// K7 icp_tri_solve_lt_blocked replaces _tri_lt_blocked_kernel /
-// _tri_lt_blocked_call in the same file (taken by the same rule): Lᵀx = z,
-// dividing by max(Lⱼⱼ, 1e-30) (NaN stays NaN, as chol_pallas.py:317 does).
+// K2 replaces _tri_lt_kernel / _tri_lt_call in the same file (reached
+// through tri_solve_lt, r ≤ 104), and K7 replaces _tri_lt_blocked_kernel /
+// _tri_lt_blocked_call (taken by the same rule, r ≥ 105): Lᵀx = z, dividing
+// by max(Lⱼⱼ, 1e-30) (NaN stays NaN, as chol_pallas.py:317 and :342 do).
+// Both launch one kernel, tri_solve_lt_rows_kernel<KMAX>, through one entry
+// point, icp_tri_solve_lt_rows; the Python wrappers keep their own launch
+// counts.
 //   What bounds it: the r dependent steps xⱼ = resⱼ / Lⱼⱼ, each needing the
 //   one before it; at 2,048 chains also the bytes of the lower triangle
-//   (164 MB at r = 200, 0.05 ms at 3.35 TB/s).  The earlier design (column
-//   panels staged in 54 KB of shared memory per two chains, each xⱼ a dot
-//   product finished by five dependent shuffles) put a five-shuffle tree and
-//   a synchronous panel load on that chain and held about one block per SM.
+//   (164 MB at r = 200, 0.05 ms at 3.35 TB/s; 42 MB at r = 101).  No
+//   device-memory load may sit on that chain of steps.
 //   Design: the axpy ("column") form, one warp per chain and no shared
 //   memory.  Lane l keeps the residual entries i ≡ l (mod 32) in registers
-//   (⌈r/32⌉ of them: 7 at r = 200, at most KMAX).  At step j, from r − 1
-//   down, the owner lane divides, one __shfl_sync broadcasts xⱼ and every
-//   lane subtracts Lⱼᵢ·xⱼ from its entries i < j, with row j of L read as
-//   coalesced lane loads of its entries i ≤ j only (the lower triangle, read
-//   once).  Rows do not depend on x, so each row is loaded kRowsAhead steps
-//   before its step into a ring of registers: the critical path per step is
-//   one division, one shuffle and one multiply-subtract, not a device-memory
-//   load and five shuffles.  The ring's slot of row j is j mod kRowsAhead, a
-//   compile-time index: the steps run in groups of kRowsAhead that start at
-//   j ≡ kRowsAhead − 1, and the loop over the 32-row blocks is unrolled so
-//   the residual entry of the step is a compile-time index too.  The sums
-//   run in another order than the twin's (as in K2): values agree to the
-//   tolerance, not bitwise.
+//   (⌈r/32⌉ of them: 4 at r = 101, 7 at r = 200, at most KMAX = 4, 8 or 16
+//   for r ≤ 128, 256, 512).  At step j, from r − 1 down, the owner lane
+//   divides, one __shfl_sync broadcasts xⱼ and every lane subtracts Lⱼᵢ·xⱼ
+//   from its entries i < j, with row j of L read as coalesced lane loads of
+//   its entries i ≤ j only (the lower triangle, read once).  Rows do not
+//   depend on x, so each row is loaded kRowsAhead steps before its step
+//   into a ring of registers: the critical path per step is one division,
+//   one shuffle and one multiply-subtract, not a device-memory load.  The
+//   ring's slot of row j is j mod kRowsAhead, a compile-time index: the
+//   steps run in groups of kRowsAhead that start at j ≡ kRowsAhead − 1, and
+//   the loop over the 32-row blocks is unrolled so the residual entry of
+//   the step is a compile-time index too.  The sums run in another order
+//   than the twin's: values agree to the tolerance, not bitwise.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
@@ -101,9 +94,8 @@ constexpr int kMaxRank = 320;              // K1/K6: 210 packed tiles fill a blo
 constexpr int kMaxRes = kMaxRank / 32;     // K1/K6 substitution: residual entries a lane
 constexpr int kK1Warps = 4;                // K1: warps per chain (more chains per SM)
 constexpr int kK6Warps = 8;                // K6: warps per chain
-constexpr int kTriWarps = 4;
-constexpr int kTriRowWarps = 2;  // K7: chains (warps) per block
-constexpr int kRowsAhead = 4;    // K7: rows of L loaded ahead of their step; divides 32
+constexpr int kTriRowWarps = 2;  // K2/K7: chains (warps) per block
+constexpr int kRowsAhead = 4;    // K2/K7: rows of L loaded ahead of their step; divides 32
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan32() { return __int_as_float(0x7fc00000); }
@@ -436,31 +428,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-__global__ void tri_solve_lt_kernel(const float* __restrict__ l,
-                                    const float* __restrict__ z,
-                                    float* __restrict__ x, int batch, int r) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= batch) return;  // whole warps leave; no block barrier follows
-  float* res = smem + warp * r;
-  const float* lb = l + (size_t)b * r * r;
-  for (int t = lane; t < r; t += 32) res[t] = z[(size_t)b * r + t];
-  __syncwarp();
-  for (int j = r - 1; j >= 0; --j) {
-    const float* lrow = lb + (size_t)j * r;
-    float d = lrow[j];
-    d = isnan(d) ? d : fmaxf(d, 1e-30f);
-    const float xj = res[j] / d;
-    __syncwarp();
-    for (int i = lane; i < j; i += 32) res[i] -= lrow[i] * xj;
-    if (lane == 0) res[j] = xj;
-    __syncwarp();
-  }
-  for (int t = lane; t < r; t += 32) x[(size_t)b * r + t] = res[t];
-}
-
 // K7: row j of L, entries i = lane + 32k ≤ j for k ≤ kmax, into row[k]
 // (zero elsewhere and for rows outside [0, r))
 template <int KMAX>
@@ -574,16 +541,6 @@ int icp_chol_solve(const float* m, const float* rhs, float* l, float* x, float* 
   return launch_chol_tiled<kK1Warps>(m, rhs, l, x, logdet, batch, r, stream);
 }
 
-int icp_tri_solve_lt(const float* l, const float* z, float* x, int batch, int r,
-                     void* stream) {
-  if (batch == 0) return cudaSuccess;
-  const int blocks = (batch + kTriWarps - 1) / kTriWarps;
-  const size_t bytes = (size_t)kTriWarps * r * sizeof(float);
-  tri_solve_lt_kernel<<<blocks, kTriWarps * 32, bytes, (cudaStream_t)stream>>>(
-      l, z, x, batch, r);
-  return cudaGetLastError();
-}
-
 int icp_chol_solve_blocked(const float* m, const float* rhs, float* l, float* x,
                            float* logdet, int batch, int r, void* stream) {
   return launch_chol_tiled<kK6Warps>(m, rhs, l, x, logdet, batch, r, stream);
@@ -610,8 +567,10 @@ int icp_chol_tiled_ctas_per_sm(int r, int warps) {
   return n;
 }
 
-int icp_tri_solve_lt_blocked(const float* l, const float* z, float* x, int batch, int r,
-                             void* stream) {
+// K2/K7: the row-streaming solve with the fewest residual entries a lane
+// that r needs (KMAX = 4 covers the monolithic ranks r ≤ 104)
+int icp_tri_solve_lt_rows(const float* l, const float* z, float* x, int batch, int r,
+                          void* stream) {
   if (batch == 0) return cudaSuccess;
   const int blocks = (batch + kTriRowWarps - 1) / kTriRowWarps;
   cudaStream_t st = (cudaStream_t)stream;
@@ -622,7 +581,7 @@ int icp_tri_solve_lt_blocked(const float* l, const float* z, float* x, int batch
   } else if (r <= 512) {
     tri_solve_lt_rows_kernel<16><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
   } else {
-    return cudaErrorInvalidValue;  // the wrapper refuses r > 512 first
+    return cudaErrorInvalidValue;  // the wrappers refuse r > 512 first
   }
   return cudaGetLastError();
 }

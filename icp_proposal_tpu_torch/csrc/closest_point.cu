@@ -7,16 +7,44 @@
 //
 // K3 icp_nearest_vertices replaces _make_nv_kernel / _nv_call in
 // icp_proposal_tpu/ops/closest_point_pallas.py (reached through
-// nearest_vertices_pallas): ids = argminᵥ ‖q − v‖², d² = dx·dx + dy·dy + dz·dz,
-// ties to the lowest id.  The vertex set is shared (batch stride 0, the
-// shortlist's coarse stage) or one per chain (stride V·3, the ICP target
-// direction against each chain's candidate mesh).
-//   What bounds it: FP32 issue rate, ~9 operations per (query, vertex) pair
-//   (2,048 × 404 × 1,622 pairs per coarse call); bytes are tiny.
-//   Design: one thread per query, the vertex set staged through shared
-//   memory in chunks of 2,048 (all threads read the same vertex, a
-//   broadcast) and scanned in ascending id order with a strict <, which
-//   gives the lowest id on ties.  The ragged edge is masked, not padded.
+// nearest_vertices_pallas): ids = argminᵥ ((dx·dx + dy·dy) + dz·dz), ties to
+// the lowest id, a NaN d² never winning and a query with no finite d² taking
+// id 0 (the Pallas kernel returns 2³⁰ there; ids stay in range here).  The
+// vertex set is shared (the shortlist's coarse pass: 2,048 × 404 queries
+// against 1,622 vertices on the femur step) or one per chain (the ICP target
+// direction: 2,048 × 202 queries, each chain against its own 1,622).
+//   What bounds it: instruction issue.  A pair takes 3 subtractions, 3
+//   products and 2 sums that may not fuse (-fmad=false), 8 FP32 operations;
+//   the bytes are a few MB.  So a pair must cost few instructions beyond
+//   those 8: shared loads, compares and selects are what the design cuts,
+//   with no idle lanes and no restaging of a vertex set.
+//   Design: nearest_vertices_kernel<Pair, Q>, blocks of kNvWarps warps.
+//   * A lane holds Q queries in registers; a vertex is staged as a float4
+//     row, so one 16-byte broadcast (LDS.128) feeds Q pairs.
+//   * A pair adds one fminf to its query's running minimum over a group of
+//     kNvGroup = 32 vertices (fminf drops NaN); after the group, a minimum
+//     strictly below the best so far records the group (an earlier group
+//     keeps a tie).  At the end of a staged chunk each query whose best moved
+//     rescans that one group, lowest id first, for the value: the operations
+//     are the same, so they round the same.  9 issued instructions a pair
+//     instead of 11, plus 1/Q of a load and the per-group bookkeeping.
+//   * Shared set: the block stages it once (one chunk) and its warps walk
+//     the flat list of B·P queries in units of 32·Q (kNvSharedQ), so no
+//     chain leaves a ragged edge; unit b + grid·(w + kNvWarps·k) goes to warp
+//     w of block b in round k, so a short last round spreads over all blocks.
+//   * Per-chain sets: the fewest units of ≤ 32·kNvMaxQ queries that cover P,
+//     with the least Q for them (P = 202: one unit, Q = 7: 224 lanes' worth
+//     for 202 queries), and the block's warps scan slices of the chunk for
+//     the same units; the slices merge by the least (d², id) in shared
+//     memory, which is exact.  A block walks chains b, b + grid, ... and
+//     stages the next chain's chunk with cp.async into a second buffer while
+//     it scans the current one.  V beyond kNvChunk is scanned chunk by chunk
+//     through the same two buffers (for a shared set too).
+//   * Blocks: as many as the SMs hold at once (occupancy calculator), at most
+//     one per item.  No tensor cores: TF32 or bf16 products change the ids
+//     (closest_point_pallas.py:449-457).
+//   The pair is a policy (EuclidPair), so K8's dot form can later run on
+//   the same scan with its own pair, pad row and [V, 4] staging.
 //
 // K4 icp_refine_shortlist replaces _make_refine_kernel / _refine_call in the
 // same file (reached through refine_shortlist_pallas): the exact Ericson
@@ -103,7 +131,7 @@
 //   HIGHEST precision; tensor-core TF32 or bf16 inputs here would hit the
 //   anchor error the reference measured (2.3e2 mm², closest_point_pallas.py
 //   :449-457), so the products stay in FP32 on the CUDA cores.
-//   Design: as K3, one thread per query and one block per (128-query tile,
+//   Design: one thread per query and one block per (128-query tile,
 //   chain); the [V, 4] table is staged through shared memory as float4 in
 //   tiles of min(V, 2,048) vertices (dynamic shared memory, so femur's 1,622
 //   take 26 KB and not 32: shared memory is what limits the blocks an SM
@@ -114,10 +142,18 @@
 #include <limits.h>
 #include <math.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
-constexpr int kNvThreads = 128;
-constexpr int kNvChunk = 2048;
+constexpr int kNvWarps = 8;      // K3: warps per block
+constexpr int kNvGroup = 32;     // K3: vertices per running-minimum group
+constexpr int kNvChunk = 2048;   // K3: most vertices per staged chunk (32 KB as float4)
+constexpr int kNvMaxQ = 8;       // K3: most queries a lane holds
+constexpr int kNvSharedQ = 4;    // K3: queries a lane holds for a shared vertex set
+constexpr int kDotThreads = 128;  // K8: queries per block, one a thread
 constexpr int kDotChunk = 2048;  // K8's most vertices per shared-memory tile (32 KB)
 constexpr int kRefineWarps = 8;
 constexpr int kTileFaces = 32;   // K5: faces per culling tile, one per lane
@@ -128,46 +164,273 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
 
-__global__ void nearest_vertices_kernel(const float* __restrict__ q,
-                                        const float* __restrict__ pts,
-                                        int* __restrict__ ids, int p, int v,
-                                        long long pts_batch_stride) {
-  __shared__ float sv[kNvChunk * 3];
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = qi < p;
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (active) {
-    const float* qq = q + ((size_t)b * p + qi) * 3;
-    qx = qq[0];
-    qy = qq[1];
-    qz = qq[2];
+// K3's pair value, ((dx·dx + dy·dy) + dz·dz) with every product and sum
+// rounded on its own (-fmad=false), from a vertex staged as (x, y, z, ·).
+// The scan below takes the pair as a policy, so K8's dot form
+// ((qx·ax + qy·ay) + qz·az) + ‖v‖² on rows (ax, ay, az, ‖v‖²) can run on it
+// as another policy with its own pad row.
+struct EuclidPair {
+  __device__ static float eval(float qx, float qy, float qz, float4 v) {
+    const float dx = qx - v.x, dy = qy - v.y, dz = qz - v.z;
+    return dx * dx + dy * dy + dz * dz;
   }
-  const float* pb = pts + (size_t)b * pts_batch_stride;
-  float best = inf32();
-  int best_id = 0;
-  for (int lo = 0; lo < v; lo += kNvChunk) {
-    const int n = min(kNvChunk, v - lo);
-    __syncthreads();
-    for (int t = threadIdx.x; t < n * 3; t += blockDim.x) sv[t] = pb[(size_t)lo * 3 + t];
-    __syncthreads();
-    if (active) {
-      for (int u = 0; u < n; ++u) {
-        const float dx = qx - sv[3 * u];
-        const float dy = qy - sv[3 * u + 1];
-        const float dz = qz - sv[3 * u + 2];
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 < best) {
-          best = d2;
-          best_id = lo + u;
-        }
+  // a padding row: +inf (or NaN) for every query, so it never wins
+  __device__ static float4 pad() { return make_float4(inf32(), inf32(), inf32(), 0.0f); }
+};
+
+// K3 launch parameters (nv_configure fills them)
+struct NvParams {
+  const float* q;    // [B·P, 3]
+  const float* pts;  // [V, 3] or [B, V, 3]
+  int* ids;          // [B·P]
+  int batch, p, v;
+  int per_chain;     // one vertex set per chain
+  int resident;      // shared set in one chunk: staged once per block
+  int chunk;         // vertices per staged chunk, a multiple of kNvGroup
+  int n_chunks;
+  long long units;   // warp units of 32·Q queries: in all (shared) or per chain
+  int uw;            // per chain: units an item covers
+  int slices;        // per chain: warps that split a chunk for the same unit
+  int items_per_chain;
+  long long n_items;  // per chain: batch · items_per_chain
+};
+
+__device__ __forceinline__ void cp_async4(unsigned smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// one staged row as a single 16-byte shared load (LDS.128) from its
+// shared-space address; through a generic pointer, with w unused, the
+// compiler emitted two generic loads a row
+__device__ __forceinline__ float4 lds128(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// the block copies vertices [0, n) of src ([n, 3]) into the float4 rows at
+// shared address dst (generic dstp), each float with its own cp.async (rows
+// are 12 bytes, so a 16-byte copy would be misaligned), and pads the rows
+// up to the next kNvGroup with pad rows
+template <class Pair>
+__device__ __forceinline__ void nv_stage(unsigned dst, float4* dstp, const float* src,
+                                         int n) {
+  for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) {
+    const int row = e / 3;
+    cp_async4(dst + 16 * row + 4 * (e - 3 * row), src + e);
+  }
+  const int n_pad = (n + kNvGroup - 1) / kNvGroup * kNvGroup;
+  for (int row = n + threadIdx.x; row < n_pad; row += blockDim.x) dstp[row] = Pair::pad();
+}
+
+// One warp's scan of groups [g0, g1) of the staged chunk at shared address
+// sv for the Q queries a lane holds.  Per pair: the pair value and one
+// fminf into the group's running minimum m (fminf drops a NaN).  Per group
+// and query: when m is below best (strict: an earlier group keeps a tie),
+// best = m and bg = the group.  The id is found later by rescanning group
+// bg.
+template <class Pair, int Q>
+__device__ __forceinline__ void nv_scan(unsigned sv, int g0, int g1, const float (&qx)[Q],
+                                        const float (&qy)[Q], const float (&qz)[Q],
+                                        float (&best)[Q], int (&bg)[Q]) {
+  for (int g = g0; g < g1; ++g) {
+    const unsigned row = sv + g * kNvGroup * 16;
+    float m[Q];
+#pragma unroll
+    for (int k = 0; k < Q; ++k) m[k] = inf32();
+#pragma unroll 16
+    for (int u = 0; u < kNvGroup; ++u) {
+      const float4 vv = lds128(row + 16 * u);  // one broadcast feeds Q pairs
+#pragma unroll
+      for (int k = 0; k < Q; ++k) m[k] = fminf(m[k], Pair::eval(qx[k], qy[k], qz[k], vv));
+    }
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      if (m[k] < best[k]) {
+        best[k] = m[k];
+        bg[k] = g;
       }
     }
   }
-  if (active) ids[(size_t)b * p + qi] = best_id;
 }
 
-// K8: blockDim.x == kNvThreads queries of chain blockIdx.y
+// The lowest u with value == best in group g of the chunk at sv: the value
+// is recomputed with the same operations, so it rounds the same
+template <class Pair>
+__device__ __forceinline__ int nv_rescan(unsigned sv, int g, float qx, float qy, float qz,
+                                         float best) {
+  const unsigned row = sv + g * kNvGroup * 16;
+  int hit = 0;
+#pragma unroll 4
+  for (int u = kNvGroup - 1; u >= 0; --u)
+    hit = Pair::eval(qx, qy, qz, lds128(row + 16 * u)) == best ? u : hit;
+  return hit;
+}
+
+// K3: blockDim.x == kNvWarps·32.  The block walks its items b, b + grid,
+// ...  For a shared vertex set an item is kNvWarps warp units of 32·Q
+// queries of the flat list of B·P queries (warp w of the block's k-th item
+// takes unit b + grid·(w + kNvWarps·k), so a short last round spreads over
+// all blocks); each lane keeps its queries' best across chunks and rescans
+// in its own registers.  For per-chain sets an item is up to uw units of one
+// chain; with slices > 1 the block's warps split every chunk for the same
+// units, merge the slices' (group minimum, group) by the least value in
+// shared memory (a lower slice keeps a tie: its groups come first), and one
+// thread per query rescans the winning group and keeps the best across
+// chunks in shared memory.
+template <class Pair, int Q>
+__global__ void __launch_bounds__(kNvWarps * 32) nearest_vertices_kernel(NvParams a) {
+  extern __shared__ float4 nv_smem[];
+  constexpr int kSlot = 32 * Q;  // queries of one unit
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long b = blockIdx.x, grid = gridDim.x;
+  const unsigned smem = (unsigned)__cvta_generic_to_shared(nv_smem);
+  // behind the chunk buffers (one resident, else two): [warps][kSlot] each
+  float* md = reinterpret_cast<float*>(nv_smem + (a.resident ? 1 : 2) * a.chunk);
+  int* mg = reinterpret_cast<int*>(md + kNvWarps * kSlot);
+  float* cb = reinterpret_cast<float*>(mg + kNvWarps * kSlot);  // [uw·kSlot]
+  int* ci = reinterpret_cast<int*>(cb + a.uw * kSlot);          // [uw·kSlot]
+  long long n_mine;  // this block's items (the same for all its threads)
+  if (a.per_chain) {
+    n_mine = a.n_items > b ? (a.n_items - b + grid - 1) / grid : 0;
+  } else {
+    const long long stride = grid * kNvWarps;
+    n_mine = a.units > b ? (a.units - b + stride - 1) / stride : 0;
+  }
+  const long long n_steps = n_mine * a.n_chunks;
+  if (n_steps == 0) return;  // the whole block leaves
+  auto stage = [&](long long step) {  // the chunk of `step` into buffer step & 1
+    const long long k = step / a.n_chunks;
+    const int lo = (int)(step - k * a.n_chunks) * a.chunk;
+    const float* src =
+        a.per_chain ? a.pts + (b + grid * k) / a.items_per_chain * 3LL * a.v : a.pts;
+    const int buf = (int)(step & 1) * a.chunk;
+    nv_stage<Pair>(smem + 16 * buf, nv_smem + buf, src + 3LL * lo, min(a.chunk, a.v - lo));
+  };
+  stage(0);
+  cp_async_commit();
+  if (a.resident) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const bool merged = a.slices > 1;
+  long long step = 0;
+  for (long long k = 0; k < n_mine; ++k) {
+    // this warp's queries in item k: flat ids qbase + lane + 32·j (j < Q)
+    // below qend, and the slice of each chunk it scans
+    long long qbase, qend, chain = 0, ubase = 0;
+    int slice = 0;
+    bool valid;
+    if (a.per_chain) {
+      const long long it = b + grid * k;
+      chain = it / a.items_per_chain;
+      ubase = (it - chain * a.items_per_chain) * a.uw;
+      slice = warp / a.uw;
+      const long long unit = ubase + warp % a.uw;
+      valid = slice < a.slices && unit < a.units;
+      qbase = chain * a.p + unit * kSlot;
+      qend = chain * a.p + a.p;
+    } else {
+      const long long unit = b + grid * (warp + kNvWarps * k);
+      valid = unit < a.units;
+      qbase = unit * kSlot;
+      qend = (long long)a.batch * a.p;
+    }
+    float qx[Q], qy[Q], qz[Q], best[Q];
+    int bid[Q], bg[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const long long qi = qbase + lane + 32 * j;
+      const bool ok = valid && qi < qend;
+      qx[j] = ok ? __ldg(a.q + qi * 3) : 0.0f;
+      qy[j] = ok ? __ldg(a.q + qi * 3 + 1) : 0.0f;
+      qz[j] = ok ? __ldg(a.q + qi * 3 + 2) : 0.0f;
+      best[j] = inf32();
+      bid[j] = 0;  // no finite value: id 0
+      bg[j] = -1;
+    }
+    if (merged) {
+      for (int t = threadIdx.x; t < a.uw * kSlot; t += blockDim.x) {
+        cb[t] = inf32();
+        ci[t] = 0;
+      }
+    }
+    for (int c = 0; c < a.n_chunks; ++c, ++step) {
+      unsigned sv = smem;
+      if (!a.resident) {
+        if (step + 1 < n_steps) stage(step + 1);  // overlaps this step's scan
+        cp_async_commit();
+        cp_async_wait<1>();  // this step's chunk has landed
+        __syncthreads();
+        sv = smem + 16 * (unsigned)((step & 1) * a.chunk);
+      }
+      const int lo = c * a.chunk;
+      const int n_groups = (min(a.chunk, a.v - lo) + kNvGroup - 1) / kNvGroup;
+      const bool last = c == a.n_chunks - 1;
+      if (!merged) {
+        if (valid) {
+          nv_scan<Pair, Q>(sv, 0, n_groups, qx, qy, qz, best, bg);
+#pragma unroll
+          for (int j = 0; j < Q; ++j) {
+            if (bg[j] >= 0) {  // the best moved in this chunk
+              bid[j] = lo + bg[j] * kNvGroup +
+                       nv_rescan<Pair>(sv, bg[j], qx[j], qy[j], qz[j], best[j]);
+              bg[j] = -1;
+            }
+            const long long qi = qbase + lane + 32 * j;
+            if (last && qi < qend) a.ids[qi] = bid[j];
+          }
+        }
+      } else {
+        // this slice's least value and its group in the chunk, per query
+        if (valid) {
+#pragma unroll
+          for (int j = 0; j < Q; ++j) best[j] = inf32(), bg[j] = -1;
+          nv_scan<Pair, Q>(sv, slice * n_groups / a.slices, (slice + 1) * n_groups / a.slices,
+                           qx, qy, qz, best, bg);
+        }
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+          md[warp * kSlot + 32 * j + lane] = best[j];
+          mg[warp * kSlot + 32 * j + lane] = bg[j];
+        }
+        __syncthreads();
+        for (int t = threadIdx.x; t < a.uw * kSlot; t += blockDim.x) {
+          const int ul = t / kSlot, o = t - ul * kSlot;
+          const long long qoff = (ubase + ul) * kSlot + o;
+          if (ubase + ul >= a.units || qoff >= a.p) continue;
+          float val = inf32();
+          int g = -1;
+          for (int sl = 0; sl < a.slices; ++sl) {
+            const float vs = md[(sl * a.uw + ul) * kSlot + o];
+            if (vs < val) {
+              val = vs;
+              g = mg[(sl * a.uw + ul) * kSlot + o];
+            }
+          }
+          if (val < cb[t]) {  // strict: an earlier chunk keeps a tie
+            const float* qq = a.q + (chain * a.p + qoff) * 3;
+            cb[t] = val;
+            ci[t] = lo + g * kNvGroup +
+                    nv_rescan<Pair>(sv, g, __ldg(qq), __ldg(qq + 1), __ldg(qq + 2), val);
+          }
+          if (last) a.ids[chain * a.p + qoff] = ci[t];
+        }
+      }
+      if (!a.resident) __syncthreads();  // the buffer and the merge area are free again
+    }
+  }
+}
+
+// K8: blockDim.x == kDotThreads queries of chain blockIdx.y
 __global__ void coarse_nearest_dot_kernel(const float* __restrict__ q,
                                           const float* __restrict__ va,
                                           int* __restrict__ ids, int p, int v,
@@ -572,6 +835,103 @@ __global__ void __launch_bounds__(kCpWarps * 32)
   }
 }
 
+// K3 host side: the instance for Q queries a lane
+const void* nv_kernel(int q) {
+  switch (q) {
+    case 1: return (const void*)nearest_vertices_kernel<EuclidPair, 1>;
+    case 2: return (const void*)nearest_vertices_kernel<EuclidPair, 2>;
+    case 3: return (const void*)nearest_vertices_kernel<EuclidPair, 3>;
+    case 4: return (const void*)nearest_vertices_kernel<EuclidPair, 4>;
+    case 5: return (const void*)nearest_vertices_kernel<EuclidPair, 5>;
+    case 6: return (const void*)nearest_vertices_kernel<EuclidPair, 6>;
+    case 7: return (const void*)nearest_vertices_kernel<EuclidPair, 7>;
+    case 8: return (const void*)nearest_vertices_kernel<EuclidPair, 8>;
+  }
+  return nullptr;
+}
+
+// the most dynamic shared memory a K3 block takes: two chunk buffers, the
+// slices' minima and the carried bests at the largest Q
+constexpr int kNvMaxSmem =
+    2 * kNvChunk * (int)sizeof(float4) + (kNvWarps + kNvWarps) * 32 * kNvMaxQ * 8;
+
+// per device, read once: the SM count, the shared-memory ceiling raised for
+// every instance, and blocks per SM by (Q, shared bytes)
+std::mutex nv_mu;
+std::map<int, int> nv_sms;                            // device → SMs
+std::map<std::pair<int, long long>, int> nv_occupancy;  // (device, Q·2³² + bytes) → blocks
+
+cudaError_t nv_blocks_per_sm(int q, int smem, int* sms, int* ctas) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(nv_mu);
+  auto it = nv_sms.find(dev);
+  if (it == nv_sms.end()) {
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    for (int k = 1; k <= kNvMaxQ && e == cudaSuccess; ++k)
+      e = cudaFuncSetAttribute(nv_kernel(k), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kNvMaxSmem);
+    if (e != cudaSuccess) return e;
+    it = nv_sms.emplace(dev, n).first;
+  }
+  *sms = it->second;
+  const std::pair<int, long long> key(dev, ((long long)q << 32) + smem);
+  auto oc = nv_occupancy.find(key);
+  if (oc == nv_occupancy.end()) {
+    int n = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, nv_kernel(q), kNvWarps * 32, smem);
+    if (e != cudaSuccess) return e;
+    oc = nv_occupancy.emplace(key, n).first;
+  }
+  *ctas = oc->second;
+  return cudaSuccess;
+}
+
+// K3's launch for B chains of P queries against V vertices, shared or one
+// set per chain: parameters, Q, blocks, dynamic shared bytes, blocks per SM.
+// Shared: Q = kNvSharedQ.  Per chain: the fewest warp units of at most
+// kNvMaxQ·32 queries that cover P, then the least Q for that many units
+// (P = 202: one unit of Q = 7, 224 lanes' worth for 202 queries), and the
+// block's other warps scan vertex slices of the same units.
+cudaError_t nv_configure(int batch, int p, int v, int per_chain, NvParams* a, int* q,
+                         int* grid, int* smem, int* ctas) {
+  NvParams c{};
+  c.batch = batch, c.p = p, c.v = v, c.per_chain = per_chain;
+  long long n_items;
+  if (!per_chain) {
+    *q = kNvSharedQ;
+    c.units = ((long long)batch * p + 32 * *q - 1) / (32 * *q);
+    c.uw = kNvWarps, c.slices = 1, c.items_per_chain = 1;
+    n_items = (c.units + kNvWarps - 1) / kNvWarps;
+  } else {
+    const int u = (p + 32 * kNvMaxQ - 1) / (32 * kNvMaxQ);
+    *q = (p + 32 * u - 1) / (32 * u);
+    c.units = u;
+    if (u >= kNvWarps) {
+      c.uw = kNvWarps, c.slices = 1, c.items_per_chain = (u + kNvWarps - 1) / kNvWarps;
+    } else {
+      c.uw = u, c.slices = kNvWarps / u, c.items_per_chain = 1;
+    }
+    n_items = (long long)batch * c.items_per_chain;
+  }
+  c.n_items = n_items;
+  c.chunk = min(kNvChunk, (v + kNvGroup - 1) / kNvGroup * kNvGroup);
+  c.n_chunks = (v + c.chunk - 1) / c.chunk;
+  c.resident = !per_chain && c.n_chunks == 1;
+  *smem = (c.resident ? 1 : 2) * c.chunk * (int)sizeof(float4) +
+          (c.slices > 1 ? (kNvWarps + c.uw) * 32 * *q * 8 : 0);
+  int sms = 0;
+  cudaError_t e = nv_blocks_per_sm(*q, *smem, &sms, ctas);
+  if (e != cudaSuccess) return e;
+  if (*ctas < 1) return cudaErrorInvalidConfiguration;
+  const long long most = (long long)sms * *ctas;
+  *grid = (int)(n_items < most ? n_items : most);
+  *a = c;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -579,11 +939,28 @@ extern "C" {
 int icp_nearest_vertices(const float* q, const float* pts, int* ids, int batch, int p,
                          int v, int pts_batched, void* stream) {
   if (batch == 0 || p == 0) return cudaSuccess;
-  const dim3 grid((p + kNvThreads - 1) / kNvThreads, batch);
-  const long long stride = pts_batched ? 3LL * v : 0LL;
-  nearest_vertices_kernel<<<grid, kNvThreads, 0, (cudaStream_t)stream>>>(
-      q, pts, ids, p, v, stride);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (v == 0) return cudaMemsetAsync(ids, 0, (size_t)batch * p * sizeof(int), st);
+  NvParams a;
+  int qn = 0, grid = 0, smem = 0, ctas = 0;
+  cudaError_t e = nv_configure(batch, p, v, pts_batched, &a, &qn, &grid, &smem, &ctas);
+  if (e != cudaSuccess) return e;
+  a.q = q, a.pts = pts, a.ids = ids;
+  void* args[] = {&a};
+  e = cudaLaunchKernel(nv_kernel(qn), dim3(grid), dim3(kNvWarps * 32), args, smem, st);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// K3's launch as icp_nearest_vertices makes it: out = (Q, threads per
+// block, blocks, dynamic shared bytes per block, blocks per SM)
+int icp_nearest_vertices_config(int batch, int p, int v, int pts_batched, int* out) {
+  NvParams a;
+  if (batch <= 0 || p <= 0 || v <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = nv_configure(batch, p, v, pts_batched, &a, &out[0], &out[2], &out[3],
+                               &out[4]);
+  out[1] = kNvWarps * 32;
+  return e;
 }
 
 int icp_refine_shortlist(const float* q, const int* coarse, const int* cand,
@@ -630,9 +1007,9 @@ int icp_surface_distances(const float* q, const float* pts, const int* cells, fl
 int icp_coarse_nearest_dot(const float* q, const float* va, int* ids, int batch, int p,
                            int v, void* stream) {
   if (batch == 0 || p == 0 || v == 0) return cudaSuccess;
-  const dim3 grid((p + kNvThreads - 1) / kNvThreads, batch);
+  const dim3 grid((p + kDotThreads - 1) / kDotThreads, batch);
   const int chunk = v < kDotChunk ? v : kDotChunk;
-  coarse_nearest_dot_kernel<<<grid, kNvThreads, chunk * sizeof(float4),
+  coarse_nearest_dot_kernel<<<grid, kDotThreads, chunk * sizeof(float4),
                               (cudaStream_t)stream>>>(q, va, ids, p, v, chunk);
   return cudaGetLastError();
 }

@@ -9,7 +9,9 @@ layout answers that.  Chains are the leading dimension of every argument.
 Dispatch: a tensor on the CPU takes the plain PyTorch twin; a tensor on a
 CUDA device launches a kernel or raises.  On the card ``chol_solve`` and
 ``tri_solve_lt`` route by the reference's own rule (``uses_blocked``): the
-monolithic K1/K2 up to rank 104, the blocked K6/K7 from rank 105 on.
+monolithic K1/K2 up to rank 104, the blocked K6/K7 from rank 105 on.  K1
+and K6 launch one tiled kernel, K2 and K7 one row-streaming kernel; the
+routing keeps each entry point's launch count.
 ``<wrapper>.launches`` counts that wrapper's kernel launches (the plain
 twin does not count).
 """
@@ -164,16 +166,19 @@ def tri_solve_lt(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     ``uses_blocked`` picks go to K7.
 
     Kernel K2 (``csrc/chol.cu``) replaces ``_tri_lt_kernel`` in
-    ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by the latency of r
-    dependent row reads; one warp per chain walks the rows of L with
-    coalesced loads and no block barrier."""
+    ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by the r dependent
+    steps (at 2,048 chains also by the bytes of L's lower triangle).  It
+    launches K7's row-streaming kernel (see ``tri_solve_lt_blocked``) with
+    4 residual entries a lane, so a step waits on one division, one shuffle
+    and one multiply-subtract, never on a row of L; the entry point and its
+    launch count stay K2's."""
     bsz, r, dev = _tri_args(chol, z)
     if dev.type == "cpu":
         return tri_solve_lt_plain(chol, z)
     if uses_blocked(r):
         return tri_solve_lt_blocked(chol, z)
     x = torch.empty_like(z)
-    launch("icp_tri_solve_lt", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
+    launch("icp_tri_solve_lt_rows", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
            bsz, r)
     tri_solve_lt.launches += 1
     return x
@@ -199,7 +204,7 @@ def tri_solve_lt_blocked(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     if r > 512:  # 16 residual entries per lane at most
         raise ValueError(f"tri_solve_lt_blocked takes r ≤ 512, got r={r}")
     x = torch.empty_like(z)
-    launch("icp_tri_solve_lt_blocked", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
+    launch("icp_tri_solve_lt_rows", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
            bsz, r)
     tri_solve_lt_blocked.launches += 1
     return x

@@ -89,16 +89,32 @@ def closest_point_on_triangle(p, a, b, c):
     return point, _dot(diff, diff)
 
 
+def _argmin_finite(d2):
+    """argmin over the last axis, first minimum on ties, a NaN never winning:
+    a row with no finite value (a NaN query, an all-NaN vertex set) gets 0,
+    as K3 and K8 give it; int32."""
+    d2 = d2.masked_fill_(torch.isnan(d2), float("inf"))
+    return torch.argmin(d2, dim=-1).to(torch.int32)
+
+
 def nearest_vertices(queries, points):
     """Nearest-vertex ids: queries [B, P, 3] vs points [V, 3] (shared) or
-    [B, V, 3] (one set per chain) → ids [B, P] int32, ties to the lowest id.
-    d² = dx·dx + dy·dy + dz·dz, rounded term by term as K3 does."""
-    pts = points if points.dim() == 3 else points[None]
-    dx = queries[..., :, None, 0] - pts[..., None, :, 0]
-    dy = queries[..., :, None, 1] - pts[..., None, :, 1]
-    dz = queries[..., :, None, 2] - pts[..., None, :, 2]
-    d2 = dx * dx + dy * dy + dz * dz  # [B, P, V]
-    return torch.argmin(d2, dim=-1).to(torch.int32)  # first minimum on ties
+    [B, V, 3] (one set per chain) → ids [B, P] int32, ties to the lowest id,
+    a NaN d² never winning (no finite d² → id 0).  d² = dx·dx + dy·dy +
+    dz·dz, rounded term by term as K3 does.  Works through the chains in
+    blocks of at most ``_DENSE_CHUNK`` (chain, query, vertex) triples."""
+    bsz, p = queries.shape[0], queries.shape[1]
+    batched = points.dim() == 3
+    step = max(1, _DENSE_CHUNK // max(1, p * points.shape[-2]))
+    ids = [torch.empty((0, p), dtype=torch.int32, device=queries.device)]
+    for lo in range(0, bsz, step):
+        pts = points[lo:lo + step] if batched else points[None]
+        q = queries[lo:lo + step]
+        dx = q[..., :, None, 0] - pts[..., None, :, 0]
+        dy = q[..., :, None, 1] - pts[..., None, :, 1]
+        dz = q[..., :, None, 2] - pts[..., None, :, 2]
+        ids.append(_argmin_finite(dx * dx + dy * dy + dz * dz))  # [n, P, V]
+    return torch.cat(ids)
 
 
 def coarse_nearest_dot(queries, points_aug):
@@ -106,8 +122,9 @@ def coarse_nearest_dot(queries, points_aug):
     against one shared table points_aug [V, 4] of rows (−2x, −2y, −2z, ‖v‖²)
     (``surface_index.pack_points_aug``) → ids [B, P] int32, the argmin over
     v of ((qx·ax + qy·ay) + qz·az) + ‖v‖², each product and sum rounded on
-    its own as K8 does; ties to the lowest id.  Works through the chains in
-    blocks of at most ``_DENSE_CHUNK`` (chain, query, vertex) triples."""
+    its own as K8 does; ties to the lowest id, a NaN s never winning (no
+    finite s → id 0).  Works through the chains in blocks of at most
+    ``_DENSE_CHUNK`` (chain, query, vertex) triples."""
     bsz, p = queries.shape[0], queries.shape[1]
     ax, ay, az, n2 = points_aug.unbind(-1)  # [V] each
     step = max(1, _DENSE_CHUNK // max(1, p * points_aug.shape[0]))
@@ -116,8 +133,7 @@ def coarse_nearest_dot(queries, points_aug):
         q = queries[lo:lo + step, :, None, :]  # [n, P, 1, 3]
         s = q[..., 0] * ax + q[..., 1] * ay
         s = s + q[..., 2] * az
-        s = s + n2  # [n, P, V]
-        ids.append(torch.argmin(s, dim=-1).to(torch.int32))  # first minimum
+        ids.append(_argmin_finite(s + n2))  # [n, P, V]
     return torch.cat(ids)
 
 

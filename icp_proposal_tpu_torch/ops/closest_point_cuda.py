@@ -15,9 +15,11 @@ so ids agree exactly, ties included.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from icp_proposal_tpu_torch._build import check_tensor, kernel_device, launch
+from icp_proposal_tpu_torch._build import check_tensor, kernel_device, launch, load_library
 from icp_proposal_tpu_torch.ops import closest_point
 
 _NO_ID = 2 ** 30
@@ -28,15 +30,22 @@ coarse_nearest_dot_plain = closest_point.coarse_nearest_dot
 
 
 def nearest_vertices(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """argminᵥ ‖q − v‖² per query, ties to the lowest id: queries [B, P, 3],
-    points [V, 3] (shared by all chains) or [B, V, 3] (one set per chain),
-    float32 contiguous → ids [B, P] int32.
+    """argminᵥ ‖q − v‖² per query, ties to the lowest id, a NaN d² never
+    winning (no finite d² → id 0): queries [B, P, 3], points [V, 3] (shared
+    by all chains) or [B, V, 3] (one set per chain), float32 contiguous →
+    ids [B, P] int32.
 
     Kernel K3 (``csrc/closest_point.cu``) replaces ``_make_nv_kernel`` in
-    ``icp_proposal_tpu/ops/closest_point_pallas.py``.  Bound by FP32 issue
-    rate (~9 operations per query-vertex pair); one thread per query scans
-    the vertex set from shared memory, where all threads read one vertex at
-    a time (a broadcast)."""
+    ``icp_proposal_tpu/ops/closest_point_pallas.py``.  Bound by instruction
+    issue: 8 FP32 operations a (query, vertex) pair that may not fuse into
+    FMAs (the ids must round as the twin's do).  A lane holds Q queries in
+    registers, so one 16-byte shared-memory broadcast of a staged vertex
+    feeds Q pairs, and each pair adds one ``fminf`` to its group's running
+    minimum; only the group that holds a query's best is rescanned for the
+    lowest id.  A shared vertex set is staged once per block, whose warps
+    walk the flat list of B·P queries; a per-chain set is staged by
+    ``cp.async`` while the block scans the one before, and the block's warps
+    split it into slices merged by the least (d², id)."""
     check_tensor(queries, "queries", torch.float32, (None, None, 3))
     bsz, p = queries.shape[0], queries.shape[1]
     batched = points.dim() == 3
@@ -45,14 +54,24 @@ def nearest_vertices(queries: torch.Tensor, points: torch.Tensor) -> torch.Tenso
     dev = kernel_device(queries, points)
     if dev.type == "cpu":
         return nearest_vertices_plain(queries, points)
-    if bsz > 65535:
-        raise ValueError(f"nearest_vertices takes at most 65,535 chains, got {bsz}")
     ids = torch.empty((bsz, p), dtype=torch.int32, device=dev)
     launch("icp_nearest_vertices", dev, queries.data_ptr(), points.data_ptr(),
            ids.data_ptr(), bsz, p, points.shape[-2], int(batched))
     nearest_vertices.launches += 1
     nearest_vertices.per_chain_launches += int(batched)
     return ids
+
+
+def nearest_vertices_config(bsz: int, p: int, v: int, per_chain: bool) -> dict:
+    """K3's launch on the current card for ``bsz`` chains of ``p`` queries
+    against ``v`` vertices (shared or one set per chain), as
+    ``nearest_vertices`` makes it: queries a lane holds, threads per block,
+    blocks, dynamic shared bytes per block and blocks per SM."""
+    out = (ctypes.c_int * 5)()
+    err = load_library().icp_nearest_vertices_config(bsz, p, v, int(per_chain), out)
+    if err != 0:
+        raise RuntimeError(f"no K3 launch for B={bsz}, P={p}, V={v}: CUDA error {err}")
+    return dict(zip(("q", "threads", "blocks", "smem_bytes", "ctas_per_sm"), out))
 
 
 nearest_vertices.launches = 0
@@ -137,10 +156,10 @@ def surface_distances(queries: torch.Tensor, points: torch.Tensor,
     Unlike ``pack_triangles``, it takes vertices and cells, not a triangle
     soup.  Bound by FP32 issue rate on the (query, face) pairs it evaluates
     (~82 operations a pair), so it evaluates few: each warp of 32 queries
-    visits the 128-face tiles nearest first by their bounding boxes
-    (``tile_bounds``) and skips a tile when no query can reach its running
-    best plus a stated rounding margin, so the result is bitwise the dense
-    scan's.  ``cull=False`` is that dense scan (every tile in ascending
+    visits the tiles of ``TILE_FACES`` consecutive faces nearest first by
+    the bounding boxes its own pre-pass (``tile_boxes_kernel``) computes,
+    and skips a tile when no query can reach its running best plus a stated
+    rounding margin, so the result is bitwise the dense scan's.  ``cull=False`` is that dense scan (every tile in ascending
     order), kept only as what the checks compare the culled kernel with.
     ``visits``, an int64 CUDA tensor of 2 that the call adds to, counts
     (active queries × tiles visited, × faces visited); None on the main

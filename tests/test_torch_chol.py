@@ -55,7 +55,12 @@ def test_chol_solve_plain_matches_pallas(r):
         assert np.isnan(np.tril(lb[bad])[pivot:, pivot:].diagonal()).all()
 
 
-@pytest.mark.parametrize("r", [8, 101])
+# K2's ranks: around the 32-row blocks of the row kernel and up to the
+# monolithic limit (``uses_blocked`` sends r ≥ 105 to K7)
+TRI_RANKS = [8, 31, 32, 33, 101, 104]
+
+
+@pytest.mark.parametrize("r", TRI_RANKS)
 def test_tri_solve_lt_plain_matches_pallas(r):
     import jax.numpy as jnp
     from icp_proposal_tpu.ops.chol_pallas import _tri_lt_call
@@ -120,3 +125,29 @@ def test_cuda_chol_kernels_match_plain(cuda):
     xt = chol_cuda.tri_solve_lt(l[good].contiguous(), zg[good].contiguous())
     xt_p = chol_cuda.tri_solve_lt_plain(l[good].contiguous(), zg[good].contiguous())
     torch.testing.assert_close(xt, xt_p, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", TRI_RANKS)
+def test_cuda_tri_solve_lt_row_kernel(cuda, r):
+    """K2 launches the row-streaming kernel at every monolithic rank (its own
+    counter moves, K7's does not) and agrees with the twin; a NaN pivot at
+    j = r // 2 in chain 3 makes x NaN exactly where the twin's is (entries
+    j and below), the rest finite.  37 chains: the last block holds one."""
+    rng = np.random.RandomState(100 + r)
+    b, bad, j = 37, 3, r // 2
+    chol = np.linalg.cholesky(_spd_batch(rng, b, r).astype(np.float64)).astype(np.float32)
+    chol[bad, j, j] = np.nan
+    z = rng.randn(b, r).astype(np.float32)
+    lg, zg = torch.as_tensor(chol, device=cuda), torch.as_tensor(z, device=cuda)
+    n2, n7 = chol_cuda.tri_solve_lt.launches, chol_cuda.tri_solve_lt_blocked.launches
+    x = chol_cuda.tri_solve_lt(lg, zg)
+    torch.cuda.synchronize()
+    assert (chol_cuda.tri_solve_lt.launches, chol_cuda.tri_solve_lt_blocked.launches) == (
+        n2 + 1, n7)
+    x_p = chol_cuda.tri_solve_lt_plain(lg, zg)
+    assert torch.equal(torch.isnan(x), torch.isnan(x_p))
+    assert torch.isnan(x[bad, :j + 1]).all() and torch.isfinite(x[bad, j + 1:]).all()
+    good = torch.arange(b, device=cuda) != bad
+    assert torch.isfinite(x[good]).all()
+    torch.testing.assert_close(x[good], x_p[good], **TOL)

@@ -59,6 +59,26 @@ def _tie_fixture():
                 tie_rq=rq, tie_coarse=coarse)
 
 
+def _nan_fixture():
+    """40 vertices and 2 × 5 queries from numpy seed 0; vertex 7 is NaN in
+    the shared set, query (1, 3) is NaN, and in the per-chain sets chain 0
+    has the NaN vertex 7 and chain 1 is NaN throughout."""
+    rng = np.random.RandomState(0)
+    pts = rng.randn(40, 3).astype(np.float32)
+    q = rng.randn(2, 5, 3).astype(np.float32)
+    pts[7] = np.nan
+    q[1, 3] = np.nan
+    pts_b = np.stack([pts, np.full_like(pts, np.nan)])
+    return dict(nan_pts=pts, nan_q=q, nan_pts_b=pts_b)
+
+
+def _nearest_finite(q, pts):
+    """float64 argmin over the finite vertices, 0 where none is finite."""
+    d2 = ((q[..., :, None, :].astype(np.float64) - pts[..., None, :, :]) ** 2).sum(-1)
+    d2 = np.where(np.isnan(d2), np.inf, d2)
+    return np.argmin(d2, axis=-1)
+
+
 def _jax_references(out_path):
     """The child: inputs from a fixed numpy seed, references from the JAX
     package's interpret-mode kernels; everything goes to one .npz."""
@@ -116,6 +136,11 @@ def _jax_references(out_path):
     cp, d2, fidx = jax.vmap(lambda q: index_closest(ctx.index, q))(
         jnp.asarray(out["fem_q"]))
     out["ic_cp"], out["ic_d2"], out["ic_fidx"] = map(np.asarray, (cp, d2, fidx))
+    # the NaN rule: one NaN vertex, one NaN query, an all-NaN per-chain set
+    nan = _nan_fixture()
+    out.update(nan)
+    out["nan_nv"] = nv(nan["nan_q"], nan["nan_pts"])
+    out["nan_nv_b"] = nv(nan["nan_q"], nan["nan_pts_b"])
     # tie rules
     tie = _tie_fixture()
     out.update(tie)
@@ -209,6 +234,123 @@ def test_port_index_build_matches_reference_context(ref):
     np.testing.assert_array_equal(ctx.index.cand_tri.numpy(), ref["ctx_cand_tri"])
 
 
+def test_nearest_vertices_nan_rule(ref):
+    """K3's NaN rule in the twin: a NaN d² never wins and a query with no
+    finite d² gets id 0; K8's twin follows the same rule.  The JAX kernel
+    returns 2³⁰ for every query of these sets (``jnp.min`` propagates the
+    NaN and no lane equals it); the port keeps ids in range on purpose, as
+    its gathers would fault on 2³⁰."""
+    from icp_proposal_tpu_torch.ops import surface_index
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import (
+        coarse_nearest_dot,
+        nearest_vertices,
+    )
+
+    q, pts, pts_b = ref["nan_q"], ref["nan_pts"], ref["nan_pts_b"]
+    want = _nearest_finite(q, pts)
+    want[1, 3] = 0  # the NaN query
+    assert 7 not in want
+    ids = nearest_vertices(_t(q), _t(pts)).numpy()
+    np.testing.assert_array_equal(ids, want)
+    ids_b = nearest_vertices(_t(q), _t(pts_b)).numpy()
+    np.testing.assert_array_equal(ids_b[0], want[0])  # chain 0: the NaN vertex 7
+    np.testing.assert_array_equal(ids_b[1], 0)  # chain 1: nothing finite
+    ids8 = coarse_nearest_dot(_t(q), surface_index.pack_points_aug(_t(pts))).numpy()
+    assert 7 not in ids8 and ids8[1, 3] == 0
+    np.testing.assert_array_equal(ref["nan_nv"], 2 ** 30)
+    np.testing.assert_array_equal(ref["nan_nv_b"], 2 ** 30)
+
+
+NV_GROUP = 32  # vertices per running-minimum group (kNvGroup in csrc/closest_point.cu)
+
+
+def _replay_nv(queries, points, chunk, slices):
+    """K3's reduction, replayed in float32: per staged chunk of ``chunk``
+    vertices (padded to whole groups with +inf rows), ``slices`` slices of
+    its groups; in each slice a running ``fmin`` of the pair values per
+    group and a strict < to record the slice's least group minimum and its
+    group; the slices merge by the least value (a lower slice keeps a tie);
+    when that is strictly below the best carried from earlier chunks, the
+    winning group is rescanned for the lowest id at that value.
+    queries [N, 3], points [V, 3] → ids [N] int64."""
+    n, v = queries.shape[0], points.shape[0]
+    best = torch.full((n,), float("inf"))
+    bid = torch.zeros(n, dtype=torch.int64)
+    for lo in range(0, v, chunk):
+        rows = points[lo:lo + chunk]
+        n_groups = -(-rows.shape[0] // NV_GROUP)
+        pad = torch.full((n_groups * NV_GROUP - rows.shape[0], 3), float("inf"))
+        rows = torch.cat([rows, pad])
+        diff = queries[:, None, :] - rows[None]  # [N, R, 3]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        d2 = (d2 + diff[..., 2] * diff[..., 2]).reshape(n, n_groups, NV_GROUP)
+        val = torch.full((n,), float("inf"))
+        grp = torch.full((n,), -1, dtype=torch.int64)
+        for sl in range(slices):
+            s_val = torch.full((n,), float("inf"))
+            s_grp = torch.full((n,), -1, dtype=torch.int64)
+            for g in range(sl * n_groups // slices, (sl + 1) * n_groups // slices):
+                m = torch.full((n,), float("inf"))
+                for u in range(NV_GROUP):
+                    m = torch.fmin(m, d2[:, g, u])
+                better = m < s_val
+                s_val = torch.where(better, m, s_val)
+                s_grp = torch.where(better, g, s_grp)
+            better = s_val < val
+            val = torch.where(better, s_val, val)
+            grp = torch.where(better, s_grp, grp)
+        for i in torch.nonzero(val < best)[:, 0].tolist():
+            hits = torch.nonzero(d2[i, grp[i]] == val[i])[:, 0]
+            best[i] = val[i]
+            bid[i] = lo + grp[i] * NV_GROUP + int(hits[0])
+    return bid
+
+
+def _adversarial_nv(v):
+    """Vertices on a coarse integer lattice, with exact float32 distances:
+    duplicates of a vertex at the first and last ids, across a group edge
+    (31, 32) and far apart, points equidistant from the queries in different
+    groups, slices and chunks, and a NaN vertex; queries at lattice points
+    (exact ties) and one NaN query."""
+    rng = np.random.RandomState(3)
+    pts = rng.randint(-4, 5, (v, 3)).astype(np.float32)
+    pts[v - 1] = pts[0]
+    pts[32] = pts[31]
+    pts[v // 2] = pts[5]
+    pts[v // 3] = -pts[5]
+    pts[11] = np.nan
+    q = rng.randint(-4, 5, (60, 3)).astype(np.float32)
+    q[:4] = [pts[0], pts[31], pts[5], [0, 0, 0]]
+    q[7] = np.nan
+    return torch.as_tensor(q), torch.as_tensor(pts)
+
+
+@pytest.mark.parametrize("v,chunk,slices", [(101, 64, 1), (101, 64, 3), (1622, 2048, 8),
+                                            (333, 96, 2), (40, 2048, 8), (5, 2048, 8)])
+def test_nearest_vertices_reduction_replay(v, chunk, slices):
+    """The kernel's group minimum, slice merge, rescan and chunk carry give
+    ``torch.argmin``'s first minimum over the finite values, ties and NaN
+    included, at vertex counts that are not multiples of the group, the
+    chunk or the slices."""
+    from icp_proposal_tpu_torch.ops.closest_point import nearest_vertices
+
+    q, pts = _adversarial_nv(v) if v > 32 else (
+        torch.as_tensor(np.random.RandomState(v).randn(9, 3).astype(np.float32)),
+        torch.as_tensor(np.random.RandomState(v + 1).randn(v, 3).astype(np.float32)))
+    got = _replay_nv(q, pts, chunk, slices)
+    want = nearest_vertices(q[None], pts)[0].long()
+    assert torch.equal(got, want)
+    if v > 32:
+        assert int(got[0]) == 0 and int(got[1]) == 31 and int(got[2]) == 5
+        assert int(got[7]) == 0 and 11 not in got.tolist()
+
+
+def test_nearest_vertices_group_matches_kernel():
+    """The replay's group size is the kernel's."""
+    src = (REPO / "icp_proposal_tpu_torch" / "csrc" / "closest_point.cu").read_text()
+    assert f"constexpr int kNvGroup = {NV_GROUP};" in src
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -249,3 +391,74 @@ def test_cuda_closest_point_kernels_match_plain(cuda):
 
 if __name__ == "__main__":
     _jax_references(sys.argv[1])
+
+
+def _nv_case(rng, b, p, v, batched, scale=10.0):
+    q = (rng.randn(b, p, 3) * scale).astype(np.float32)
+    shape = (b, v, 3) if batched else (v, 3)
+    return q, (rng.randn(*shape) * scale).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_chain"])
+@pytest.mark.parametrize("b,p,v", [(1, 1, 1), (1, 203, 5000), (3, 1001, 5000),
+                                   (5, 202, 1622), (2, 37, 2048), (2, 2100, 300),
+                                   (7, 404, 2049)])
+def test_cuda_nearest_vertices_shapes(cuda, batched, b, p, v):
+    """K3 in both modes against the twin, bitwise: more vertices than one
+    staged chunk (2,048), P not a multiple of the queries a lane holds or
+    of the block, one chain, more query units than warps (P = 2,100)."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    q, pts = (torch.as_tensor(a, device=cuda)
+              for a in _nv_case(np.random.RandomState(p + v), b, p, v, batched))
+    ids = cc.nearest_vertices(q, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, cc.nearest_vertices_plain(q, pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_chain"])
+@pytest.mark.parametrize("v", [101, 1622, 5000])
+def test_cuda_nearest_vertices_ties_and_nan(cuda, batched, v):
+    """The adversarial lattice of the replay (duplicates at the first and
+    last id and across a group edge, equidistant vertices, a NaN vertex, a
+    NaN query), per chain with one all-NaN set; and the tie fixture."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    q, pts = _adversarial_nv(v)
+    q = q[None].expand(3, -1, -1).contiguous().to(cuda)
+    pts = pts.to(cuda)
+    if batched:
+        pts = torch.stack([pts, pts.flip(0), torch.full_like(pts, float("nan"))])
+    ids = cc.nearest_vertices(q, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, cc.nearest_vertices_plain(q, pts))
+    assert int(ids[0, 0]) == 0 and int(ids[0, 1]) == 31 and int(ids[0, 7]) == 0
+    if batched:
+        assert torch.equal(ids[2], torch.zeros_like(ids[2]))
+    tie = _tie_fixture()
+    ids = cc.nearest_vertices(torch.as_tensor(tie["tie_vq"], device=cuda),
+                              torch.as_tensor(tie["tie_verts"], device=cuda))
+    assert ids.tolist() == [[0, 1, 0, 3, 5]]
+
+
+@pytest.mark.cuda
+def test_cuda_nearest_vertices_config(cuda):
+    """The launch at the femur step's shapes: a shared set in Q = 4 units
+    over the flat query list, staged once (one buffer); per chain one unit
+    of Q = 7 for P = 202, two buffers and the slice-merge area; blocks no
+    more than the SMs hold."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shared = cc.nearest_vertices_config(2048, 404, 1622, False)
+    per_chain = cc.nearest_vertices_config(2048, 202, 1622, True)
+    assert shared["q"] == 4 and per_chain["q"] == 7
+    assert shared["smem_bytes"] == 1632 * 16
+    # two chunk buffers; the slices' minima and groups ([8 warps][224]) and
+    # the carried best and id of the unit ([224])
+    assert per_chain["smem_bytes"] == 2 * 1632 * 16 + (8 + 1) * 224 * 8
+    for cfg in (shared, per_chain):
+        assert cfg["threads"] == 256 and cfg["ctas_per_sm"] >= 1
+        assert cfg["blocks"] <= sms * cfg["ctas_per_sm"]
