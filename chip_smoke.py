@@ -10,12 +10,14 @@ Phases (each prints one line or a short block, and ends in
                  build/, one compiler per source, all started together;
 3. kernels       K1–K4 and K8 against their plain PyTorch twins on the card
                  at the femur path's per-chain shapes on 256 and on 2,048
-                 chains, with times; K1 timed in turns against
+                 chains, with times (K3, K4 and K8 ids and K4's winner
+                 corners bitwise); K1 timed in turns against
                  torch.linalg.cholesky_ex (the factor only); its tile size,
-                 shared memory per chain and CTAs per SM; K3's launch in
-                 both modes (queries a lane, threads, blocks, shared memory,
-                 CTAs per SM); K8's anchors against K3's under a rounding
-                 bound;
+                 shared memory per chain and CTAs per SM; the launches of K3
+                 in both modes and of K8 (queries a lane, threads, blocks,
+                 shared memory, CTAs per SM) and of K4 (lanes a query,
+                 blocks, registers, CTAs per SM, face table); K8's anchors
+                 against K3's under a rounding bound;
 4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
                  MH step at 2,048 chains through the kernels: warm-up, then
                  timed steps, with each kernel's launch count;
@@ -270,19 +272,35 @@ def _anchor_gaps(torch, q, points, ids, ids_exact, chunk=16):
     return int((ids != ids_exact).sum()), gap_max, ratio_max
 
 
-def _print_nv_config(torch, tag, b, p, v, per_chain):
-    """Print K3's launch at these shapes: queries a lane holds, threads per
-    block, blocks, dynamic shared memory per block and CTAs per SM (from
-    CUDA's occupancy calculator)."""
+def _print_nv_config(torch, tag, b, p, v, per_chain, dot=False):
+    """Print K3's launch (with ``dot`` K8's, on K3's scan) at these shapes:
+    queries a lane holds, threads per block, blocks, dynamic shared memory
+    per block and CTAs per SM (from CUDA's occupancy calculator)."""
     from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
 
-    cfg = cp.nearest_vertices_config(b, p, v, per_chain)
+    cfg = cp.nearest_vertices_config(b, p, v, per_chain, dot=dot)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mode = "per_chain" if per_chain else "shared"
-    print(f"[{tag}] nearest_vertices[{mode}] launch at B={b}, P={p}, V={v}: Q={cfg['q']} "
+    mode = "coarse_nearest_dot" if dot else (
+        f"nearest_vertices[{'per_chain' if per_chain else 'shared'}]")
+    print(f"[{tag}] {mode} launch at B={b}, P={p}, V={v}: Q={cfg['q']} "
           f"queries a lane, {cfg['threads']} threads per block, {cfg['blocks']} blocks, "
           f"{cfg['smem_bytes']} B of dynamic shared memory per block, "
           f"{cfg['ctas_per_sm']} CTAs per SM on {sms} SMs")
+
+
+def _print_refine_config(torch, tag, n, index):
+    """Print K4's launch for ``n`` queries: lanes a query, threads per block,
+    blocks, registers a thread and CTAs per SM (CUDA's occupancy
+    calculator), and the face table it reads."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
+
+    cfg = cp.refine_shortlist_config(n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[{tag}] refine_shortlist launch for {n} queries: {cfg['lanes']} lanes a query, "
+          f"{cfg['threads']} threads per block, {cfg['blocks']} blocks, {cfg['registers']} "
+          f"registers a thread, no shared memory, {cfg['ctas_per_sm']} CTAs per SM on "
+          f"{sms} SMs; face table [{index.faces.shape[0]}, {index.faces.shape[1]}] "
+          f"({index.faces.numel() * 4} B), K={index.k}")
 
 
 def _closest_records(torch, dev, rng, b, data, ctx, ctx_dot):
@@ -316,17 +334,20 @@ def _closest_records(torch, dev, rng, b, data, ctx, ctx_dot):
         del ids_p
     nv = cp.nearest_vertices(q, ctx.index.points)
 
-    # K4: the K = 64 shortlist of each query's coarse vertex
+    # K4: the K = 64 shortlist of each query's coarse vertex, corners read
+    # from the index's face table
     idx = ctx.index
-    f, w = cp.refine_shortlist(q, nv, idx.cand, idx.cand_tri)
-    f_p, w_p = cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri)
+    f, w = cp.refine_shortlist(q, nv, idx.cand, idx.faces)
+    f_p, w_p = cp.refine_shortlist_plain(q, nv, idx.cand, idx.faces)
     _sync(torch)
     err, mism = _id_errors(f, f_p)
+    if not torch.equal(w.view(torch.int32), w_p.view(torch.int32)):
+        raise AssertionError("K4: the winner's corners differ from the twin's bitwise")
     records["refine_shortlist"] = _record(
         torch, max(err, float((w - w_p).abs().max())), mism,
-        lambda: cp.refine_shortlist(q, nv, idx.cand, idx.cand_tri),
-        lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.cand_tri),
-        _nbytes(q, nv, idx.cand, idx.cand_tri, f, w),
+        lambda: cp.refine_shortlist(q, nv, idx.cand, idx.faces),
+        lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.faces),
+        _nbytes(q, nv, idx.cand, idx.faces, f, w),
         PAIR_FLOPS * q.shape[0] * q.shape[1] * idx.k, plain_reps=plain_reps)
     del f_p, w_p
 
@@ -371,6 +392,9 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
     for chains in (CMP_CHAINS, N_CHAINS):
         _print_nv_config(torch, "kernels", chains, 4 * r, ctx.index.points.shape[0], False)
         _print_nv_config(torch, "kernels", chains, 2 * r, v, True)
+        _print_nv_config(torch, "kernels", chains, 4 * r, ctx.index.points.shape[0], False,
+                         dot=True)
+        _print_refine_config(torch, "kernels", chains * 4 * r, ctx.index)
     for name, rec in big.items():
         records[name]["at_2048_chains"] = rec
     return records

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "icp_chol_solve": [_P, _P, _P, _P, _P, _I, _I, _P],
     "icp_tri_solve_lt_rows": [_P, _P, _P, _I, _I, _P],
     "icp_nearest_vertices": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "icp_refine_shortlist": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "icp_refine_shortlist": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "icp_surface_distances": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -51,8 +51,10 @@ _SIGNATURES = {
     # (r, warps): no stream, not a launch
     "icp_chol_tiled_smem_bytes": [_I, _I],
     "icp_chol_tiled_ctas_per_sm": [_I, _I],
-    # (batch, p, v, per_chain, int[5] out): no stream, not a launch
-    "icp_nearest_vertices_config": [_I, _I, _I, _I, _P],
+    # (batch, p, v, per_chain, dot, int[5] out): no stream, not a launch
+    "icp_nearest_vertices_config": [_I, _I, _I, _I, _I, _P],
+    # (n_queries, int[5] out): no stream, not a launch
+    "icp_refine_shortlist_config": [_I, _P],
 }
 
 
@@ -74,18 +76,20 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path(build_dir: Path = BUILD_DIR) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(build_dir: Path = BUILD_DIR, extra_flags: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return Path(build_dir) / f"libicp_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build_library(build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
-    """Compile the kernels unless this source hash is already built.
+def build_library(build_dir: Path = BUILD_DIR, extra_flags: tuple = ()) -> tuple[Path, str]:
+    """Compile the kernels unless this source hash is already built;
+    ``extra_flags`` (such as ``-D`` overrides of launch choices) go to every
+    compile after ``NVCC_FLAGS``.
     → (library path, compiler output; empty when nothing was compiled)."""
-    out = library_path(build_dir)
+    out = library_path(build_dir, extra_flags)
     if out.exists():
         return out, ""
     nvcc = find_nvcc()
@@ -99,7 +103,7 @@ def build_library(build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
         objs, procs = [], []
         for src in _sources():
             obj = os.path.join(work, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, str(src)]
             objs.append(obj)
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
@@ -121,7 +125,11 @@ def build_library(build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    path, _ = build_library()
+    return bind_library(build_library()[0])
+
+
+def bind_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -48,11 +48,11 @@ def gpmm_from_arrays(ref_points, cells, mean_disp, basis, variance, noise_varian
     )
 
 
-def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
+def context_from_arrays(points, cells, tri, boundary, cand=None,
                         coarse: str = "exact", device=DEFAULT_DEVICE) -> TargetContext:
-    """A ``TargetContext``; with ``cand``/``cand_tri`` it carries the
-    shortlist index over the same points and triangles, whose coarse pass
-    is ``coarse`` ("exact": K3, "dot": K8)."""
+    """A ``TargetContext``; with ``cand`` it carries the shortlist index over
+    the same points and triangles, whose coarse pass is ``coarse`` ("exact":
+    K3, "dot": K8)."""
     device = resolve_device(device)
     points_t = _f32(points, device)
     tri_t = _f32(tri, device)
@@ -61,7 +61,6 @@ def context_from_arrays(points, cells, tri, boundary, cand=None, cand_tri=None,
         index = SurfaceIndex(
             points=points_t, tri=tri_t,
             cand=torch.as_tensor(np.asarray(cand, np.int32), device=device),
-            cand_tri=_f32(cand_tri, device),
             points_aug=pack_points_aug(points_t), coarse=coarse,
         )
     return TargetContext(

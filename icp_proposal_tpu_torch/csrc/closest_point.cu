@@ -43,23 +43,48 @@
 //   * Blocks: as many as the SMs hold at once (occupancy calculator), at most
 //     one per item.  No tensor cores: TF32 or bf16 products change the ids
 //     (closest_point_pallas.py:449-457).
-//   The pair is a policy (EuclidPair), so K8's dot form can later run on
-//   the same scan with its own pair, pad row and [V, 4] staging.
+//   The pair is a policy: EuclidPair here, DotPair for K8 below, each with
+//   its own pad row and staging.
 //
 // K4 icp_refine_shortlist replaces _make_refine_kernel / _refine_call in the
 // same file (reached through refine_shortlist_pallas): the exact Ericson
 // point→triangle cascade (_tile_dist2, closest_point_pallas.py:58-119, same
 // operation order, _safe_div included) over the K candidate faces of each
 // query's coarse vertex; the winner is the least d², then the smallest face
-// id, then the lowest candidate slot.
-//   What bounds it: the candidate gather.  The TPU path pregathers the
-//   [B, P, 9K] candidate corners (surface_index.py:202-203), 1.9 GB written
-//   and read back per step at 2,048 chains; the static tables here are
-//   3.7 MB and stay in L2.
-//   Design: the kernel takes the coarse ids and the static cand [V, K] and
-//   cand_tri [V, 9K] tables and reads the rows itself: one warp per query,
-//   lane l takes slots l, l+32, ... with coalesced component-major loads,
-//   then a warp-shuffle lexicographic min on (d², face id, slot).
+// id, then the lowest candidate slot, and a NaN d² in any slot makes slot 0
+// the winner (jnp.min in the reference propagates the NaN, so no slot ties
+// with it and every tied face id is 2³⁰).
+//   What bounds it: the cascade's instruction issue, once the rows are near.
+//   The TPU path pregathers the [B, P, 9K] candidate corners
+//   (surface_index.py:202-203).  Read per shortlist slot from a [V, 9K]
+//   table, a query pulls 2,560 B through L2 (2.1 GB a call at 2,048 × 404
+//   queries), though those are the same ~1,600 rows read ~500 times each:
+//   the table holds each face's corners K times over.  The faces themselves
+//   (3,240 on the femur target) take 155 KB as three float4 rows a face,
+//   which fits the L1 of an SM that uses no shared memory.  The cascade
+//   (-fmad=false, IEEE division) then issues ~250 instructions a pair on
+//   sm_90a (kernel_turns.py --sass), about 15 for each of its five
+//   divisions, and that issue rate is what an H100 runs K4 at.
+//   Design: refine_shortlist_kernel.
+//   * The kernel reads the query's cand row (K ids) and each candidate's
+//     corners from the face table [F, 12] by face id, through the
+//     read-only path (ld.global.nc), with the shared-memory carve-out at its
+//     minimum so that L1 holds the table; ~300 B a query from L2.  Nothing
+//     limits F: a larger surface only misses in L1 more often.
+//   * kRefineLanes lanes a query (slots l, l + L, ...), so a lane runs
+//     several cascades and the merge takes log₂ L shuffle levels.  Each lane
+//     issues the next slot's corners and the slot after's face id before
+//     the current cascade, so the loads overlap the arithmetic, through two
+//     register buffers that alternate, so no corners are copied.
+//   * The merge: a lane keeps the least (d², face id, slot) of its non-NaN
+//     slots, a total order, so any lane mapping gives the same winner; a
+//     warp vote on "some slot was NaN" replaces it by slot 0.
+//   * The table is (a, b, c) in three float4 rows a face; corners 0..8 of
+//     the winner's row are its corners (wtri).  A fourth row with the edges
+//     b − a and c − a saves 6 subtractions a pair but no longer fits L1 and
+//     was slower.
+//   kRefineLanes (and K8's kDotQ) were chosen by timing builds that override
+//   them with -D (kernel_turns.py --probe).
 //
 // K5 icp_surface_distances replaces _make_kernel / _dist2_call in the same
 // file (reached through surface_distances_pallas, pack_triangles and
@@ -125,18 +150,20 @@
 // s = ((qx·ax + qy·ay) + qz·az) + ‖v‖², each product and sum rounded on its
 // own, ties to the lowest id (the Pallas kernel's net rule: lowest lane
 // within a chunk, strictly smaller across chunks).
-//   What bounds it: FP32 issue rate, 6 operations per (query, vertex) pair
-//   (256 × 404 × 1,622 pairs = 1.0 GFLOP at the smoke's shapes, 0.015 ms at
-//   67 TFLOP/s); bytes are tiny.  The TPU ran the product on the MXU at
-//   HIGHEST precision; tensor-core TF32 or bf16 inputs here would hit the
-//   anchor error the reference measured (2.3e2 mm², closest_point_pallas.py
-//   :449-457), so the products stay in FP32 on the CUDA cores.
-//   Design: one thread per query and one block per (128-query tile,
-//   chain); the [V, 4] table is staged through shared memory as float4 in
-//   tiles of min(V, 2,048) vertices (dynamic shared memory, so femur's 1,622
-//   take 26 KB and not 32: shared memory is what limits the blocks an SM
-//   holds) and every thread reads the same vertex at a time (a broadcast);
-//   a running minimum with a strict < over ascending ids.
+//   A NaN s never wins and a query with no finite s gets id 0, as in K3.
+//   What bounds it: instruction issue, 6 FP32 operations per (query,
+//   vertex) pair that may not fuse (2,048 × 404 × 1,622 = 1.34·10⁹ pairs a
+//   call on the femur path); bytes are tiny.  The TPU ran the product on the
+//   MXU at HIGHEST precision; tensor-core TF32 or bf16 inputs here would hit
+//   the anchor error the reference measured (2.3e2 mm², closest_point_pallas
+//   .py:449-457), so the products stay in FP32 on the CUDA cores.
+//   Design: K3's scan in its shared mode with the pair DotPair,
+//   nearest_vertices_kernel<DotPair, kDotQ>: the [V, 4] rows staged with one
+//   16-byte cp.async a row, pad rows (0, 0, 0, +inf), Q queries a lane, one
+//   LDS.128 feeding Q pairs of 6 operations and one fminf, group minima and
+//   a rescan of the winning group (the same operations, so the same
+//   rounding and the ids of a strict < over ascending ids), over the flat
+//   list of B·P queries (no limit on B).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -146,6 +173,15 @@
 #include <mutex>
 #include <utility>
 
+// the defaults of two launch choices, which kernel_turns.py --probe
+// overrides with -D in builds of its own
+#ifndef ICP_DOT_Q
+#define ICP_DOT_Q 4
+#endif
+#ifndef ICP_REFINE_LANES
+#define ICP_REFINE_LANES 4
+#endif
+
 namespace {
 
 constexpr int kNvWarps = 8;      // K3: warps per block
@@ -153,9 +189,9 @@ constexpr int kNvGroup = 32;     // K3: vertices per running-minimum group
 constexpr int kNvChunk = 2048;   // K3: most vertices per staged chunk (32 KB as float4)
 constexpr int kNvMaxQ = 8;       // K3: most queries a lane holds
 constexpr int kNvSharedQ = 4;    // K3: queries a lane holds for a shared vertex set
-constexpr int kDotThreads = 128;  // K8: queries per block, one a thread
-constexpr int kDotChunk = 2048;  // K8's most vertices per shared-memory tile (32 KB)
-constexpr int kRefineWarps = 8;
+constexpr int kDotQ = ICP_DOT_Q;  // K8: queries a lane holds (shared set only)
+constexpr int kRefineWarps = 8;  // K4: warps per block
+constexpr int kRefineLanes = ICP_REFINE_LANES;  // K4: lanes per query, a power of 2
 constexpr int kTileFaces = 32;   // K5: faces per culling tile, one per lane
 constexpr int kCpWarps = 4;      // K5: warps per block, 32 queries each
 constexpr float kSkipScale = 7.62939453125e-06f;  // K5 skip margin: 2⁻¹⁷
@@ -164,24 +200,33 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
 
-// K3's pair value, ((dx·dx + dy·dy) + dz·dz) with every product and sum
-// rounded on its own (-fmad=false), from a vertex staged as (x, y, z, ·).
-// The scan below takes the pair as a policy, so K8's dot form
-// ((qx·ax + qy·ay) + qz·az) + ‖v‖² on rows (ax, ay, az, ‖v‖²) can run on it
-// as another policy with its own pad row.
+// The scan below takes the pair as a policy: its value from a vertex staged
+// as a float4 row, every product and sum rounded on its own (-fmad=false);
+// a padding row whose value is +inf (or NaN) for every query, so it never
+// wins; and the floats a source row holds (kWidth).
+// K3: ((dx·dx + dy·dy) + dz·dz) from rows (x, y, z) of [V, 3].
 struct EuclidPair {
+  static constexpr int kWidth = 3;
   __device__ static float eval(float qx, float qy, float qz, float4 v) {
     const float dx = qx - v.x, dy = qy - v.y, dz = qz - v.z;
     return dx * dx + dy * dy + dz * dz;
   }
-  // a padding row: +inf (or NaN) for every query, so it never wins
   __device__ static float4 pad() { return make_float4(inf32(), inf32(), inf32(), 0.0f); }
+};
+// K8: ((qx·ax + qy·ay) + qz·az) + ‖v‖² from rows (−2x, −2y, −2z, ‖v‖²) of
+// [V, 4]
+struct DotPair {
+  static constexpr int kWidth = 4;
+  __device__ static float eval(float qx, float qy, float qz, float4 v) {
+    return ((qx * v.x + qy * v.y) + qz * v.z) + v.w;
+  }
+  __device__ static float4 pad() { return make_float4(0.0f, 0.0f, 0.0f, inf32()); }
 };
 
 // K3 launch parameters (nv_configure fills them)
 struct NvParams {
   const float* q;    // [B·P, 3]
-  const float* pts;  // [V, 3] or [B, V, 3]
+  const float* pts;  // [V, W] or [B, V, W], W = Pair::kWidth
   int* ids;          // [B·P]
   int batch, p, v;
   int per_chain;     // one vertex set per chain
@@ -197,6 +242,9 @@ struct NvParams {
 
 __device__ __forceinline__ void cp_async4(unsigned smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(unsigned smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -216,16 +264,22 @@ __device__ __forceinline__ float4 lds128(unsigned addr) {
   return v;
 }
 
-// the block copies vertices [0, n) of src ([n, 3]) into the float4 rows at
-// shared address dst (generic dstp), each float with its own cp.async (rows
-// are 12 bytes, so a 16-byte copy would be misaligned), and pads the rows
-// up to the next kNvGroup with pad rows
+// the block copies vertices [0, n) of src ([n, kWidth]) into the float4 rows
+// at shared address dst (generic dstp) and pads the rows up to the next
+// kNvGroup with pad rows.  Rows of 3 floats take one 4-byte cp.async a
+// float (a 16-byte copy would be misaligned); rows of 4 (16-byte aligned,
+// which the wrapper checks) one 16-byte cp.async a row.
 template <class Pair>
 __device__ __forceinline__ void nv_stage(unsigned dst, float4* dstp, const float* src,
                                          int n) {
-  for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) {
-    const int row = e / 3;
-    cp_async4(dst + 16 * row + 4 * (e - 3 * row), src + e);
+  if constexpr (Pair::kWidth == 4) {
+    for (int row = threadIdx.x; row < n; row += blockDim.x)
+      cp_async16(dst + 16 * row, src + 4 * row);
+  } else {
+    for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) {
+      const int row = e / 3;
+      cp_async4(dst + 16 * row + 4 * (e - 3 * row), src + e);
+    }
   }
   const int n_pad = (n + kNvGroup - 1) / kNvGroup * kNvGroup;
   for (int row = n + threadIdx.x; row < n_pad; row += blockDim.x) dstp[row] = Pair::pad();
@@ -310,10 +364,11 @@ __global__ void __launch_bounds__(kNvWarps * 32) nearest_vertices_kernel(NvParam
   auto stage = [&](long long step) {  // the chunk of `step` into buffer step & 1
     const long long k = step / a.n_chunks;
     const int lo = (int)(step - k * a.n_chunks) * a.chunk;
+    constexpr long long w = Pair::kWidth;
     const float* src =
-        a.per_chain ? a.pts + (b + grid * k) / a.items_per_chain * 3LL * a.v : a.pts;
+        a.per_chain ? a.pts + (b + grid * k) / a.items_per_chain * w * a.v : a.pts;
     const int buf = (int)(step & 1) * a.chunk;
-    nv_stage<Pair>(smem + 16 * buf, nv_smem + buf, src + 3LL * lo, min(a.chunk, a.v - lo));
+    nv_stage<Pair>(smem + 16 * buf, nv_smem + buf, src + w * lo, min(a.chunk, a.v - lo));
   };
   stage(0);
   cp_async_commit();
@@ -430,46 +485,6 @@ __global__ void __launch_bounds__(kNvWarps * 32) nearest_vertices_kernel(NvParam
   }
 }
 
-// K8: blockDim.x == kDotThreads queries of chain blockIdx.y
-__global__ void coarse_nearest_dot_kernel(const float* __restrict__ q,
-                                          const float* __restrict__ va,
-                                          int* __restrict__ ids, int p, int v,
-                                          int chunk) {
-  extern __shared__ float4 sva[];  // chunk vertices
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = qi < p;
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (active) {
-    const float* qq = q + ((size_t)b * p + qi) * 3;
-    qx = qq[0];
-    qy = qq[1];
-    qz = qq[2];
-  }
-  float best = inf32();
-  int best_id = 0;
-  for (int lo = 0; lo < v; lo += chunk) {
-    const int n = min(chunk, v - lo);
-    __syncthreads();  // the previous tile is consumed
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const float* row = va + (size_t)(lo + t) * 4;
-      sva[t] = make_float4(row[0], row[1], row[2], row[3]);
-    }
-    __syncthreads();
-    if (active) {
-      for (int u = 0; u < n; ++u) {
-        const float4 a = sva[u];
-        const float s = ((qx * a.x + qy * a.y) + qz * a.z) + a.w;
-        if (s < best) {
-          best = s;
-          best_id = lo + u;
-        }
-      }
-    }
-  }
-  if (active) ids[(size_t)b * p + qi] = best_id;
-}
-
 __device__ __forceinline__ float safe_div(float num, float den) {
   return num / (fabsf(den) < 1e-30f ? 1.0f : den);
 }
@@ -542,67 +557,108 @@ __device__ __forceinline__ float point_tri_dist2_edges(float qx, float qy, float
   return dx * dx + dy * dy + dz * dz;
 }
 
-// the same with the corners c = (ax ay az bx by bz cx cy cz)
-__device__ __forceinline__ float point_tri_dist2(float qx, float qy, float qz, const float* c) {
-  return point_tri_dist2_edges(qx, qy, qz, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7],
-                               c[8], c[3] - c[0], c[4] - c[1], c[5] - c[2], c[6] - c[0],
-                               c[7] - c[1], c[8] - c[2]);
+// (d², face id) order.  The reference's third key, the lowest slot, never
+// changes the result here: slots of one face read the same table row, so
+// they have the same d² and the same corners.
+__device__ __forceinline__ bool lex_less(float da, int fa, float db, int fb) {
+  return da < db || (da == db && fa < fb);
 }
 
-// lexicographic (d², face id, slot) order
-__device__ __forceinline__ bool lex_less(float da, int fa, int ka, float db, int fb, int kb) {
-  if (da < db) return true;
-  if (da == db) return fa < fb || (fa == fb && ka < kb);
-  return false;
-}
+constexpr int kFaceRows = 3;  // K4: float4 rows a face in the table
 
-__global__ void refine_shortlist_kernel(const float* __restrict__ q,
-                                        const int* __restrict__ coarse,
-                                        const int* __restrict__ cand,
-                                        const float* __restrict__ cand_tri,
-                                        int* __restrict__ fidx,
-                                        float* __restrict__ wtri, long long n_queries,
-                                        int v, int k) {
-  const int lane = threadIdx.x & 31;
-  const long long gq = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (gq >= n_queries) return;  // whole warps leave
-  const float qx = q[gq * 3], qy = q[gq * 3 + 1], qz = q[gq * 3 + 2];
-  // out-of-range rows clamp, as an XLA gather does
-  const int row = min(max(coarse[gq], 0), v - 1);
-  const int* crow = cand + (size_t)row * k;
-  const float* trow = cand_tri + (size_t)row * 9 * k;
-
-  float bd = inf32();
-  int bf = INT_MAX, bk = INT_MAX;
-  for (int s = lane; s < k; s += 32) {
-    float c[9];
+// the rows of face f of the table (out-of-range ids clamp, as an XLA gather
+// does), through the read-only path
+__device__ __forceinline__ void load_face(float4 (&r)[kFaceRows], const float4* faces, int f,
+                                          int n_faces) {
+  const float4* p = faces + (size_t)min(max(f, 0), n_faces - 1) * kFaceRows;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) c[i] = trow[i * k + s];
-    const float d2 = point_tri_dist2(qx, qy, qz, c);
-    const int f = crow[s];
-    // the first slot is taken unconditionally so a NaN distance still
-    // leaves a valid slot (the reference then picks slot 0, as lane 0 does)
-    if (s == lane || lex_less(d2, f, s, bd, bf, bk)) {
+  for (int i = 0; i < kFaceRows; ++i) r[i] = __ldg(p + i);
+}
+
+// d² from a query to the face held as (ax ay az bx)(by bz cx cy)(cz · · ·),
+// the edges formed here as in _tile_dist2
+__device__ __forceinline__ float face_dist2(float qx, float qy, float qz,
+                                            const float4 (&r)[kFaceRows]) {
+  const float ax = r[0].x, ay = r[0].y, az = r[0].z, bx = r[0].w, by = r[1].x;
+  const float bz = r[1].y, cx = r[1].z, cy = r[1].w, cz = r[2].x;
+  return point_tri_dist2_edges(qx, qy, qz, ax, ay, az, bx, by, bz, cx, cy, cz, bx - ax,
+                               by - ay, bz - az, cx - ax, cy - ay, cz - az);
+}
+
+// K4: blockDim.x == kRefineWarps·32; lanes [L·g, L·g + L) of the warps in
+// order take query g, lane j of a group the slots j, j + L, ... < k
+// (L = kRefineLanes).
+__global__ void __launch_bounds__(kRefineWarps * 32)
+    refine_shortlist_kernel(const float* __restrict__ q, const int* __restrict__ coarse,
+                            const int* __restrict__ cand, const float4* __restrict__ faces,
+                            int* __restrict__ fidx, float* __restrict__ wtri,
+                            long long n_queries, int v, int n_faces, int k) {
+  constexpr int L = kRefineLanes;
+  static_assert(L >= 1 && L <= 32 && (L & (L - 1)) == 0, "a group is an aligned part of a warp");
+  constexpr unsigned kGroupBits = L == 32 ? kFull : (1u << (L % 32)) - 1u;
+  const int lane = threadIdx.x & 31, j = lane & (L - 1);
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((t - lane) / L >= n_queries) return;  // whole warps leave
+  const long long gq = t / L;
+  const bool active = gq < n_queries;
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  const int* crow = cand;
+  int n_mine = 0;  // this lane's slots
+  if (active) {
+    qx = __ldg(q + 3 * gq);
+    qy = __ldg(q + 3 * gq + 1);
+    qz = __ldg(q + 3 * gq + 2);
+    // out-of-range rows clamp, as an XLA gather does
+    crow = cand + (size_t)min(max(__ldg(coarse + gq), 0), v - 1) * k;
+    n_mine = j < k ? (k - 1 - j) / L + 1 : 0;
+  }
+  float bd = inf32();
+  int bf = INT_MAX;
+  bool nan_seen = false;
+  auto take = [&](float d2, int f) {
+    if (isnan(d2)) {
+      nan_seen = true;
+    } else if (lex_less(d2, f, bd, bf)) {
       bd = d2;
       bf = f;
-      bk = s;
     }
+  };
+  // two slots a turn through two register buffers, so no corners are
+  // copied: slot i + 1's corners and slot i + 2's face id load during slot
+  // i's cascade, slot i + 2's corners and slot i + 3's face id during slot
+  // i + 1's
+  float4 ra[kFaceRows], rb[kFaceRows];
+  int fa = n_mine > 0 ? __ldg(crow + j) : 0;      // the face of slot i
+  int fb = n_mine > 1 ? __ldg(crow + j + L) : 0;  // of slot i + 1
+  if (n_mine > 0) load_face(ra, faces, fa, n_faces);
+  for (int i = 0; i < n_mine; i += 2) {
+    if (i + 1 < n_mine) load_face(rb, faces, fb, n_faces);
+    const int fc = i + 2 < n_mine ? __ldg(crow + j + (i + 2) * L) : 0;
+    take(face_dist2(qx, qy, qz, ra), fa);
+    if (i + 1 == n_mine) break;
+    if (i + 2 < n_mine) load_face(ra, faces, fc, n_faces);
+    const int fd = i + 3 < n_mine ? __ldg(crow + j + (i + 3) * L) : 0;
+    take(face_dist2(qx, qy, qz, rb), fb);
+    fa = fc;
+    fb = fd;
   }
+  // the least (d², face id) over the group: xor partners below L stay in it
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = L / 2; off > 0; off >>= 1) {
     const float od = __shfl_xor_sync(kFull, bd, off);
     const int of = __shfl_xor_sync(kFull, bf, off);
-    const int ok = __shfl_xor_sync(kFull, bk, off);
-    if (lex_less(od, of, ok, bd, bf, bk)) {
+    if (lex_less(od, of, bd, bf)) {
       bd = od;
       bf = of;
-      bk = ok;
     }
   }
-  bf = __shfl_sync(kFull, bf, 0);
-  bk = __shfl_sync(kFull, bk, 0);
-  if (lane == 0) fidx[gq] = bf;
-  if (lane < 9) wtri[gq * 9 + lane] = trow[lane * k + bk];
+  // a NaN d² in any slot of the query: slot 0 wins, as in the reference
+  if (__ballot_sync(kFull, nan_seen) & (kGroupBits << (lane & ~(L - 1)))) bf = __ldg(crow);
+  if (!active) return;
+  if (j == 0) fidx[gq] = bf;
+  const float* row =
+      reinterpret_cast<const float*>(faces + (size_t)min(max(bf, 0), n_faces - 1) * kFaceRows);
+  for (int e = j; e < 9; e += L) wtri[gq * 9 + e] = __ldg(row + e);
 }
 
 // K5 pre-pass: blockDim.x == kCpWarps·32, warp w of block x computes tile
@@ -835,8 +891,10 @@ __global__ void __launch_bounds__(kCpWarps * 32)
   }
 }
 
-// K3 host side: the instance for Q queries a lane
-const void* nv_kernel(int q) {
+// K3 and K8 host side: K3's instance for Q queries a lane (Q = 1..kNvMaxQ:
+// a per-chain set takes the Q that fits P), or K8's (dot; Q = kDotQ only)
+const void* nv_kernel(int dot, int q) {
+  if (dot) return q == kDotQ ? (const void*)nearest_vertices_kernel<DotPair, kDotQ> : nullptr;
   switch (q) {
     case 1: return (const void*)nearest_vertices_kernel<EuclidPair, 1>;
     case 2: return (const void*)nearest_vertices_kernel<EuclidPair, 2>;
@@ -856,12 +914,12 @@ constexpr int kNvMaxSmem =
     2 * kNvChunk * (int)sizeof(float4) + (kNvWarps + kNvWarps) * 32 * kNvMaxQ * 8;
 
 // per device, read once: the SM count, the shared-memory ceiling raised for
-// every instance, and blocks per SM by (Q, shared bytes)
+// every instance, and blocks per SM by (pair, Q, shared bytes)
 std::mutex nv_mu;
 std::map<int, int> nv_sms;                            // device → SMs
-std::map<std::pair<int, long long>, int> nv_occupancy;  // (device, Q·2³² + bytes) → blocks
+std::map<std::pair<int, long long>, int> nv_occupancy;  // (device, pair·2⁴⁰ + Q·2³² + bytes) → blocks
 
-cudaError_t nv_blocks_per_sm(int q, int smem, int* sms, int* ctas) {
+cudaError_t nv_blocks_per_sm(int dot, int q, int smem, int* sms, int* ctas) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -870,18 +928,20 @@ cudaError_t nv_blocks_per_sm(int q, int smem, int* sms, int* ctas) {
   if (it == nv_sms.end()) {
     int n = 0;
     e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    for (int k = 1; k <= kNvMaxQ && e == cudaSuccess; ++k)
-      e = cudaFuncSetAttribute(nv_kernel(k), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kNvMaxSmem);
+    for (int k = 0; k <= kNvMaxQ && e == cudaSuccess; ++k)  // k = 0: K8's instance
+      e = cudaFuncSetAttribute(k ? nv_kernel(0, k) : nv_kernel(1, kDotQ),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kNvMaxSmem);
     if (e != cudaSuccess) return e;
     it = nv_sms.emplace(dev, n).first;
   }
   *sms = it->second;
-  const std::pair<int, long long> key(dev, ((long long)q << 32) + smem);
+  const std::pair<int, long long> key(
+      dev, ((long long)dot << 40) + ((long long)q << 32) + smem);
   auto oc = nv_occupancy.find(key);
   if (oc == nv_occupancy.end()) {
     int n = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, nv_kernel(q), kNvWarps * 32, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, nv_kernel(dot, q), kNvWarps * 32,
+                                                      smem);
     if (e != cudaSuccess) return e;
     oc = nv_occupancy.emplace(key, n).first;
   }
@@ -889,19 +949,19 @@ cudaError_t nv_blocks_per_sm(int q, int smem, int* sms, int* ctas) {
   return cudaSuccess;
 }
 
-// K3's launch for B chains of P queries against V vertices, shared or one
+// The launch for B chains of P queries against V vertices, shared or one
 // set per chain: parameters, Q, blocks, dynamic shared bytes, blocks per SM.
-// Shared: Q = kNvSharedQ.  Per chain: the fewest warp units of at most
-// kNvMaxQ·32 queries that cover P, then the least Q for that many units
-// (P = 202: one unit of Q = 7, 224 lanes' worth for 202 queries), and the
-// block's other warps scan vertex slices of the same units.
-cudaError_t nv_configure(int batch, int p, int v, int per_chain, NvParams* a, int* q,
-                         int* grid, int* smem, int* ctas) {
+// Shared: Q = kNvSharedQ (K3) or kDotQ (K8).  Per chain (K3 only): the fewest warp units of at most kNvMaxQ·32
+// queries that cover P, then the least Q for that many units (P = 202: one
+// unit of Q = 7, 224 lanes' worth for 202 queries), and the block's other
+// warps scan vertex slices of the same units.
+cudaError_t nv_configure(int batch, int p, int v, int per_chain, int dot, NvParams* a,
+                         int* q, int* grid, int* smem, int* ctas) {
   NvParams c{};
   c.batch = batch, c.p = p, c.v = v, c.per_chain = per_chain;
   long long n_items;
   if (!per_chain) {
-    *q = kNvSharedQ;
+    *q = dot ? kDotQ : kNvSharedQ;
     c.units = ((long long)batch * p + 32 * *q - 1) / (32 * *q);
     c.uw = kNvWarps, c.slices = 1, c.items_per_chain = 1;
     n_items = (c.units + kNvWarps - 1) / kNvWarps;
@@ -923,13 +983,44 @@ cudaError_t nv_configure(int batch, int p, int v, int per_chain, NvParams* a, in
   *smem = (c.resident ? 1 : 2) * c.chunk * (int)sizeof(float4) +
           (c.slices > 1 ? (kNvWarps + c.uw) * 32 * *q * 8 : 0);
   int sms = 0;
-  cudaError_t e = nv_blocks_per_sm(*q, *smem, &sms, ctas);
+  cudaError_t e = nv_blocks_per_sm(dot, *q, *smem, &sms, ctas);
   if (e != cudaSuccess) return e;
   if (*ctas < 1) return cudaErrorInvalidConfiguration;
   const long long most = (long long)sms * *ctas;
   *grid = (int)(n_items < most ? n_items : most);
   *a = c;
   return cudaSuccess;
+}
+
+cudaError_t nv_launch(const float* q, const float* pts, int* ids, int batch, int p, int v,
+                      int per_chain, int dot, cudaStream_t st) {
+  NvParams a;
+  int qn = 0, grid = 0, smem = 0, ctas = 0;
+  cudaError_t e = nv_configure(batch, p, v, per_chain, dot, &a, &qn, &grid, &smem, &ctas);
+  if (e != cudaSuccess) return e;
+  a.q = q, a.pts = pts, a.ids = ids;
+  void* args[] = {&a};
+  e = cudaLaunchKernel(nv_kernel(dot, qn), dim3(grid), dim3(kNvWarps * 32), args, smem, st);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// K4 host side: its shared-memory carve-out set to the least once per
+// device, so that L1 takes what shared memory leaves
+std::mutex refine_mu;
+std::map<int, bool> refine_ready;
+
+cudaError_t refine_prepare() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(refine_mu);
+  if (refine_ready.count(dev)) return cudaSuccess;
+  e = cudaFuncSetAttribute((const void*)refine_shortlist_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxL1);
+  if (e == cudaSuccess) refine_ready[dev] = true;
+  return e;
 }
 
 }  // namespace
@@ -941,36 +1032,59 @@ int icp_nearest_vertices(const float* q, const float* pts, int* ids, int batch, 
   if (batch == 0 || p == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (v == 0) return cudaMemsetAsync(ids, 0, (size_t)batch * p * sizeof(int), st);
-  NvParams a;
-  int qn = 0, grid = 0, smem = 0, ctas = 0;
-  cudaError_t e = nv_configure(batch, p, v, pts_batched, &a, &qn, &grid, &smem, &ctas);
-  if (e != cudaSuccess) return e;
-  a.q = q, a.pts = pts, a.ids = ids;
-  void* args[] = {&a};
-  e = cudaLaunchKernel(nv_kernel(qn), dim3(grid), dim3(kNvWarps * 32), args, smem, st);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return nv_launch(q, pts, ids, batch, p, v, pts_batched, 0, st);
 }
 
-// K3's launch as icp_nearest_vertices makes it: out = (Q, threads per
-// block, blocks, dynamic shared bytes per block, blocks per SM)
-int icp_nearest_vertices_config(int batch, int p, int v, int pts_batched, int* out) {
+// K8: va [V, 4] rows 16-byte aligned, one set shared by all chains
+int icp_coarse_nearest_dot(const float* q, const float* va, int* ids, int batch, int p, int v,
+                           void* stream) {
+  if (batch == 0 || p == 0 || v == 0) return cudaSuccess;
+  return nv_launch(q, va, ids, batch, p, v, 0, 1, (cudaStream_t)stream);
+}
+
+// K3's or K8's (dot) launch as the calls above make it: out = (Q, threads
+// per block, blocks, dynamic shared bytes per block, blocks per SM)
+int icp_nearest_vertices_config(int batch, int p, int v, int pts_batched, int dot, int* out) {
   NvParams a;
-  if (batch <= 0 || p <= 0 || v <= 0) return cudaErrorInvalidValue;
-  cudaError_t e = nv_configure(batch, p, v, pts_batched, &a, &out[0], &out[2], &out[3],
-                               &out[4]);
+  if (batch <= 0 || p <= 0 || v <= 0 || (dot && pts_batched)) return cudaErrorInvalidValue;
+  cudaError_t e =
+      nv_configure(batch, p, v, pts_batched, dot, &a, &out[0], &out[2], &out[3], &out[4]);
   out[1] = kNvWarps * 32;
   return e;
 }
 
+// K4: faces [F, 12] rows 16-byte aligned
 int icp_refine_shortlist(const float* q, const int* coarse, const int* cand,
-                         const float* cand_tri, int* fidx, float* wtri, int n_queries,
-                         int v, int k, void* stream) {
+                         const float* faces, int* fidx, float* wtri, int n_queries, int v,
+                         int f, int k, void* stream) {
   if (n_queries == 0) return cudaSuccess;
-  const int blocks = (n_queries + kRefineWarps - 1) / kRefineWarps;
-  refine_shortlist_kernel<<<blocks, kRefineWarps * 32, 0, (cudaStream_t)stream>>>(
-      q, coarse, cand, cand_tri, fidx, wtri, n_queries, v, k);
+  cudaError_t e = refine_prepare();
+  if (e != cudaSuccess) return e;
+  long long n = n_queries;
+  const float4* table = reinterpret_cast<const float4*>(faces);
+  void* args[] = {&q, &coarse, &cand, &table, &fidx, &wtri, &n, &v, &f, &k};
+  const long long blocks = (n * kRefineLanes + kRefineWarps * 32 - 1) / (kRefineWarps * 32);
+  e = cudaLaunchKernel((const void*)refine_shortlist_kernel, dim3((unsigned)blocks),
+                       dim3(kRefineWarps * 32), args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// K4's launch as icp_refine_shortlist makes it: out = (lanes a query,
+// threads per block, blocks, registers a thread, blocks per SM)
+int icp_refine_shortlist_config(int n_queries, int* out) {
+  if (n_queries <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = refine_prepare();
+  if (e != cudaSuccess) return e;
+  out[0] = kRefineLanes;
+  out[1] = kRefineWarps * 32;
+  out[2] = (int)(((long long)n_queries * out[0] + out[1] - 1) / out[1]);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, (const void*)refine_shortlist_kernel);
+  if (e != cudaSuccess) return e;
+  out[3] = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], refine_shortlist_kernel,
+                                                       out[1], 0);
 }
 
 // boxes: scratch of n_tiles·8 floats per surface (one surface, or batch
@@ -1001,16 +1115,6 @@ int icp_surface_distances(const float* q, const float* pts, const int* cells, fl
   surface_distances_kernel<<<grid, kCpWarps * 32, bytes, st>>>(
       q, q_batched ? 3LL * p : 0LL, pts, pts_stride, cells, cull ? boxes : nullptr,
       pts_batched ? 8LL * n_tiles : 0LL, d2, idx, p, f, n_tiles, visits);
-  return cudaGetLastError();
-}
-
-int icp_coarse_nearest_dot(const float* q, const float* va, int* ids, int batch, int p,
-                           int v, void* stream) {
-  if (batch == 0 || p == 0 || v == 0) return cudaSuccess;
-  const dim3 grid((p + kDotThreads - 1) / kDotThreads, batch);
-  const int chunk = v < kDotChunk ? v : kDotChunk;
-  coarse_nearest_dot_kernel<<<grid, kDotThreads, chunk * sizeof(float4),
-                              (cudaStream_t)stream>>>(q, va, ids, p, v, chunk);
   return cudaGetLastError();
 }
 

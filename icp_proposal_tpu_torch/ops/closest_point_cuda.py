@@ -62,15 +62,18 @@ def nearest_vertices(queries: torch.Tensor, points: torch.Tensor) -> torch.Tenso
     return ids
 
 
-def nearest_vertices_config(bsz: int, p: int, v: int, per_chain: bool) -> dict:
+def nearest_vertices_config(bsz: int, p: int, v: int, per_chain: bool,
+                            dot: bool = False) -> dict:
     """K3's launch on the current card for ``bsz`` chains of ``p`` queries
     against ``v`` vertices (shared or one set per chain), as
-    ``nearest_vertices`` makes it: queries a lane holds, threads per block,
-    blocks, dynamic shared bytes per block and blocks per SM."""
+    ``nearest_vertices`` makes it, or with ``dot`` K8's (a shared set) as
+    ``coarse_nearest_dot`` makes it: queries a lane holds, threads per
+    block, blocks, dynamic shared bytes per block and blocks per SM."""
     out = (ctypes.c_int * 5)()
-    err = load_library().icp_nearest_vertices_config(bsz, p, v, int(per_chain), out)
+    err = load_library().icp_nearest_vertices_config(bsz, p, v, int(per_chain), int(dot), out)
     if err != 0:
-        raise RuntimeError(f"no K3 launch for B={bsz}, P={p}, V={v}: CUDA error {err}")
+        raise RuntimeError(f"no {'K8' if dot else 'K3'} launch for B={bsz}, P={p}, "
+                           f"V={v}: CUDA error {err}")
     return dict(zip(("q", "threads", "blocks", "smem_bytes", "ctas_per_sm"), out))
 
 
@@ -78,44 +81,62 @@ nearest_vertices.launches = 0
 nearest_vertices.per_chain_launches = 0
 
 
-def refine_shortlist_plain(queries, coarse, cand, cand_tri):
-    """Plain twin of ``refine_shortlist`` (same arguments and results)."""
-    v, k = cand.shape
-    rows = coarse.long().clamp(0, v - 1)  # out-of-range rows clamp, as in K4
-    faces = cand[rows]  # [B, P, K]
-    trik = cand_tri[rows].reshape(rows.shape + (9, k))  # component-major
-    corners = trik.transpose(-1, -2)  # [B, P, K, 9]
-    _, d2 = closest_point.closest_point_on_triangle(
-        queries[..., None, :], corners[..., 0:3], corners[..., 3:6],
-        corners[..., 6:9])  # [B, P, K]
-    # least d², then the smallest face id, then the lowest slot
+def face_table(tri: torch.Tensor) -> torch.Tensor:
+    """K4's face table: tri [F, 3, 3] float32 → [F, 12] rows (a, b, c, 0, 0,
+    0), three float4 a face."""
+    tri = tri.to(torch.float32)
+    return torch.cat([tri.reshape(-1, 9), tri.new_zeros(tri.shape[0], 3)], dim=1).contiguous()
+
+
+def refine_pick(d2, faces):
+    """The refine's winning slot [..., 1] int64 over the last axis of d2 and
+    faces [..., K]: the least d², then the smallest face id, then the lowest
+    slot; a NaN d² in any slot makes slot 0 the winner (``amin`` propagates
+    the NaN, so no slot ties with it), as ``jnp.min`` does in the
+    reference."""
+    k = d2.shape[-1]
     best = torch.amin(d2, dim=-1, keepdim=True)
     fid_tied = torch.where(d2 == best, faces, _NO_ID)
     fmin = torch.amin(fid_tied, dim=-1, keepdim=True)
-    slot = torch.arange(k, device=queries.device, dtype=torch.int32)
-    kidx = torch.amin(torch.where(fid_tied == fmin, slot, _NO_ID), dim=-1,
-                      keepdim=True).long()  # [B, P, 1]
-    fidx = torch.gather(faces, -1, kidx)[..., 0]
-    wtri = torch.gather(trik, -1, kidx[..., None, :].expand(rows.shape + (9, 1)))
-    return fidx, wtri[..., 0]
+    slot = torch.arange(k, device=d2.device, dtype=torch.int32)
+    return torch.amin(torch.where(fid_tied == fmin, slot, _NO_ID), dim=-1,
+                      keepdim=True).long()
+
+
+def refine_shortlist_plain(queries, coarse, cand, faces):
+    """Plain twin of ``refine_shortlist`` (same arguments and results)."""
+    v = cand.shape[0]
+    rows = coarse.long().clamp(0, v - 1)  # out-of-range ids clamp, as in K4
+    fids = cand[rows]  # [B, P, K]
+    corners = faces[fids.long().clamp(0, faces.shape[0] - 1), :9]  # [B, P, K, 9]
+    _, d2 = closest_point.closest_point_on_triangle(
+        queries[..., None, :], corners[..., 0:3], corners[..., 3:6],
+        corners[..., 6:9])  # [B, P, K]
+    kidx = refine_pick(d2, fids)  # [B, P, 1]
+    fidx = torch.gather(fids, -1, kidx)[..., 0]
+    wtri = torch.gather(corners, -2, kidx[..., None].expand(rows.shape + (1, 9)))
+    return fidx, wtri[..., 0, :]
 
 
 def refine_shortlist(queries: torch.Tensor, coarse: torch.Tensor,
-                     cand: torch.Tensor, cand_tri: torch.Tensor):
+                     cand: torch.Tensor, faces: torch.Tensor):
     """Exact point→triangle refine over each query's shortlist.
 
     queries [B, P, 3] f32; coarse [B, P] int32 rows of the static index (the
     coarse nearest vertex); cand [V, K] int32 candidate face ids per vertex;
-    cand_tri [V, 9K] f32 their corners, component-major (ax[K] ay[K] ... cz[K]).
+    faces [F, 12] f32, the face table (``face_table``).
     → (winner face id [B, P] int32, winner corners [B, P, 9] f32); the winner
-    has the least d², then the smallest face id, then the lowest slot.
-    Out-of-range rows clamp.
+    has the least d², then the smallest face id, then the lowest slot, and a
+    NaN d² in any slot makes slot 0 the winner.  Out-of-range rows and face
+    ids clamp.
 
     Kernel K4 (``csrc/closest_point.cu``) replaces ``_make_refine_kernel`` in
-    ``icp_proposal_tpu/ops/closest_point_pallas.py``.  Bound by the
-    candidate gather, which the TPU path pregathers through device memory
-    ([B, P, 9K], 1.9 GB per step at 2,048 chains); the kernel reads rows of
-    the static 3.7 MB tables itself (they stay in L2), one warp per query."""
+    ``icp_proposal_tpu/ops/closest_point_pallas.py``, whose path pregathers
+    the [B, P, 9K] corners.  Bound by the cascade's instruction issue once
+    the rows are near: the kernel reads each candidate's corners from the
+    face table by face id through the read-only path, with L1 (no shared
+    memory) holding the table, and a group of lanes per query merges by
+    (d², face id) with a warp vote for the NaN rule."""
     check_tensor(queries, "queries", torch.float32, (None, None, 3))
     bsz, p = queries.shape[0], queries.shape[1]
     check_tensor(coarse, "coarse", torch.int32, (bsz, p))
@@ -123,20 +144,35 @@ def refine_shortlist(queries: torch.Tensor, coarse: torch.Tensor,
     v, k = cand.shape
     if k < 1:
         raise ValueError("refine_shortlist needs at least one candidate per vertex")
-    check_tensor(cand_tri, "cand_tri", torch.float32, (v, 9 * k))
-    dev = kernel_device(queries, coarse, cand, cand_tri)
+    check_tensor(faces, "faces", torch.float32, (None, None))
+    if faces.shape[1] != 12 or faces.shape[0] < 1:
+        raise ValueError(f"faces must be a face table [F >= 1, 12], got {tuple(faces.shape)}")
+    dev = kernel_device(queries, coarse, cand, faces)
     if dev.type == "cpu":
-        return refine_shortlist_plain(queries, coarse, cand, cand_tri)
+        return refine_shortlist_plain(queries, coarse, cand, faces)
+    if faces.data_ptr() % 16:
+        raise ValueError("faces must start on a 16-byte boundary (float4 rows)")
     fidx = torch.empty((bsz, p), dtype=torch.int32, device=dev)
     wtri = torch.empty((bsz, p, 9), dtype=torch.float32, device=dev)
     launch("icp_refine_shortlist", dev, queries.data_ptr(), coarse.data_ptr(),
-           cand.data_ptr(), cand_tri.data_ptr(), fidx.data_ptr(), wtri.data_ptr(),
-           bsz * p, v, k)
+           cand.data_ptr(), faces.data_ptr(), fidx.data_ptr(), wtri.data_ptr(),
+           bsz * p, v, faces.shape[0], k)
     refine_shortlist.launches += 1
     return fidx, wtri
 
 
 refine_shortlist.launches = 0
+
+
+def refine_shortlist_config(n_queries: int) -> dict:
+    """K4's launch on the current card for ``n_queries`` queries, as
+    ``refine_shortlist`` makes it: lanes a query, threads per block, blocks,
+    registers a thread and blocks per SM."""
+    out = (ctypes.c_int * 5)()
+    err = load_library().icp_refine_shortlist_config(n_queries, out)
+    if err != 0:
+        raise RuntimeError(f"no K4 launch for {n_queries} queries: CUDA error {err}")
+    return dict(zip(("lanes", "threads", "blocks", "registers", "ctas_per_sm"), out))
 
 
 TILE_FACES = 32  # K5's culling tile (kTileFaces in csrc/closest_point.cu)
@@ -216,9 +252,13 @@ def coarse_nearest_dot(queries: torch.Tensor, points_aug: torch.Tensor) -> torch
 
     Kernel K8 (``csrc/closest_point.cu``) replaces ``_make_coarse_mxu_kernel``
     / ``_coarse_mxu_call`` in ``icp_proposal_tpu/ops/closest_point_pallas.py``.
-    Bound by FP32 issue rate (6 operations per query-vertex pair, no tensor
-    cores: TF32 and bf16 inputs break the anchors' exactness); one thread per
-    query scans the [V, 4] table from shared memory, a broadcast."""
+    Bound by instruction issue (6 FP32 operations per query-vertex pair, no
+    tensor cores: TF32 and bf16 inputs break the anchors' exactness).  It is
+    K3's register-blocked scan over the flat list of B·P queries with the
+    dot-form pair: one 16-byte shared-memory broadcast of a staged row feeds
+    the Q queries a lane holds, group minima by ``fminf`` and a rescan of
+    the winning group for the lowest id.  A NaN value never wins (no finite
+    value → id 0)."""
     check_tensor(queries, "queries", torch.float32, (None, None, 3))
     if points_aug.dim() != 2:
         raise ValueError("coarse_nearest_dot takes one surface shared by all "
@@ -230,9 +270,9 @@ def coarse_nearest_dot(queries: torch.Tensor, points_aug: torch.Tensor) -> torch
     dev = kernel_device(queries, points_aug)
     if dev.type == "cpu":
         return coarse_nearest_dot_plain(queries, points_aug)
+    if points_aug.data_ptr() % 16:
+        raise ValueError("points_aug must start on a 16-byte boundary (float4 rows)")
     bsz, p = queries.shape[0], queries.shape[1]
-    if bsz > 65535:
-        raise ValueError(f"coarse_nearest_dot takes at most 65,535 chains, got {bsz}")
     ids = torch.empty((bsz, p), dtype=torch.int32, device=dev)
     launch("icp_coarse_nearest_dot", dev, queries.data_ptr(), points_aug.data_ptr(),
            ids.data_ptr(), bsz, p, points_aug.shape[0])

@@ -16,7 +16,7 @@ builder is not loaded; its library is compiled for another host's CPU.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from icp_proposal_tpu_torch.ops.closest_point import (
 )
 from icp_proposal_tpu_torch.ops.closest_point_cuda import (
     coarse_nearest_dot,
+    face_table,
     nearest_vertices,
     refine_shortlist,
 )
@@ -42,19 +43,22 @@ _CHUNK = 256  # query vertices per block of the host build
 class SurfaceIndex:
     """Static-surface shortlist index, as tensors on one device.
 
-    ``cand_tri`` holds the K candidate faces' corners per vertex in
-    COMPONENT-MAJOR rows ([V, 9·K]: ax[K] ay[K] az[K] bx ... cz[K]), so a
-    warp reads each component of its K candidates as one coalesced row."""
+    The refine (K4) reads each candidate's corners by face id from
+    ``faces``, the face table of ``tri`` (``closest_point_cuda.face_table``),
+    which the index builds from ``tri`` itself; the reference instead keeps
+    them per vertex in its ``cand_tri``, which is ``faces[cand, :9]`` in
+    component-major order."""
 
     points: torch.Tensor  # [V, 3]
     tri: torch.Tensor  # [F, 3, 3]
     cand: torch.Tensor  # [V, K] int32 — K nearest faces per vertex
-    cand_tri: torch.Tensor  # [V, 9*K] f32
     points_aug: torch.Tensor  # [V, 4] f32 rows (−2x, −2y, −2z, ‖v‖²), for K8
     coarse: str = "exact"  # the coarse pass: "exact" (K3) or "dot" (K8)
+    faces: torch.Tensor = field(init=False, repr=False)  # [F, 12] f32, K4's table of tri
 
     def __post_init__(self):
         check_coarse(self.coarse)
+        object.__setattr__(self, "faces", face_table(self.tri))
 
     @property
     def k(self) -> int:
@@ -136,7 +140,7 @@ def _np_point_tri_dist2(p: np.ndarray, tri: np.ndarray) -> np.ndarray:
 
 def build_shortlist(points, cells, k: int = INDEX_K):
     """Host build: O(V·F) exact distances + top-K, each shortlist sorted by
-    distance → (cand [V, K] int32, cand_tri [V, 9K] f32 component-major)."""
+    distance → cand [V, K] int32."""
     points = np.asarray(points, np.float32)
     cells = np.asarray(cells, np.int32)
     tri = points[cells]  # [F, 3, 3]
@@ -150,11 +154,7 @@ def build_shortlist(points, cells, k: int = INDEX_K):
         part = np.argpartition(d2, k - 1, axis=1)[:, :k]
         order = np.argsort(np.take_along_axis(d2, part, axis=1), axis=1)
         cand[lo:hi] = np.take_along_axis(part, order, axis=1).astype(np.int32)
-    # [V, K, 3, 3] → [V, (corner, axis), K] → [V, 9·K]
-    cand_tri = np.ascontiguousarray(
-        tri[cand].transpose(0, 2, 3, 1).reshape(v, 9 * k).astype(np.float32)
-    )
-    return cand, cand_tri
+    return cand
 
 
 def build_surface_index(points, cells, k: int = INDEX_K, coarse: str = "exact",
@@ -163,14 +163,13 @@ def build_surface_index(points, cells, k: int = INDEX_K, coarse: str = "exact",
     card unless ``device="cpu"``); ``coarse`` picks the coarse pass."""
     check_coarse(coarse)
     device = resolve_device(device)
-    cand, cand_tri = build_shortlist(points, cells, k)
+    cand = build_shortlist(points, cells, k)
     points_t = torch.as_tensor(np.asarray(points, np.float32), device=device)
     return SurfaceIndex(
         points=points_t,
         tri=points_t[torch.as_tensor(np.asarray(cells), dtype=torch.int64,
                                      device=device)],
         cand=torch.as_tensor(cand, device=device),
-        cand_tri=torch.as_tensor(cand_tri, device=device),
         points_aug=pack_points_aug(points_t),
         coarse=coarse,
     )
@@ -186,7 +185,7 @@ def index_closest(index: SurfaceIndex, queries: torch.Tensor):
         coarse = coarse_nearest_dot(queries, index.points_aug)
     else:
         coarse = nearest_vertices(queries, index.points)
-    fidx, wtri = refine_shortlist(queries, coarse, index.cand, index.cand_tri)
+    fidx, wtri = refine_shortlist(queries, coarse, index.cand, index.faces)
     cp, d2 = closest_point_on_triangle(
         queries, wtri[..., 0:3], wtri[..., 3:6], wtri[..., 6:9])
     return cp, d2, fidx

@@ -26,14 +26,23 @@ STANDIN = REPO / "artifacts" / "posterior"
 K = 64
 
 
+def _cand_tri(tri, cand):
+    """The reference's per-vertex corner table of a shortlist: tri [F, 3, 3]
+    gathered by cand [V, K] → [V, 9·K], component-major (ax[K] ay[K] ...
+    cz[K])."""
+    v, k = cand.shape
+    return np.ascontiguousarray(
+        tri[cand].transpose(0, 2, 3, 1).reshape(v, 9 * k).astype(np.float32))
+
+
 def _tie_fixture():
     """Small-integer geometry, so every d² below is exact in float32.
 
     K3: vertices 0 and 2 coincide, as do 1 and 4; vertices 5 and 6 are
-    equidistant from the last query.  K4: one query row whose shortlist holds
-    the same triangle T as face 9 (slot 5), as face 7 (slot 10) and as face 7
-    again with its corners rotated (slot 20): the smallest face id wins over
-    the lower slot, then the lowest slot wins within face 7.  A second row
+    equidistant from the last query.  K4: faces 7 and 9 are the same
+    triangle T, face 8 is T with its corners rotated; one query row's
+    shortlist holds face 9 (slot 5), face 7 (slots 10 and 20) and face 8
+    (slot 25): the smallest face id wins over the lower slot.  A second row
     adds a strictly closer face 50 at slot 30, which wins over all."""
     verts = np.array([[0, 0, 0], [4, 0, 0], [0, 0, 0], [0, 4, 0], [4, 0, 0],
                       [10, 1, 0], [10, -1, 0]], np.float32)
@@ -41,22 +50,41 @@ def _tie_fixture():
                   np.float32)
     a, b, c = [0, 0, 0], [4, 0, 0], [0, 4, 0]
     far = np.array([[40, 40, 40], [44, 40, 40], [40, 44, 40]], np.float32)
-    close = np.array([[0, 0, 1.5], [4, 0, 1.5], [0, 4, 1.5]], np.float32)
+    tri = np.tile(far, (100 + K, 1, 1)) + np.arange(100 + K, dtype=np.float32)[:, None,
+                                                                             None]
+    tri[[7, 9]] = [a, b, c]
+    tri[8] = [b, c, a]
+    tri[50] = [[0, 0, 1.5], [4, 0, 1.5], [0, 4, 1.5]]
     cand = 100 + np.tile(np.arange(K, dtype=np.int32), (2, 1))
-    tris = np.tile(far, (2, K, 1, 1)) + np.arange(K, dtype=np.float32)[None, :, None,
-                                                                          None]
-    for row in (0, 1):
-        cand[row, [5, 10, 20]] = [9, 7, 7]
-        tris[row, 5] = tris[row, 10] = [a, b, c]
-        tris[row, 20] = [b, c, a]
+    cand[:, [5, 10, 20, 25]] = [9, 7, 7, 8]
     cand[1, 30] = 50
-    tris[1, 30] = close
-    cand_tri = np.ascontiguousarray(
-        tris.transpose(0, 2, 3, 1).reshape(2, 9 * K).astype(np.float32))
     rq = np.array([[[1, 1, 2], [1, 1, 2]]], np.float32)  # rows 0 and 1
     coarse = np.array([[0, 1]], np.int32)
-    return dict(tie_verts=verts, tie_vq=vq, tie_cand=cand, tie_cand_tri=cand_tri,
-                tie_rq=rq, tie_coarse=coarse)
+    return dict(tie_verts=verts, tie_vq=vq, tie_tri=tri.astype(np.float32), tie_cand=cand,
+                tie_cand_tri=_cand_tri(tri, cand), tie_rq=rq, tie_coarse=coarse)
+
+
+def _refine_nan_fixture():
+    """K4's NaN rule.  64 triangles of size ~50 (numpy seed 5), one shortlist
+    row naming all of them, and 200 finite queries of magnitude 1e37: the
+    cascade overflows, so some slots' d² are NaN and others not.  And 20
+    ordinary queries against the same row where face 13 (at slot 7) has NaN
+    corners."""
+    rng = np.random.RandomState(5)
+    tri = (rng.randn(K, 3, 3) * 50).astype(np.float32)
+    cand = rng.permutation(K).astype(np.int32)[None]
+    q37 = (rng.randn(1, 200, 3) * 1e37).astype(np.float32)
+    tri_nan = tri.copy()
+    tri_nan[13] = np.nan
+    cand_nan = cand.copy()
+    slot = int(np.nonzero(cand_nan[0] == 13)[0][0])
+    cand_nan[0, [slot, 7]] = cand_nan[0, [7, slot]]
+    q_nan = (rng.randn(1, 20, 3) * 50).astype(np.float32)
+    return dict(rn_tri=tri, rn_cand=cand, rn_cand_tri=_cand_tri(tri, cand), rn_q=q37,
+                rn_tri_nan=tri_nan, rn_cand_nan=cand_nan,
+                rn_cand_tri_nan=_cand_tri(tri_nan, cand_nan), rn_q_nan=q_nan,
+                rn_coarse=np.zeros((1, 200), np.int32),
+                rn_coarse_nan=np.zeros((1, 20), np.int32))
 
 
 def _nan_fixture():
@@ -113,6 +141,7 @@ def _jax_references(out_path):
     out["sph_nv"] = nv(out["sph_q"], sp)
     out["sph_nv_b"] = nv(out["sph_q"], out["sph_pts_b"])
     sidx = build_surface_index(sp, sc, k=K)
+    out["sph_tri"] = np.asarray(sidx.tri)
     out["sph_cand"], out["sph_cand_tri"] = sidx.cand, sidx.cand_tri
     out["sph_fidx"], out["sph_wtri"] = refine(out["sph_q"], out["sph_nv"],
                                               sidx.cand, sidx.cand_tri)
@@ -147,6 +176,13 @@ def _jax_references(out_path):
     out["tie_nv"] = nv(tie["tie_vq"], tie["tie_verts"])
     out["tie_fidx"], out["tie_wtri"] = refine(tie["tie_rq"], tie["tie_coarse"],
                                               tie["tie_cand"], tie["tie_cand_tri"])
+    # K4's NaN rule
+    rn = _refine_nan_fixture()
+    out.update(rn)
+    out["rn_fidx"], out["rn_wtri"] = refine(rn["rn_q"], rn["rn_coarse"], rn["rn_cand"],
+                                            rn["rn_cand_tri"])
+    out["rn_fidx_nan"], out["rn_wtri_nan"] = refine(
+        rn["rn_q_nan"], rn["rn_coarse_nan"], rn["rn_cand_nan"], rn["rn_cand_tri_nan"])
     np.savez(out_path, **out)
 
 
@@ -185,22 +221,20 @@ def test_nearest_vertices_plain_matches_pallas(ref, case):
 
 @pytest.mark.parametrize("case", ["sph", "fem", "tie"])
 def test_refine_shortlist_plain_matches_pallas(ref, case):
-    from icp_proposal_tpu_torch.ops.closest_point_cuda import refine_shortlist
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import face_table, refine_shortlist
 
-    q, coarse, cand, cand_tri, fidx, wtri = {
-        "sph": ("sph_q", "sph_nv", "sph_cand", "sph_cand_tri", "sph_fidx", "sph_wtri"),
-        "fem": ("fem_q", "fem_nv", "ctx_cand", "ctx_cand_tri", "fem_fidx", "fem_wtri"),
-        "tie": ("tie_rq", "tie_coarse", "tie_cand", "tie_cand_tri", "tie_fidx",
-                "tie_wtri"),
+    q, coarse, cand, tri, fidx, wtri = {
+        "sph": ("sph_q", "sph_nv", "sph_cand", "sph_tri", "sph_fidx", "sph_wtri"),
+        "fem": ("fem_q", "fem_nv", "ctx_cand", "ctx_tri", "fem_fidx", "fem_wtri"),
+        "tie": ("tie_rq", "tie_coarse", "tie_cand", "tie_tri", "tie_fidx", "tie_wtri"),
     }[case]
     got_f, got_w = refine_shortlist(_t(ref[q]), _t(ref[coarse], torch.int32),
-                                    _t(ref[cand], torch.int32), _t(ref[cand_tri]))
+                                    _t(ref[cand], torch.int32), face_table(_t(ref[tri])))
     np.testing.assert_array_equal(got_f.numpy(), ref[fidx])
     np.testing.assert_array_equal(got_w.numpy(), ref[wtri])
     if case == "tie":
-        # row 0: faces 9 and 7 tie on d² → face 7; slots 10 and 20 of face 7
-        # tie → slot 10, whose corners are in (a, b, c) order; row 1: the
-        # strictly closer face 50 wins
+        # row 0: faces 9, 7 and 8 tie on d² → face 7, whose corners are in
+        # (a, b, c) order; row 1: the strictly closer face 50 wins
         np.testing.assert_array_equal(got_f.numpy(), [[7, 50]])
         np.testing.assert_array_equal(got_w.numpy()[0, 0],
                                       [0, 0, 0, 4, 0, 0, 0, 4, 0])
@@ -211,8 +245,8 @@ def test_index_closest_matches_jax(ref):
     from icp_proposal_tpu_torch.ops.surface_index import index_closest
 
     ctx = convert.context_from_arrays(
-        *(ref[f"ctx_{n}"] for n in ("points", "cells", "tri", "boundary",
-                                    "cand", "cand_tri")), device="cpu")
+        *(ref[f"ctx_{n}"] for n in ("points", "cells", "tri", "boundary", "cand")),
+        device="cpu")
     cp, d2, fidx = index_closest(ctx.index, _t(ref["fem_q"]))
     np.testing.assert_array_equal(fidx.numpy(), ref["ic_fidx"])
     np.testing.assert_allclose(d2.numpy(), ref["ic_d2"], rtol=1e-5)
@@ -231,7 +265,10 @@ def test_port_index_build_matches_reference_context(ref):
     np.testing.assert_array_equal(ctx.cells.numpy(), ref["ctx_cells"])
     np.testing.assert_array_equal(ctx.boundary.numpy(), ref["ctx_boundary"])
     np.testing.assert_array_equal(ctx.index.cand.numpy(), ref["ctx_cand"])
-    np.testing.assert_array_equal(ctx.index.cand_tri.numpy(), ref["ctx_cand_tri"])
+    np.testing.assert_array_equal(ctx.index.tri.numpy(), ref["ctx_tri"])
+    np.testing.assert_array_equal(
+        _cand_tri(ctx.index.faces[:, :9].reshape(-1, 3, 3).numpy(), ctx.index.cand.numpy()),
+        ref["ctx_cand_tri"])
 
 
 def test_nearest_vertices_nan_rule(ref):
@@ -261,29 +298,173 @@ def test_nearest_vertices_nan_rule(ref):
     np.testing.assert_array_equal(ref["nan_nv_b"], 2 ** 30)
 
 
+@pytest.mark.parametrize("case", ["sph", "fem"])
+def test_face_table_rows_are_cand_tri(ref, case):
+    """K4's face table, gathered by the shortlist in component-major order,
+    is bitwise the reference's per-vertex corner table."""
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import face_table
+
+    tri, cand, want = (ref[f"{case}_tri" if case == "sph" else "ctx_tri"],
+                       ref[f"{case}_cand" if case == "sph" else "ctx_cand"],
+                       ref[f"{case}_cand_tri" if case == "sph" else "ctx_cand_tri"])
+    faces = face_table(_t(tri)).numpy()
+    assert faces.shape == (len(tri), 12) and (faces[:, 9:] == 0).all()
+    np.testing.assert_array_equal(_cand_tri(faces[:, :9].reshape(-1, 3, 3), cand), want)
+
+
+def _refine_d2(q, tri, cand):
+    """The twin's cascade d² [1, P, K] of queries q [1, P, 3] against the
+    faces cand [1, K] of tri."""
+    from icp_proposal_tpu_torch.ops.closest_point import closest_point_on_triangle
+
+    t = _t(tri)[_t(cand[0]).long()]
+    return closest_point_on_triangle(_t(q)[..., None, :], t[:, 0], t[:, 1], t[:, 2])[1]
+
+
+def test_refine_shortlist_nan_rule(ref):
+    """K4's NaN rule in the twin and in the interpret-mode JAX kernel: a NaN
+    d² in some slots only makes slot 0 the winner.  Queries of magnitude
+    1e37 overflow the cascade in some of a shortlist's 64 slots; NaN corners
+    of one face make its slot NaN for every query.
+
+    The JAX kernel writes the winner's corners as a sum of corners × one-hot
+    over the slots, where 0·NaN would be NaN; XLA rewrites a product by a
+    0/1 mask into a select, so the reference returns the winner's own
+    corners, as the port does (here slot 0's, finite)."""
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import face_table, refine_shortlist
+
+    d2 = _refine_d2(ref["rn_q"], ref["rn_tri"], ref["rn_cand"])
+    some, every = torch.isnan(d2).any(-1)[0], torch.isnan(d2).all(-1)[0]
+    partial = (some & ~every).numpy()
+    assert partial.sum() >= 100  # the fixture does what it says
+    f, w = refine_shortlist(_t(ref["rn_q"]), _t(ref["rn_coarse"]), _t(ref["rn_cand"]),
+                            face_table(_t(ref["rn_tri"])))
+    np.testing.assert_array_equal(f.numpy(), ref["rn_fidx"])
+    np.testing.assert_array_equal(w.numpy(), ref["rn_wtri"])
+    slot0 = ref["rn_cand"][0, 0]
+    assert (f.numpy()[0, partial] == slot0).all()
+    np.testing.assert_array_equal(w.numpy()[0, partial], ref["rn_tri"][slot0].reshape(-1)[
+        None].repeat(partial.sum(), 0))
+    assert (ref["rn_fidx"][0, partial] == slot0).all()
+
+    f, w = refine_shortlist(_t(ref["rn_q_nan"]), _t(ref["rn_coarse_nan"]),
+                            _t(ref["rn_cand_nan"]), face_table(_t(ref["rn_tri_nan"])))
+    np.testing.assert_array_equal(f.numpy(), ref["rn_fidx_nan"])
+    slot0 = ref["rn_cand_nan"][0, 0]
+    assert (f.numpy() == slot0).all() and ref["rn_cand_nan"][0, 7] == 13
+    np.testing.assert_array_equal(w.numpy(), ref["rn_wtri_nan"])
+    np.testing.assert_array_equal(w.numpy()[0], ref["rn_tri_nan"][slot0].reshape(1, 9)
+                                  .repeat(w.shape[1], 0))
+
+
+def _replay_refine(d2, faces, lanes):
+    """K4's merge, replayed in numpy: lane j of a query's group of ``lanes``
+    keeps the least (d², face id) of its non-NaN slots j, j + L, ... and
+    whether one was NaN; a butterfly over the group (xor partners, all lanes
+    at once) keeps the least pair; a NaN anywhere makes slot 0's face the
+    winner.  d2 [N, K] float32, faces [N, K] int32 → winning face ids [N]."""
+    n, k = d2.shape
+    out = np.empty(n, np.int64)
+    big = np.iinfo(np.int32).max
+    for i in range(n):
+        bd = np.full(lanes, np.inf, np.float32)
+        bf = np.full(lanes, big, np.int64)
+        nan = np.zeros(lanes, bool)
+        for j in range(lanes):
+            for s in range(j, k, lanes):
+                if np.isnan(d2[i, s]):
+                    nan[j] = True
+                elif (d2[i, s], faces[i, s]) < (bd[j], bf[j]):
+                    bd[j], bf[j] = d2[i, s], faces[i, s]
+        off = lanes // 2
+        while off:
+            pd, pf = bd[np.arange(lanes) ^ off], bf[np.arange(lanes) ^ off]
+            take = (pd < bd) | ((pd == bd) & (pf < bf))
+            bd, bf = np.where(take, pd, bd), np.where(take, pf, bf)
+            off //= 2
+        assert (bf == bf[0]).all() and (bd[0] == bd).all()
+        out[i] = faces[i, 0] if nan.any() else bf[0]
+    return out
+
+
+REFINE_LANES = 4  # lanes per query (ICP_REFINE_LANES in csrc/closest_point.cu)
+
+
+@pytest.mark.parametrize("lanes", [4, 8, 16, 32])
+@pytest.mark.parametrize("k", [1, 31, 64, 100])
+def test_refine_merge_replay(lanes, k):
+    """K4's lane merge with the NaN vote gives the twin's winner (least d²,
+    then the smallest face id, then the lowest slot; slot 0 where any d² is
+    NaN) at K not a multiple of the lanes: small-integer d², a function of
+    the face as in the kernel, so faces that repeat tie; +inf slots; rows
+    with some NaN slots, one all NaN and one all +inf.  The kernel runs
+    ``REFINE_LANES``; the other lane counts, which ``kernel_turns.py
+    --probe`` builds and times, show that the winner does not depend on
+    the lane mapping."""
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import refine_pick
+
+    rng = np.random.RandomState(lanes * 1000 + k)
+    n = 120
+    faces = rng.randint(0, 3 * k + 2, (n, k)).astype(np.int32)
+    val = rng.randint(0, 4, (n, 3 * k + 2)).astype(np.float32)
+    val[rng.rand(*val.shape) < 0.1] = np.inf
+    d2 = np.take_along_axis(val, faces, 1)
+    nan_rows = rng.rand(n) < 0.2
+    d2[nan_rows, rng.randint(0, k, n)[nan_rows]] = np.nan
+    d2[0], d2[1] = np.nan, np.inf
+    d2[2] = 3.0
+    kidx = refine_pick(torch.as_tensor(d2), torch.as_tensor(faces))
+    want = np.take_along_axis(faces, kidx.numpy(), 1)[:, 0]
+    got = _replay_refine(d2, faces, lanes)
+    np.testing.assert_array_equal(got, want)
+    assert (want[np.isnan(d2).any(1)] == faces[np.isnan(d2).any(1), 0]).all()
+    assert want[1] == faces[1].min() and want[2] == faces[2].min()
+
+
+def test_refine_lanes_matches_kernel():
+    """The lane count the tests name is the kernel's; the wrapper's face
+    table has the kernel's row width (three float4 rows a face)."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    src = (REPO / "icp_proposal_tpu_torch" / "csrc" / "closest_point.cu").read_text()
+    assert f"#define ICP_REFINE_LANES {REFINE_LANES}\n" in src
+    assert "constexpr int kRefineLanes = ICP_REFINE_LANES;" in src
+    assert "constexpr int kFaceRows = 3;" in src
+    assert cc.face_table(torch.zeros(2, 3, 3)).shape[1] == 12
+
+
 NV_GROUP = 32  # vertices per running-minimum group (kNvGroup in csrc/closest_point.cu)
 
 
-def _replay_nv(queries, points, chunk, slices):
-    """K3's reduction, replayed in float32: per staged chunk of ``chunk``
-    vertices (padded to whole groups with +inf rows), ``slices`` slices of
-    its groups; in each slice a running ``fmin`` of the pair values per
-    group and a strict < to record the slice's least group minimum and its
-    group; the slices merge by the least value (a lower slice keeps a tie);
-    when that is strictly below the best carried from earlier chunks, the
-    winning group is rescanned for the lowest id at that value.
-    queries [N, 3], points [V, 3] → ids [N] int64."""
+def _replay_nv(queries, points, chunk, slices, pair="euclid"):
+    """K3's reduction (and K8's, ``pair="dot"``), replayed in float32: per
+    staged chunk of ``chunk`` vertices (padded to whole groups with the
+    pair's pad rows: (+inf, +inf, +inf) or (0, 0, 0, +inf)), ``slices``
+    slices of its groups; in each slice a running ``fmin`` of the pair
+    values per group and a strict < to record the slice's least group
+    minimum and its group; the slices merge by the least value (a lower
+    slice keeps a tie); when that is strictly below the best carried from
+    earlier chunks, the winning group is rescanned for the lowest id at that
+    value.  queries [N, 3], points [V, 3] (euclid) or [V, 4] (dot: rows
+    (−2x, −2y, −2z, ‖v‖²)) → ids [N] int64."""
     n, v = queries.shape[0], points.shape[0]
     best = torch.full((n,), float("inf"))
     bid = torch.zeros(n, dtype=torch.int64)
     for lo in range(0, v, chunk):
         rows = points[lo:lo + chunk]
         n_groups = -(-rows.shape[0] // NV_GROUP)
-        pad = torch.full((n_groups * NV_GROUP - rows.shape[0], 3), float("inf"))
+        pad = torch.full((n_groups * NV_GROUP - rows.shape[0], rows.shape[1]), float("inf"))
+        if pair == "dot":
+            pad[:, :3] = 0.0
         rows = torch.cat([rows, pad])
-        diff = queries[:, None, :] - rows[None]  # [N, R, 3]
-        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-        d2 = (d2 + diff[..., 2] * diff[..., 2]).reshape(n, n_groups, NV_GROUP)
+        if pair == "dot":
+            d2 = queries[:, None, 0] * rows[None, :, 0] + queries[:, None, 1] * rows[None, :, 1]
+            d2 = d2 + queries[:, None, 2] * rows[None, :, 2]
+            d2 = (d2 + rows[None, :, 3]).reshape(n, n_groups, NV_GROUP)
+        else:
+            diff = queries[:, None, :] - rows[None]  # [N, R, 3]
+            d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+            d2 = (d2 + diff[..., 2] * diff[..., 2]).reshape(n, n_groups, NV_GROUP)
         val = torch.full((n,), float("inf"))
         grp = torch.full((n,), -1, dtype=torch.int64)
         for sl in range(slices):
@@ -325,20 +506,35 @@ def _adversarial_nv(v):
     return torch.as_tensor(q), torch.as_tensor(pts)
 
 
-@pytest.mark.parametrize("v,chunk,slices", [(101, 64, 1), (101, 64, 3), (1622, 2048, 8),
-                                            (333, 96, 2), (40, 2048, 8), (5, 2048, 8)])
-def test_nearest_vertices_reduction_replay(v, chunk, slices):
+_NV_REPLAYS = [(101, 64, 1), (101, 64, 3), (1622, 2048, 8), (333, 96, 2), (40, 2048, 8),
+               (5, 2048, 8)]
+
+
+@pytest.mark.parametrize("v,chunk,slices,pair", [
+    *(pytest.param(*c, "euclid", id="-".join(map(str, c))) for c in _NV_REPLAYS),
+    # K8 runs only the shared mode: one slice
+    *(pytest.param(v, chunk, 1, "dot", id=f"dot-{v}-{chunk}")
+      for v, chunk in ((101, 64), (1622, 2048), (333, 96), (5000, 2048), (40, 2048),
+                       (5, 2048)))])
+def test_nearest_vertices_reduction_replay(v, chunk, slices, pair):
     """The kernel's group minimum, slice merge, rescan and chunk carry give
     ``torch.argmin``'s first minimum over the finite values, ties and NaN
     included, at vertex counts that are not multiples of the group, the
-    chunk or the slices."""
-    from icp_proposal_tpu_torch.ops.closest_point import nearest_vertices
+    chunk or the slices; for K3's pair and for K8's dot-form pair with its
+    pad rows (0, 0, 0, +inf), against K8's direct strict scan."""
+    from icp_proposal_tpu_torch.ops.closest_point import coarse_nearest_dot, nearest_vertices
+    from icp_proposal_tpu_torch.ops.surface_index import pack_points_aug
 
     q, pts = _adversarial_nv(v) if v > 32 else (
         torch.as_tensor(np.random.RandomState(v).randn(9, 3).astype(np.float32)),
         torch.as_tensor(np.random.RandomState(v + 1).randn(v, 3).astype(np.float32)))
-    got = _replay_nv(q, pts, chunk, slices)
-    want = nearest_vertices(q[None], pts)[0].long()
+    if pair == "dot":
+        aug = pack_points_aug(pts)
+        got = _replay_nv(q, aug, chunk, slices, pair)
+        want = coarse_nearest_dot(q[None], aug)[0].long()
+    else:
+        got = _replay_nv(q, pts, chunk, slices)
+        want = nearest_vertices(q[None], pts)[0].long()
     assert torch.equal(got, want)
     if v > 32:
         assert int(got[0]) == 0 and int(got[1]) == 31 and int(got[2]) == 5
@@ -382,8 +578,8 @@ def test_cuda_closest_point_kernels_match_plain(cuda):
                                rtol=0, atol=0)
     torch.testing.assert_close(cc.nearest_vertices(tq, pts_b),
                                cc.nearest_vertices_plain(tq, pts_b), rtol=0, atol=0)
-    f, w = cc.refine_shortlist(q, nv, index.cand, index.cand_tri)
-    f_p, w_p = cc.refine_shortlist_plain(q, nv, index.cand, index.cand_tri)
+    f, w = cc.refine_shortlist(q, nv, index.cand, index.faces)
+    f_p, w_p = cc.refine_shortlist_plain(q, nv, index.cand, index.faces)
     torch.cuda.synchronize()
     torch.testing.assert_close(f, f_p, rtol=0, atol=0)
     torch.testing.assert_close(w, w_p, rtol=0, atol=0)
@@ -462,3 +658,82 @@ def test_cuda_nearest_vertices_config(cuda):
     for cfg in (shared, per_chain):
         assert cfg["threads"] == 256 and cfg["ctas_per_sm"] >= 1
         assert cfg["blocks"] <= sms * cfg["ctas_per_sm"]
+
+
+def _refine_on_card(cuda, q, coarse, cand, tri):
+    """K4 against its twin on the card, bitwise, through the wrapper."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    q, coarse, cand, tri = (torch.as_tensor(np.asarray(x), device=cuda)
+                            for x in (q, coarse, cand, tri))
+    faces = cc.face_table(tri)
+    n0 = cc.refine_shortlist.launches
+    f, w = cc.refine_shortlist(q, coarse, cand, faces)
+    f_p, w_p = cc.refine_shortlist_plain(q, coarse, cand, faces)
+    torch.cuda.synchronize()
+    assert cc.refine_shortlist.launches == n0 + 1
+    assert torch.equal(f, f_p) and torch.equal(w.view(torch.int32), w_p.view(torch.int32))
+    return f, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 64, 100])
+def test_cuda_refine_shortlist_k(cuda, k):
+    """K4 at K not a multiple of the lanes, on the stand-in femur target's
+    own K-nearest shortlists, 8 chains × 404 queries."""
+    from icp_proposal_tpu_torch.io.stl import read_stl
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+    from icp_proposal_tpu_torch.ops.surface_index import build_surface_index
+
+    rng = np.random.RandomState(k)
+    mp, _ = read_stl(STANDIN / "mean.stl")
+    tp, tc = read_stl(STANDIN / "map.stl")
+    index = build_surface_index(tp, tc, k=k, device=cuda)
+    q = torch.as_tensor(mp[rng.randint(0, len(mp), (8, 404))]
+                        + rng.randn(8, 404, 3).astype(np.float32) * 0.5, device=cuda)
+    nv = cc.nearest_vertices(q, index.points)
+    _refine_on_card(cuda, q.cpu(), nv.cpu(), index.cand.cpu(), index.tri.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_refine_shortlist_large_surface_and_clamps(cuda):
+    """K4 has no size limit: 25,000 random faces (a 300 KB table, more than
+    L1 holds), random K = 64 shortlists over them; out-of-range coarse rows
+    and face ids clamp as in the twin."""
+    rng = np.random.RandomState(7)
+    f, v, k = 25000, 3000, 64
+    tri = (rng.randn(f, 3, 3) * 30).astype(np.float32)
+    cand = rng.randint(0, f, (v, k)).astype(np.int32)
+    cand[5, [3, 40]] = [-7, f + 11]
+    q = (rng.randn(6, 500, 3) * 40).astype(np.float32)
+    coarse = rng.randint(0, v, (6, 500)).astype(np.int32)
+    coarse[0, :4] = [-1, v, v + 1000, 5]
+    fidx, _ = _refine_on_card(cuda, q, coarse, cand, tri)
+    assert fidx.min() >= -7 and fidx.max() <= f + 11
+
+
+@pytest.mark.cuda
+def test_cuda_refine_shortlist_nan_rule(cuda):
+    """K4's NaN rule on the card: the partial-NaN queries of magnitude 1e37
+    and the NaN-corner face give slot 0, as the twin and the reference."""
+    rn = _refine_nan_fixture()
+    f, _ = _refine_on_card(cuda, rn["rn_q"], rn["rn_coarse"], rn["rn_cand"], rn["rn_tri"])
+    d2 = _refine_d2(rn["rn_q"], rn["rn_tri"], rn["rn_cand"])
+    partial = (torch.isnan(d2).any(-1) & ~torch.isnan(d2).all(-1))[0]
+    assert int(partial.sum()) >= 100
+    assert (f.cpu()[0, partial] == int(rn["rn_cand"][0, 0])).all()
+    f, _ = _refine_on_card(cuda, rn["rn_q_nan"], rn["rn_coarse_nan"], rn["rn_cand_nan"],
+                           rn["rn_tri_nan"])
+    assert (f.cpu() == int(rn["rn_cand_nan"][0, 0])).all()
+
+
+@pytest.mark.cuda
+def test_cuda_refine_shortlist_config(cuda):
+    """K4's launch at the femur step's shapes: kRefineLanes lanes a query,
+    256 threads, one block per 256 / lanes queries."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    cfg = cc.refine_shortlist_config(2048 * 404)
+    assert cfg["lanes"] == REFINE_LANES and cfg["threads"] == 256
+    assert cfg["blocks"] == -(-2048 * 404 * REFINE_LANES // 256)
+    assert cfg["ctas_per_sm"] >= 1 and cfg["registers"] > 0

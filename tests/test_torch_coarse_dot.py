@@ -165,8 +165,8 @@ def test_index_closest_dot_matches_jax(ref):
     from icp_proposal_tpu_torch.ops.surface_index import index_closest
 
     ctx = convert.context_from_arrays(
-        *(ref[f"ctx_{n}"] for n in ("points", "cells", "tri", "boundary", "cand",
-                                    "cand_tri")), coarse="dot", device="cpu")
+        *(ref[f"ctx_{n}"] for n in ("points", "cells", "tri", "boundary", "cand")),
+        coarse="dot", device="cpu")
     assert ctx.index.coarse == "dot"
     q = _t(ref["fem_q"])
     cp, d2, fidx = index_closest(ctx.index, q)
@@ -247,3 +247,46 @@ def test_cuda_coarse_nearest_dot_matches_plain(cuda):
 
 if __name__ == "__main__":
     _jax_references(sys.argv[1])
+
+
+@pytest.mark.cuda
+def test_cuda_coarse_nearest_dot_ties_nan_and_many_chains(cuda):
+    """K8 on K3's scan against its twin, bitwise: the integer lattice of K3's
+    replay (duplicated vertices at the first and last id and across a group
+    edge, equidistant vertices, a NaN vertex, a NaN query) at V = 101, 1,622
+    and 5,000 (more than one staged chunk); and 70,000 chains of one query,
+    past the old kernel's 65,535-chain grid limit."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+    from icp_proposal_tpu_torch.ops.surface_index import pack_points_aug
+    from test_torch_closest_point import _adversarial_nv
+
+    for v in (101, 1622, 5000):
+        q, pts = _adversarial_nv(v)
+        q = q[None].expand(3, -1, -1).contiguous().to(cuda)
+        aug = pack_points_aug(pts.to(cuda))
+        ids = cc.coarse_nearest_dot(q, aug)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, cc.coarse_nearest_dot_plain(q, aug))
+        assert int(ids[0, 0]) == 0 and int(ids[0, 1]) == 31 and int(ids[0, 7]) == 0
+    rng = np.random.RandomState(9)
+    q = torch.as_tensor((rng.randn(70000, 1, 3) * 30).astype(np.float32), device=cuda)
+    aug = pack_points_aug(torch.as_tensor((rng.randn(1622, 3) * 30).astype(np.float32),
+                                          device=cuda))
+    ids = cc.coarse_nearest_dot(q, aug)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, cc.coarse_nearest_dot_plain(q, aug))
+
+
+@pytest.mark.cuda
+def test_cuda_coarse_nearest_dot_config(cuda):
+    """K8's launch at the registration step's shapes: K3's shared mode with
+    the dot pair, the [V, 4] rows staged once (one buffer)."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    cfg = cc.nearest_vertices_config(2048, 404, 1622, False, dot=True)
+    assert cfg["threads"] == 256 and cfg["smem_bytes"] == 1632 * 16
+    assert 1 <= cfg["q"] <= 8 and cfg["ctas_per_sm"] >= 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cfg["blocks"] <= sms * cfg["ctas_per_sm"]
+    with pytest.raises(RuntimeError):
+        cc.nearest_vertices_config(2048, 404, 1622, True, dot=True)

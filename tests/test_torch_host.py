@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from icp_proposal_tpu import mesh as jmesh
 from icp_proposal_tpu.io.stl import read_stl as jread_stl
@@ -23,6 +24,7 @@ from icp_proposal_tpu_torch.models import build_femur as pbuild
 from icp_proposal_tpu_torch.ops import morton as pmorton
 from icp_proposal_tpu_torch.ops import surface_index as pindex
 from icp_proposal_tpu_torch.ops import surface_sampling as psampling
+from icp_proposal_tpu_torch.ops.closest_point_cuda import face_table
 
 STANDIN = Path(__file__).resolve().parents[1] / "artifacts" / "posterior"
 
@@ -90,8 +92,8 @@ def test_index_build_agrees(meshes, monkeypatch):
     points, cells = meshes["map"]
     cells = cells[jmorton.morton_sort_faces(points, cells)]
     ref = jindex.build_surface_index(points, cells, k=64)
-    cand, cand_tri = pindex.build_shortlist(points, cells, k=64)
-    assert cand.shape == (1622, 64) and cand_tri.shape == (1622, 576)
+    cand = pindex.build_shortlist(points, cells, k=64)
+    assert cand.shape == (1622, 64) and cand.dtype == np.int32
     tri = points[cells].astype(np.float64)
     rows = np.arange(0, len(points), 7)
     p64 = points[rows].astype(np.float64)
@@ -102,6 +104,9 @@ def test_index_build_agrees(meshes, monkeypatch):
 
     np.testing.assert_allclose(sorted_d2(cand), sorted_d2(ref.cand), rtol=1e-6,
                                atol=1e-12)
-    # the component-major corner table is the gather of the shortlist
+    # the face table's rows of the shortlist, component-major, are the
+    # reference's corner table: the gather of the shortlist
+    faces = face_table(torch.as_tensor(points[cells])).numpy()
     np.testing.assert_array_equal(
-        cand_tri, points[cells][cand].transpose(0, 2, 3, 1).reshape(1622, 576))
+        faces[cand][..., :9].transpose(0, 2, 1).reshape(1622, 576),
+        points[cells][cand].transpose(0, 2, 3, 1).reshape(1622, 576))
