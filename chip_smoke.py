@@ -40,7 +40,17 @@ Phases (each prints one line or a short block, and ends in
                  configuration; K1 (4 warps) at r = 200 timed beside K6;
 10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
                  timed steps, launch counts;
-11. check:bfm    as 5, for the BFM partial setup.
+11. check:bfm    as 5, for the BFM partial setup;
+12. main:hybrid, main:mala, main:rw-adapt  the stand-in femur's adaptive
+                 setups (ICP + MALA + random walk; MALA alone; the random
+                 walk), scale adaptation on, at 2,048 chains: warm-up, timed
+                 steps, launch counts, the scales' range after the run and
+                 the MALA gradient entries zeroed as non-finite;
+13. check:hybrid, check:mala  as 5, with MALA's gradient on the card (K3,
+                 K4 supply the winners) against the CPU's;
+14. main:bfm-fitting  the BFM entry point ``run_bfm_fitting(partial=True)``
+                 on the rank-200 face at 2,048 chains: a warm-up run, a
+                 timed run of 5 steps with a JSON log read back.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  Then one JSON line with every kernel's numbers, and as
@@ -96,6 +106,24 @@ BFM_STEP_LAUNCHES = {"chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[share
                      "surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
                      "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1,
                      "coarse_nearest_dot": 0}
+# the adaptive femur setups: MALA's gradient runs the evaluator once more,
+# with its own index pass (K3 shared + K4; the backward pass launches no
+# kernel); hybrid keeps the flagship's fused pass and ICP factors
+HYBRID_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 2,
+                                                    "refine_shortlist": 2})
+MALA_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{
+    "chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 2,
+    "nearest_vertices[per_chain]": 0, "refine_shortlist": 2})
+RW_STEP_LAUNCHES = dict(MALA_STEP_LAUNCHES, **{"nearest_vertices[shared]": 1,
+                                               "refine_shortlist": 1})
+BFM_FIT_STEPS = 5
+# launches of the timed run_bfm_fitting(partial=True, verbose=True) outside
+# its steps: the initial carry (collective evaluator: K5 shared and per
+# chain; model-direction ICP: K3 + K4, one K6) and the boundary-aware
+# reconstruction metric (one K5)
+BFM_FIT_RUN_LAUNCHES = {"surface_distances[shared]": 2, "surface_distances[per_chain]": 1,
+                        "nearest_vertices[shared]": 1, "refine_shortlist": 1,
+                        "chol_solve_blocked": 1}
 # the femur step with coarse="dot": K8 takes the shared coarse pass from K3
 REG_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 0,
                                                  "coarse_nearest_dot": 1})
@@ -574,6 +602,16 @@ def phase_main(torch, dev, tag, model, mixture, evaluator, warmup, timed, per_st
     if not torch.isfinite(carry.log_post).all():
         raise AssertionError(f"{tag}: non-finite log_post after the main path")
     print(f"[{tag}] log_post finite; mean {float(carry.log_post.mean()):.3f}")
+    if mixture.adapt is not None:
+        scales = torch.exp(carry.adapt_log_scales)
+        print(f"[{tag}] adaptive scale factors after {warmup + timed} steps, by "
+              "component: " + "; ".join(
+                  f"{name} {float(scales[:, i].min()):.4f}–{float(scales[:, i].max()):.4f}"
+                  for i, name in enumerate(mixture.names) if mixture.adaptable[i]))
+    for i, comp in mixture.icp_components.items():
+        if hasattr(comp, "zeroed"):
+            print(f"[{tag}] {mixture.names[i]}: {int(comp.zeroed)} non-finite gradient "
+                  f"entries zeroed since the setup was built")
     return launches
 
 
@@ -729,9 +767,65 @@ def phase_check(torch, dev, tag, model, setup, cpu_setup_of):
         torch.testing.assert_close(rec.log_product, rec_c.log_product, rtol=1e-4,
                                    atol=0)
         compared += int(clear.sum())
+        for i, comp in mixture.icp_components.items():
+            if hasattr(comp, "zeroed"):
+                _check_gradient(tag, comp.factors(carry.state).cpu(),
+                                cpu_mixture.icp_components[i].factors(
+                                    _to_device(carry.state, "cpu")))
         carry = nxt
     print(f"[{tag}] card vs CPU plain twins, 8 chains x 3 steps: {compared} decisions "
           f"identical, log posterior within rtol 1e-4")
+
+
+def _check_gradient(tag, got, want):
+    """MALA's gradient on the card against the CPU's: rtol 1e-4 where
+    |g| > 1, atol 1e-4 below, the same entries zeroed."""
+    if not (got == 0).equal(want == 0):
+        raise AssertionError(f"{tag}: MALA's zeroed gradient entries differ from the CPU's")
+    big = want.abs() > 1
+    rel = float(((got - want).abs() / want.abs())[big].max()) if big.any() else 0.0
+    small = float((got - want).abs()[~big].max()) if (~big).any() else 0.0
+    print(f"[{tag}] MALA gradient card vs CPU: max relative difference {rel:.3g} where "
+          f"|g| > 1, max absolute {small:.3g} elsewhere; |g| up to {float(want.abs().max()):.4g}")
+    if rel > 1e-4 or small > 1e-4:
+        raise AssertionError(f"{tag}: MALA's gradient on the card differs from the CPU's")
+
+
+def phase_bfm_fitting(torch, dev, face):
+    """``run_bfm_fitting(partial=True)`` at ``N_CHAINS`` chains on the face:
+    a warm-up run, then a timed run of ``BFM_FIT_STEPS`` steps (one segment)
+    with a JSON log, read back; launch counts asserted → counts."""
+    from icp_proposal_tpu_torch.apps.bfm import run_bfm_fitting
+    from icp_proposal_tpu_torch.sampling import loggers
+
+    tag = "main:bfm-fitting"
+    common = dict(partial=True, num_samples=BFM_FIT_STEPS, n_chains=N_CHAINS)
+    run_bfm_fitting(face, verbose=False, **common)
+    _sync(torch)
+    BUILD.mkdir(exist_ok=True)
+    log = BUILD / "bfm_fitting_log.json"
+    _reset_counts()
+    t = time.perf_counter()
+    result, _ = run_bfm_fitting(face, json_path=str(log), seed=3, verbose=True, **common)
+    _sync(torch)
+    dt = time.perf_counter() - t
+    launches = _read_counts()
+    sps = result.samples_per_sec
+    print(f"[{tag}] run_bfm_fitting(partial=True): {N_CHAINS} chains x {BFM_FIT_STEPS} "
+          f"steps in one segment; FittingResult.samples_per_sec {sps:.1f}, "
+          f"{1e3 * N_CHAINS / sps:.2f} ms/step; the whole call {dt:.3f} s (setup, "
+          f"initial carry and metrics included); acceptance "
+          f"{result.acceptance['overall']:.4f}; launches {launches}")
+    _check_launches(tag, launches, BFM_STEP_LAUNCHES, BFM_FIT_STEPS, BFM_FIT_RUN_LAUNCHES)
+    records = loggers.load_log(log)
+    if len(result.json_records) != BFM_FIT_STEPS or len(records) != BFM_FIT_STEPS:
+        raise AssertionError(f"{tag}: the JSON log must hold {BFM_FIT_STEPS} records")
+    if not (result.best_log_value > -float("inf")
+            and torch.isfinite(result.final_states.coeffs).all()):
+        raise AssertionError(f"{tag}: non-finite result")
+    print(f"[{tag}] JSON log {log.name}: {len(records)} records read back; best log "
+          f"value {result.best_log_value:.4f}")
+    return launches
 
 
 def main() -> int:
@@ -776,7 +870,10 @@ def main() -> int:
     from icp_proposal_tpu_torch.apps.femur import (
         FemurData,
         load_standin_femur_data,
+        make_hybrid_setup,
         make_icp_proposal_setup,
+        make_mala_setup,
+        make_random_walk_adapt_setup,
     )
 
     t = time.perf_counter()
@@ -843,6 +940,30 @@ def main() -> int:
     phase_check(torch, dev, "check:bfm", face.model, bfm_setup,
                 lambda m: make_bfm_fitting_setup(dataclasses.replace(face, model=m),
                                                  partial=True))
+    _sync(torch)
+
+    # 12. main paths: the adaptive femur setups
+    adaptive = {"hybrid": (make_hybrid_setup, HYBRID_STEP_LAUNCHES),
+                "mala": (make_mala_setup, MALA_STEP_LAUNCHES),
+                "rw-adapt": (make_random_walk_adapt_setup, RW_STEP_LAUNCHES)}
+    built = {}
+    for name, (make, per_step) in adaptive.items():
+        built[name] = make(data)
+        _, mix, ev = built[name]
+        launches[name] = phase_main(torch, dev, f"main:{name}", data.model, mix, ev,
+                                    WARMUP_STEPS, TIMED_STEPS, per_step)
+
+    # 13. check the gradient-informed setups against the plain twins on the CPU
+    for name in ("hybrid", "mala"):
+        make = adaptive[name][0]
+        phase_check(torch, dev, f"check:{name}", data.model, built[name],
+                    lambda m, make=make: make(FemurData(
+                        m, data.target, data.target_boundary_mask,
+                        data.model_boundary_mask)))
+        _sync(torch)
+
+    # 14. main path: the BFM entry point
+    launches["bfm-fitting"] = phase_bfm_fitting(torch, dev, face)
     _sync(torch)
 
     kernels = []

@@ -10,7 +10,10 @@ in ``jax`` through that package's ``__init__``.
 Every Pallas kernel on the ported path has a hand-written CUDA kernel for
 ``sm_90a`` in ``csrc/`` (built on first use by ``_build.py``), wrapped beside
 a plain PyTorch twin in ``ops/chol_cuda.py`` and ``ops/closest_point_cuda.py``.
-A wrapper takes its plain twin only for tensors on the CPU.
+A wrapper takes its plain twin only for tensors on the CPU.  The kernels
+have no backward: MALA's gradient flows through the elementwise recompute
+of each closest-point winner, and a wrapper given a tensor that requires
+grad raises.
 """
 import torch
 

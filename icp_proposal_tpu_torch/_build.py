@@ -169,11 +169,18 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def kernel_device(*tensors: torch.Tensor) -> torch.device:
     """The one device all ``tensors`` lie on; only ``cpu`` (plain twin) and
-    ``cuda`` (kernel) are taken."""
+    ``cuda`` (kernel) are taken.  The kernels have no backward, so a tensor
+    that requires grad while grad mode is on raises, on the card and on the
+    CPU alike: callers stop the gradient at a kernel's inputs and recompute
+    the winner from the live tensors (``surface_index.index_closest``)."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {dev} and {t.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("a kernel input requires grad, but the kernels have no "
+                           "backward: pass it detached and recompute what must be "
+                           "differentiated")
     return dev

@@ -6,7 +6,8 @@ Counterpart of ``icp_proposal_tpu/apps/bfm.py`` (reference ``apps/bfm``:
 license-gated and not in the repository; ``load_synthetic_face_data``
 builds the reference's stand-in instead, which runs the same code path: an
 open icosphere patch with a FaceKernel GPMM, a target drawn from the model
-and a partial target with a synthesized occlusion.  Loading the real assets
+and a partial target with a synthesized occlusion.  ``run_bfm_fitting`` is the
+end-to-end entry point.  Loading the real assets
 (``load_bfm_data``, ``prepare_bfm_dataset``) is not ported yet.
 """
 from __future__ import annotations
@@ -160,3 +161,25 @@ def make_bfm_fitting_setup(data: BfmData, partial: bool, parity: bool = False):
         evaluator = proximity_and_independent(
             model, ctx, mode="model_to_target", sigma=3.0, n_points=n_eval)
     return ctx, mixture, evaluator
+
+
+def run_bfm_fitting(data: BfmData | None = None, partial: bool = False,
+                    num_samples: int = 10000, n_chains: int = 1, json_path=None,
+                    seed: int = 1024, verbose: bool = True, device=DEFAULT_DEVICE):
+    """End-to-end BFM fitting, complete or partial (reference
+    ``BfmFittingComplete`` / ``BfmFittingPartial``), through
+    ``SamplingRegistration.runfitting`` → (FittingResult, data).  data: None
+    builds the face stand-in (``load_synthetic_face_data()``) on ``device``
+    (the card unless ``device="cpu"``); given data keeps its model's
+    device."""
+    from icp_proposal_tpu_torch.registration.sampling_registration import (
+        SamplingRegistration,
+    )
+
+    if data is None:
+        data = load_synthetic_face_data(device=device)
+    target = data.target_partial if partial else data.target
+    _, mixture, evaluator = make_bfm_fitting_setup(data, partial)
+    reg = SamplingRegistration(data.model, target, mixture, evaluator, verbose=verbose)
+    return reg.runfitting(num_samples, seed=seed, n_chains=n_chains,
+                          json_path=json_path), data

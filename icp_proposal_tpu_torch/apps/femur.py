@@ -1,4 +1,4 @@
-"""Femur workload: data and the flagship MH configuration.
+"""Femur workload: data and the MH configurations.
 
 Counterpart of ``icp_proposal_tpu/apps/femur.py``.  The real femur assets
 (``femur_gp_model_100-components.h5`` and the landmark-aligned target) are
@@ -61,8 +61,6 @@ def make_icp_proposal_setup(data: FemurData, parity: bool = False, coarse: str =
     density (no ½·log det M, no relaxation Jacobian) and its independent
     seeded ICP subsets.  coarse: the shortlist index's coarse pass, "exact"
     (K3) or "dot" (K8)."""
-    from icp_proposal_tpu_torch.sampling.context import build_target_context
-    from icp_proposal_tpu_torch.sampling.evaluators import proximity_and_independent
     from icp_proposal_tpu_torch.sampling.proposals import (
         MixtureProgram,
         mixed_proposal_icp,
@@ -71,10 +69,7 @@ def make_icp_proposal_setup(data: FemurData, parity: bool = False, coarse: str =
     )
 
     model = data.model
-    ctx = build_target_context(data.target, data.target_boundary_mask, coarse=coarse,
-                               device=model.device)
-    evaluator = proximity_and_independent(
-        model, ctx, mode="model_to_target", sigma=2.0, n_points=4 * model.rank)
+    ctx, evaluator = _context_and_evaluator(data, 2.0, coarse)
     mixture = MixtureProgram(
         nest(
             (0.9, mixed_proposal_icp(
@@ -95,41 +90,107 @@ def make_icp_proposal_setup(data: FemurData, parity: bool = False, coarse: str =
     return ctx, mixture, evaluator
 
 
+def make_hybrid_setup(data: FemurData, icp_weight=0.5, mala_weight=0.4,
+                      mala_step=0.1, rw_sigma=0.1, step_length=0.1,
+                      sigma_eval=2.0, adapt=True, coarse: str = "exact"):
+    """The reference's recommended exact-mode configuration for posterior
+    inference: 0.5·ICP mixture (both directions, 2·rank points) + 0.4·MALA
+    + 0.1·random walk, with Robbins–Monro scale adaptation (``adapt``);
+    Euclidean model→target evaluator of σ = ``sigma_eval`` over 4·rank
+    points.  The ICP model ids are a stride-2 slice of the evaluator's, so
+    one closest-point pass serves both (``mh._fusion_plan``); MALA's
+    gradient takes a second pass of its own."""
+    from icp_proposal_tpu_torch.sampling.proposals import (
+        AdaptConfig,
+        MixtureProgram,
+        gradient_shape_proposal,
+        mixed_proposal_icp,
+        mixed_random_shape_proposal,
+        nest,
+    )
+
+    model = data.model
+    ctx, evaluator = _context_and_evaluator(data, sigma_eval, coarse)
+    rw_weight = 1.0 - icp_weight - mala_weight
+    mixture = MixtureProgram(
+        nest(
+            (icp_weight, mixed_proposal_icp(
+                n_points=2 * model.rank,
+                projection_direction="model_and_target",
+                step_length=step_length,
+            )),
+            (mala_weight, gradient_shape_proposal((mala_step,))),
+            (rw_weight, mixed_random_shape_proposal((rw_sigma,))),
+        ),
+        model,
+        ctx,
+        data.model_boundary_mask,
+        parity=False,
+        adapt=AdaptConfig() if adapt else None,
+        icp_model_ids=evaluator.model_ids("distance")[::2],
+    )
+    return ctx, mixture, evaluator
+
+
 def make_random_walk_setup(data: FemurData, shape_steps=(0.1,), sigma_eval: float = 2.0,
                            adapt: bool = False, coarse: str = "exact"):
     """Random-walk-only configuration (the comparison chain of the
     reference's ``RunMHRandomInitComparison.scala``): random-shape walks
     with one component per step size in ``shape_steps``, Euclidean
     model→target evaluator of σ = ``sigma_eval`` over 4·rank points.
-    ``adapt=True`` (scale adaptation, "rw-adapt") comes with slice 7 and
-    raises until then."""
-    if adapt:
-        raise NotImplementedError(
-            "make_random_walk_setup(adapt=True) needs scale adaptation, which is not "
-            "ported yet (ROADMAP queue 1, slice 7)")
-    from icp_proposal_tpu_torch.sampling.context import build_target_context
-    from icp_proposal_tpu_torch.sampling.evaluators import proximity_and_independent
+    ``adapt=True`` adds Robbins–Monro scale adaptation toward acceptance
+    0.234 ("rw-adapt")."""
     from icp_proposal_tpu_torch.sampling.proposals import (
+        AdaptConfig,
         MixtureProgram,
         mixed_random_shape_proposal,
     )
 
     model = data.model
-    ctx = build_target_context(data.target, data.target_boundary_mask, coarse=coarse,
-                               device=model.device)
+    ctx, evaluator = _context_and_evaluator(data, sigma_eval, coarse)
     mixture = MixtureProgram(mixed_random_shape_proposal(shape_steps), model, ctx,
-                             data.model_boundary_mask)
-    evaluator = proximity_and_independent(
-        model, ctx, mode="model_to_target", sigma=sigma_eval, n_points=4 * model.rank)
+                             data.model_boundary_mask,
+                             adapt=AdaptConfig() if adapt else None)
     return ctx, mixture, evaluator
 
 
-def _slice_7(name):
-    def setup(data, coarse="exact"):
-        raise NotImplementedError(
-            f"setup {name!r} needs MALA and scale adaptation, which are not "
-            "ported yet (ROADMAP queue 1, slice 7)")
-    return setup
+def make_random_walk_adapt_setup(data: FemurData, **kw):
+    """``make_random_walk_setup`` with scale adaptation on."""
+    return make_random_walk_setup(data, adapt=True, **kw)
+
+
+def make_mala_setup(data: FemurData, step_sizes=(0.1,), sigma_eval=2.0, adapt=True,
+                    coarse: str = "exact"):
+    """MALA-only configuration with scale adaptation toward the
+    Langevin-optimal acceptance 0.574: one gradient of the product posterior
+    a step and no GP-posterior solves; Euclidean model→target evaluator of
+    σ = ``sigma_eval`` over 4·rank points."""
+    from icp_proposal_tpu_torch.sampling.proposals import (
+        AdaptConfig,
+        MixtureProgram,
+        gradient_shape_proposal,
+    )
+
+    model = data.model
+    ctx, evaluator = _context_and_evaluator(data, sigma_eval, coarse)
+    mixture = MixtureProgram(gradient_shape_proposal(step_sizes), model, ctx,
+                             data.model_boundary_mask,
+                             adapt=AdaptConfig() if adapt else None)
+    return ctx, mixture, evaluator
+
+
+def _context_and_evaluator(data: FemurData, sigma_eval: float, coarse: str):
+    """The target context (shortlist index, coarse pass ``coarse``) and the
+    Euclidean model→target evaluator of σ = ``sigma_eval`` over 4·rank
+    points, which every femur setup shares."""
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+    from icp_proposal_tpu_torch.sampling.evaluators import proximity_and_independent
+
+    model = data.model
+    ctx = build_target_context(data.target, data.target_boundary_mask, coarse=coarse,
+                               device=model.device)
+    return ctx, proximity_and_independent(
+        model, ctx, mode="model_to_target", sigma=sigma_eval, n_points=4 * model.rank)
 
 
 # The named setups (CLI --setup values).  "parity" is the reference recipe
@@ -138,11 +199,10 @@ SETUPS = {
     "flagship": make_icp_proposal_setup,
     "parity": lambda data, coarse="exact": make_icp_proposal_setup(
         data, parity=True, coarse=coarse),
+    "hybrid": make_hybrid_setup,
     "rw": make_random_walk_setup,
-    "rw-adapt": lambda data, coarse="exact": make_random_walk_setup(
-        data, adapt=True, coarse=coarse),
-    "hybrid": _slice_7("hybrid"),
-    "mala": _slice_7("mala"),
+    "rw-adapt": make_random_walk_adapt_setup,
+    "mala": make_mala_setup,
 }
 
 # The reference's recommended default (its argmax of ESS per wall second).
@@ -209,8 +269,10 @@ def main(argv=None):
     p.add_argument("--resume-mode", choices=["best", "last"], default="best")
     p.add_argument("--setup", choices=sorted(SETUPS), default=None,
                    help="flagship = reference recipe, exact densities; parity = "
-                        "reference recipe + reference density; rw = random walk. "
-                        f"Default: {RECOMMENDED_SETUP!r}")
+                        "reference recipe + reference density; hybrid = exact-mode "
+                        "ICP + MALA + random walk with scale adaptation; rw / "
+                        "rw-adapt / mala = random walk, adaptive random walk, "
+                        f"adaptive MALA. Default: {RECOMMENDED_SETUP!r}")
     p.add_argument("--coarse", choices=["exact", "dot"], default="exact",
                    help="the shortlist's coarse pass: exact nearest vertex (K3) or "
                         "its dot form (K8)")

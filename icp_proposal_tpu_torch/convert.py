@@ -99,17 +99,26 @@ def state_from_arrays(scale, rot, trans, center, coeffs,
 
 
 def carry_from_arrays(state: FitState, log_post, named,
-                      icp_factors: Sequence[tuple] = (),
+                      icp_factors: Sequence = (), adapt_log_scales=None, step_idx=None,
                       device=DEFAULT_DEVICE) -> MhCarry:
-    """An ``MhCarry``; ``icp_factors`` holds one (alpha_hat [B, r],
-    chol_m [B, r, r], logdet_m [B]) triple per ICP component, in component
-    order."""
+    """An ``MhCarry``; ``icp_factors`` holds one anchor per anchored
+    component, in component order: an ICP component's (alpha_hat [B, r],
+    chol_m [B, r, r], logdet_m [B]) triple, or a MALA component's gradient
+    [B, r].  ``adapt_log_scales`` [B, C] and ``step_idx`` [B]: the scale
+    adaptation's state (None without adaptation)."""
     device = resolve_device(device)
+
+    def anchor(f):
+        if isinstance(f, (tuple, list)):
+            return PosteriorFactors(*(_f32(a, device).contiguous() for a in f))
+        return _f32(f, device)
+
     return MhCarry(
         state=state,
         log_post=_f32(log_post, device),
         named=_f32(named, device),
-        icp_factors=tuple(
-            PosteriorFactors(*(_f32(a, device).contiguous() for a in f))
-            for f in icp_factors),
+        icp_factors=tuple(anchor(f) for f in icp_factors),
+        adapt_log_scales=None if adapt_log_scales is None else _f32(adapt_log_scales,
+                                                                   device),
+        step_idx=None if step_idx is None else _f32(step_idx, device),
     )

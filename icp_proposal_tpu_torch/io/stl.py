@@ -1,8 +1,9 @@
-"""STL mesh reader (binary and ASCII) with vertex welding.
+"""STL mesh reader (binary and ASCII) with vertex welding, and the binary
+writer.
 
-numpy copy of ``icp_proposal_tpu/io/stl.py``'s reader: STL stores a
-triangle soup; exactly coincident vertices are welded to recover the shared
-topology that vertex normals, boundary masks and GPMM vertex ids need.
+numpy copy of ``icp_proposal_tpu/io/stl.py``: STL stores a triangle soup;
+exactly coincident vertices are welded to recover the shared topology that
+vertex normals, boundary masks and GPMM vertex ids need.
 """
 from __future__ import annotations
 
@@ -62,3 +63,21 @@ def _read_ascii(text):
     if tri.shape[0] % 3 != 0:
         raise ValueError("malformed ASCII STL: vertex count not divisible by 3")
     return _weld(tri)
+
+
+def write_stl(path, points, cells):
+    """Write a binary STL: unit face normals, then the three corners, per
+    face (host arrays; tensors go through ``.cpu().numpy()`` first)."""
+    points = np.asarray(points, dtype=np.float32)
+    cells = np.asarray(cells, dtype=np.int32)
+    n_tri = len(cells)
+    tri = points[cells]  # [F, 3, 3]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80)
+        f.write(struct.pack("<I", n_tri))
+        rec = np.zeros((n_tri, 50), dtype=np.uint8)
+        floats = np.concatenate([n, tri.reshape(n_tri, 9)], axis=1).astype("<f4")
+        rec[:, :48] = floats.view(np.uint8).reshape(n_tri, 48)
+        rec.tofile(f)

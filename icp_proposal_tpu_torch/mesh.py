@@ -42,6 +42,13 @@ def boundary_vertex_mask(cells: np.ndarray, num_points: int) -> np.ndarray:
     return mask
 
 
+def vertex_adjacency_counts(cells: np.ndarray, num_points: int) -> np.ndarray:
+    """Number of faces at each vertex, [V] int32."""
+    counts = np.zeros(num_points, dtype=np.int32)
+    np.add.at(counts, np.asarray(cells).ravel(), 1)
+    return counts
+
+
 def vertex_face_adjacency(cells, num_points: int) -> np.ndarray:
     """Padded vertex→face adjacency [V, D] int32 (D = max vertex degree);
     padding index = F, a virtual zero-normal face."""
@@ -58,13 +65,35 @@ def vertex_face_adjacency(cells, num_points: int) -> np.ndarray:
     return adj
 
 
+def _face_cross(points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+    """(b − a) × (c − a) per face: points [..., V, 3] → [..., F, 3]."""
+    tri = points[..., cells, :]  # [..., F, 3, 3]
+    return torch.linalg.cross(tri[..., 1, :] - tri[..., 0, :],
+                              tri[..., 2, :] - tri[..., 0, :], dim=-1)
+
+
 def face_normals(points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
     """points [..., V, 3], cells [F, 3] → [..., F, 3] unit face normals."""
-    tri = points[..., cells, :]  # [..., F, 3, 3]
-    n = torch.linalg.cross(tri[..., 1, :] - tri[..., 0, :],
-                           tri[..., 2, :] - tri[..., 0, :], dim=-1)
+    n = _face_cross(points, cells)
     return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True),
                            min=1e-20)
+
+
+def face_areas(points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+    """points [..., V, 3], cells [F, 3] → [..., F] triangle areas."""
+    return 0.5 * torch.linalg.vector_norm(_face_cross(points, cells), dim=-1)
+
+
+def vertex_normals(points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+    """Unit vertex normals [..., V, 3], the normalized sum of the adjacent
+    unit face normals, accumulated by scatter-add (scalismo's
+    ``vertexNormals``); ``vertex_normals_gather`` is the hot loop's form."""
+    fn = face_normals(points, cells)  # [..., F, 3]
+    acc = torch.zeros_like(points)
+    for k in range(3):
+        acc.index_add_(acc.dim() - 2, cells[:, k], fn)
+    return acc / torch.clamp(torch.linalg.vector_norm(acc, dim=-1, keepdim=True),
+                             min=1e-20)
 
 
 def vertex_normals_gather(points: torch.Tensor, cells: torch.Tensor,

@@ -19,7 +19,7 @@ from icp_proposal_tpu_torch.models.kernels import (
     DiagonalKernel,
     GaussianScalar,
 )
-from icp_proposal_tpu_torch.models.nystrom import nystrom_lowrank
+from icp_proposal_tpu_torch.models.nystrom import nystrom_lowrank, total_variance_estimate
 
 
 def main_variance_axes(points: np.ndarray) -> np.ndarray:
@@ -69,3 +69,10 @@ def build_femur_gpmm(ref_points, ref_cells, num_components: int,
         noise_variance=0.0,
         device=device,
     )
+
+
+def variance_capture_ratio(kernel, ref_points, variance) -> float:
+    """Share of the kernel's total variance that the basis ``variance``
+    captures."""
+    total = total_variance_estimate(kernel, np.asarray(ref_points, np.float64))
+    return float(np.sum(variance) / total)

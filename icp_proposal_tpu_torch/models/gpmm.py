@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from icp_proposal_tpu_torch.mesh import TriangleMesh
 from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve, tri_solve_lt
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -81,13 +82,32 @@ def make_gpmm(ref_points, cells, mean_disp, basis, variance, noise_variance=0.0,
 # decode / prior
 # ---------------------------------------------------------------------------
 
-def instance_points(gpmm: Gpmm, coeffs: torch.Tensor) -> torch.Tensor:
-    """x(α) = ref + (μ + Q α): coeffs [..., r] → [..., V, 3], one [3V, r]
-    product."""
+def instance_displacement(gpmm: Gpmm, coeffs: torch.Tensor) -> torch.Tensor:
+    """u(α) = μ + Q α: coeffs [..., r] → [..., V, 3], one [3V, r] product."""
     v = gpmm.num_points
     flat = coeffs @ gpmm.sbasis.reshape(3 * v, gpmm.rank).T  # [..., 3V]
-    return gpmm.ref_points + (gpmm.mean_disp
-                              + flat.reshape(coeffs.shape[:-1] + (v, 3)))
+    return gpmm.mean_disp + flat.reshape(coeffs.shape[:-1] + (v, 3))
+
+
+def instance_points(gpmm: Gpmm, coeffs: torch.Tensor) -> torch.Tensor:
+    """x(α) = ref + u(α) (reference ``StatisticalMeshModel.instance``)."""
+    return gpmm.ref_points + instance_displacement(gpmm, coeffs)
+
+
+def instance_mesh(gpmm: Gpmm, coeffs: torch.Tensor) -> TriangleMesh:
+    """The instance at coeffs [r] as a mesh of tensors on the model's device."""
+    return TriangleMesh(points=instance_points(gpmm, coeffs), cells=gpmm.cells)
+
+
+def coefficients(gpmm: Gpmm, points: torch.Tensor) -> torch.Tensor:
+    """Project a shape back to coefficients, points [..., V, 3] → [..., r]:
+    α = (σ²I + QᵀQ)⁻¹ Qᵀ(x − ref − μ), σ² = 1e-5 (scalismo
+    ``StatisticalMeshModel.coefficients``), through the stored factor."""
+    v = gpmm.num_points
+    resid = (points - gpmm.ref_points - gpmm.mean_disp).reshape(
+        points.shape[:-2] + (3 * v,))
+    rhs = resid @ gpmm.sbasis.reshape(3 * v, gpmm.rank)  # Qᵀ resid
+    return torch.cholesky_solve(rhs[..., None], gpmm.coeff_chol)[..., 0]
 
 
 def prior_logpdf(coeffs: torch.Tensor) -> torch.Tensor:

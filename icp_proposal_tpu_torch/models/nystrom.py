@@ -1,6 +1,7 @@
 """Nyström low-rank GP approximation (host numpy, float64).
 
-Copy of ``icp_proposal_tpu/models/nystrom.py``'s ``nystrom_lowrank``:
+Copy of ``icp_proposal_tpu/models/nystrom.py``'s ``nystrom_lowrank`` and
+``total_variance_estimate``:
 
     K_nn = U Λ Uᵀ on n sampled points,  λ_i = Λ_i / n,
     φ_i(x) = (√n / Λ_i) · K(x, X) u_i
@@ -50,3 +51,10 @@ def nystrom_lowrank(kernel, sample_points: np.ndarray, eval_points: np.ndarray,
     variance = evals / n
     v = len(eval_points)
     return basis.reshape(v, 3, num_basis), variance
+
+
+def total_variance_estimate(kernel, points: np.ndarray) -> float:
+    """Mean trace of the kernel at the points (the model-building
+    variance-capture diagnostic, reference ``CreateGPModel.scala:38-46,95-98``)."""
+    kxx = kernel(points, points)  # [N, 3, 3]
+    return float(np.trace(kxx, axis1=-2, axis2=-1).mean())

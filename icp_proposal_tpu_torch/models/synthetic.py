@@ -1,12 +1,15 @@
-"""Synthetic meshes for the stand-in workloads (host numpy).
+"""Synthetic meshes and models for the stand-in workloads and tests.
 
-Copy of ``make_icosphere`` and ``make_open_patch`` from
-``icp_proposal_tpu/models/synthetic.py``: the synthetic face stand-in is an
-open icosphere patch, built the same way in both packages.
+Copy of ``icp_proposal_tpu/models/synthetic.py``: the meshes are host
+numpy (the synthetic face stand-in is an open icosphere patch, built the
+same way in both packages); ``make_synthetic_gpmm`` builds a small GPMM on
+any mesh, its tensors on a device.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE
 
 
 def make_icosphere(subdivisions: int = 2, radius: float = 50.0):
@@ -65,3 +68,24 @@ def make_open_patch(subdivisions: int = 2, radius: float = 50.0, z_cut: float = 
     remap = -np.ones(len(points), dtype=np.int64)
     remap[used] = np.arange(len(used))
     return points[used], remap[cells].astype(np.int32)
+
+
+def make_synthetic_gpmm(points, cells, rank: int = 8, sigma: float = 30.0,
+                        scale: float = 3.0, seed: int = 0, device=DEFAULT_DEVICE):
+    """Small GPMM over an arbitrary mesh through the production models'
+    kernel and Nyström pipeline (a diagonal Gaussian kernel), on ``device``
+    (the card unless ``device="cpu"``)."""
+    from icp_proposal_tpu_torch.models.gpmm import make_gpmm
+    from icp_proposal_tpu_torch.models.kernels import DiagonalKernel, GaussianScalar
+    from icp_proposal_tpu_torch.models.nystrom import nystrom_lowrank
+    from icp_proposal_tpu_torch.ops.surface_sampling import area_weighted_vertex_subset
+
+    kernel = DiagonalKernel(GaussianScalar(sigma)) * scale
+    n_sample = min(max(2 * rank, 16), len(points))
+    sample_ids = area_weighted_vertex_subset(points, cells, n_sample, seed=seed + 1)
+    points64 = np.asarray(points, np.float64)
+    basis, variance = nystrom_lowrank(kernel, points64[sample_ids], points64,
+                                      num_basis=rank)
+    return make_gpmm(ref_points=np.asarray(points, np.float32), cells=cells,
+                     mean_disp=np.zeros_like(points, dtype=np.float32), basis=basis,
+                     variance=variance, noise_variance=0.0, device=device)

@@ -173,10 +173,18 @@ def surface_distances_auto(queries, points, cells):
     """(d2, face_idx) through the culled K5
     (``closest_point_cuda.surface_distances``, bitwise the dense scan; its
     wrapper takes the plain version for tensors on the CPU); same arguments
-    as ``surface_distances``."""
+    as ``surface_distances``.  Under grad, K5 takes its inputs detached and
+    the winner's d² is recomputed from the live queries and points, the
+    only evaluation gradients flow through (as in the shortlist index)."""
     from icp_proposal_tpu_torch.ops.closest_point_cuda import surface_distances as k5
 
-    return k5(queries, points, cells)
+    if not (torch.is_grad_enabled() and (queries.requires_grad or points.requires_grad)):
+        return k5(queries, points, cells)
+    _, fidx = k5(queries.detach(), points.detach(), cells)
+    tri, _ = _corners(points, cells, fidx)
+    q = queries if queries.dim() == 3 else queries.expand(fidx.shape[0], -1, -1)
+    _, d2 = closest_point_on_triangle(q, tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
+    return d2, fidx
 
 
 def _corners(points, cells, face_idx):

@@ -179,16 +179,26 @@ def index_closest(index: SurfaceIndex, queries: torch.Tensor):
     """queries [B, P, 3] → (cp [B, P, 3], d2 [B, P], face_idx [B, P] int32):
     coarse nearest vertex (K3, or K8 under ``coarse="dot"``), exact refine
     over its shortlist (K4), then the winner's closest point recomputed
-    elementwise."""
-    queries = queries.contiguous()
+    elementwise.
+
+    The kernels take the queries detached; gradients flow through the
+    recompute alone, from the live ``queries`` (the winner is piecewise
+    constant in the queries), as the reference's ``stop_gradient`` does."""
+    fixed = queries.detach().contiguous()
     if index.coarse == "dot":
-        coarse = coarse_nearest_dot(queries, index.points_aug)
+        coarse = coarse_nearest_dot(fixed, index.points_aug)
     else:
-        coarse = nearest_vertices(queries, index.points)
-    fidx, wtri = refine_shortlist(queries, coarse, index.cand, index.faces)
+        coarse = nearest_vertices(fixed, index.points)
+    fidx, wtri = refine_shortlist(fixed, coarse, index.cand, index.faces)
     cp, d2 = closest_point_on_triangle(
         queries, wtri[..., 0:3], wtri[..., 3:6], wtri[..., 6:9])
     return cp, d2, fidx
+
+
+def index_distances(index: SurfaceIndex, queries: torch.Tensor):
+    """(d2 [B, P], face_idx [B, P]): ``index_closest`` without the points."""
+    _, d2, fidx = index_closest(index, queries)
+    return d2, fidx
 
 
 def closest_auto(queries, points, cells, index: SurfaceIndex | None):
@@ -205,6 +215,34 @@ def closest_auto(queries, points, cells, index: SurfaceIndex | None):
 def distances_auto(queries, points, cells, index: SurfaceIndex | None):
     """(d2, face_idx) (see ``closest_auto``)."""
     if index is not None:
-        _, d2, fidx = index_closest(index, queries)
-        return d2, fidx
+        return index_distances(index, queries)
     return surface_distances_auto(queries.contiguous(), points, cells.to(torch.int32))
+
+
+def validate_index(index: SurfaceIndex, queries, atol: float = 1e-4,
+                   with_rel: bool = False):
+    """The index's distances against the dense kernel K5 over ``index.tri``
+    for queries [P, 3] (or [B, P, 3]) → (max_abs_err, frac_mismatched), or
+    with ``with_rel=True`` (max_abs_err, max_rel_err, frac_mismatched); a
+    mismatch is an error above ``atol``.  The index is exact near the
+    surface; far queries may miss the true face (the reference's error
+    model, ``validate_index`` in ``icp_proposal_tpu/ops/surface_index.py``)."""
+    dev = index.points.device
+    if not isinstance(queries, torch.Tensor):
+        queries = np.asarray(queries, np.float32)
+    q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    if q.dim() == 2:
+        q = q[None]
+    q = q.contiguous()
+    d2_fast, _ = index_distances(index, q)
+    nf = index.tri.shape[0]
+    soup = index.tri.reshape(-1, 3).contiguous()
+    cells = torch.arange(3 * nf, dtype=torch.int32, device=dev).reshape(nf, 3)
+    d2_ref, _ = surface_distances_auto(q, soup, cells)
+    d_fast, d_ref = torch.sqrt(d2_fast), torch.sqrt(d2_ref)
+    err = torch.abs(d_fast - d_ref)
+    frac = float(torch.mean((err > atol).to(torch.float32)))
+    if with_rel:
+        rel = err / torch.clamp_min(d_ref, 1e-6)
+        return float(err.max()), float(rel.max()), frac
+    return float(err.max()), frac

@@ -2,9 +2,12 @@
 
     python3 -m icp_proposal_tpu_torch.profile_step --setup bfm-partial
     python3 -m icp_proposal_tpu_torch.profile_step --setup femur
+    python3 -m icp_proposal_tpu_torch.profile_step --setup hybrid
 
-Builds the setup at its full width (femur stand-in GPMM-100, or the rank-200
-face stand-in with the partial-face setup), runs 3 warm-up steps of 2,048
+Builds the setup at its full width (femur stand-in GPMM-100 with the
+flagship setup, ``femur``, or one of the femur ``SETUPS`` rows ``hybrid``,
+``mala``, ``rw-adapt``; or the rank-200 face stand-in with the partial-face
+setup), runs 3 warm-up steps of 2,048
 chains, then 5 steps under ``torch.profiler`` and prints, on one line each:
 the card's name and power limit (``nvidia-smi``), the wall time per step,
 the device busy time per step (the sum of kernel durations; the port runs
@@ -24,17 +27,16 @@ from collections import defaultdict
 import torch
 
 N_CHAINS, WARMUP_STEPS, STEPS = 2048, 3, 5
+FEMUR_SETUPS = {"femur": "flagship", "hybrid": "hybrid", "mala": "mala",
+                "rw-adapt": "rw-adapt"}
 
 
 def _setup(name: str, device):
-    if name == "femur":
-        from icp_proposal_tpu_torch.apps.femur import (
-            load_standin_femur_data,
-            make_icp_proposal_setup,
-        )
+    if name in FEMUR_SETUPS:
+        from icp_proposal_tpu_torch.apps.femur import SETUPS, load_standin_femur_data
 
         data = load_standin_femur_data(device=device)
-        return data.model, make_icp_proposal_setup(data)
+        return data.model, SETUPS[FEMUR_SETUPS[name]](data)
     from icp_proposal_tpu_torch.apps.bfm import (
         load_synthetic_face_data,
         make_bfm_fitting_setup,
@@ -46,7 +48,7 @@ def _setup(name: str, device):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--setup", choices=("femur", "bfm-partial"),
+    parser.add_argument("--setup", choices=(*FEMUR_SETUPS, "bfm-partial"),
                         default="bfm-partial")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

@@ -92,12 +92,15 @@ class AcceptAllSpec:
 
 
 class EvaluatorProgram:
-    """The prior plus the likelihood terms of ``specs``:
-    ``__call__(state, points [B, V, 3]) -> (log_product [B], named [B, k])``
-    with ``named_keys`` = ["product", "prior", <likelihood names>].  The
-    model's boundary (for the collective term) is that of its cells."""
+    """The prior (when ``include_prior``) plus the likelihood terms of
+    ``specs``: ``__call__(state, points [B, V, 3]) -> (log_product [B],
+    named [B, k])`` with ``named_keys`` = ["product", "prior", <likelihood
+    names>] ("prior" only with the prior).  ``model_boundary`` [V] bool is
+    the model's boundary mask, which the collective term's target→model
+    direction reads (``build_evaluator`` derives it from the cells)."""
 
-    def __init__(self, gpmm, target_ctx: TargetContext, specs):
+    def __init__(self, gpmm, target_ctx: TargetContext, specs, include_prior,
+                 model_boundary):
         for s in specs:
             if not isinstance(s, (IndependentPointsSpec, HausdorffSpec,
                                   CollectiveAvgMaxSpec, AcceptAllSpec)):
@@ -105,11 +108,12 @@ class EvaluatorProgram:
         self.gpmm = gpmm
         self.ctx = target_ctx
         self.specs = tuple(specs)
-        self.named_keys: List[str] = ["product", "prior"] + [s.name for s in self.specs]
+        self.include_prior = include_prior
+        self.named_keys: List[str] = (["product"] + (["prior"] if include_prior else [])
+                                      + [s.name for s in self.specs])
         dev = gpmm.device
         cells = gpmm.cells.cpu().numpy()
-        self._model_boundary = torch.as_tensor(
-            boundary_vertex_mask(cells, gpmm.num_points), device=dev)
+        self._model_boundary = torch.as_tensor(model_boundary, device=dev).bool()
         # int32 cells for K5
         self._model_cells = torch.as_tensor(cells, dtype=torch.int32, device=dev)
         self._target_cells = target_ctx.cells.to(torch.int32)
@@ -206,7 +210,7 @@ class EvaluatorProgram:
         """``shared``: optional dict spec name → model→target d2 [B, P] from
         a fused query pass (``mh._fusion_plan``)."""
         shared = shared or {}
-        values = [gp.prior_logpdf(state.coeffs)]
+        values = [gp.prior_logpdf(state.coeffs)] if self.include_prior else []
         for s in self.specs:
             if isinstance(s, IndependentPointsSpec):
                 values.append(self._independent(s, current_points, shared.get(s.name)))
@@ -217,22 +221,32 @@ class EvaluatorProgram:
             else:
                 values.append(torch.zeros(state.coeffs.shape[0],
                                           device=state.coeffs.device))
-        product = sum(values)
+        product = sum(values) if values else torch.zeros(
+            state.coeffs.shape[0], device=state.coeffs.device)
         named = torch.stack([product] + values, dim=-1)
         return product, named
+
+
+def build_evaluator(gpmm, target_ctx: TargetContext, specs, include_prior: bool = True,
+                    model_boundary=None) -> EvaluatorProgram:
+    """An ``EvaluatorProgram``; ``model_boundary`` defaults to the boundary
+    of the model's cells."""
+    if model_boundary is None:
+        model_boundary = boundary_vertex_mask(gpmm.cells.cpu().numpy(), gpmm.num_points)
+    return EvaluatorProgram(gpmm, target_ctx, specs, include_prior, model_boundary)
 
 
 def proximity_and_independent(gpmm, target_ctx, mode="model_to_target",
                               sigma=1.0, n_points=100):
     """Reference ``ProductEvaluators.proximityAndIndependent`` (:38-55)."""
-    return EvaluatorProgram(
+    return build_evaluator(
         gpmm, target_ctx,
         [IndependentPointsSpec(sigma=sigma, mode=mode, n_points=n_points)])
 
 
 def proximity_and_hausdorff(gpmm, target_ctx, rate=1.0):
     """Reference ``ProductEvaluators.proximityAndHausdorff`` (:57-74)."""
-    return EvaluatorProgram(gpmm, target_ctx, [HausdorffSpec(rate=rate)])
+    return build_evaluator(gpmm, target_ctx, [HausdorffSpec(rate=rate)])
 
 
 def proximity_and_collective_hausdorff_boundary_aware(
@@ -241,7 +255,13 @@ def proximity_and_collective_hausdorff_boundary_aware(
     """Reference ``ProductEvaluators.proximityAndCollectiveHausdorffBoundaryAware``
     (:76-94); ``rate_max`` is the Exponential's rate, as breeze reads the
     reference's ``uncertaintyMax``."""
-    return EvaluatorProgram(
+    return build_evaluator(
         gpmm, target_ctx,
         [CollectiveAvgMaxSpec(sigma_avg=sigma_avg, rate_max=rate_max, mean=mean,
                               mode=mode, n_points=n_points)])
+
+
+def accept_all(gpmm, target_ctx):
+    """Reference ``ProductEvaluators.acceptAll`` (:28-36): the constant term
+    alone, no prior."""
+    return build_evaluator(gpmm, target_ctx, [AcceptAllSpec()], include_prior=False)

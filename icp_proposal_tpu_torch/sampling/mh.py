@@ -6,9 +6,11 @@ Python loop runs the steps.  Accept iff
 
     log u < [log p(θ') − log p(θ)] + [log q(θ|θ') − log q(θ'|θ)]
 
-with the mixture transition densities of ``MixtureProgram`` (forward factors
-carried for the current state, reverse factors computed at the candidate).
-A NaN log α (a non-SPD posterior factor) is a reject.
+with the mixture transition densities of ``MixtureProgram`` (forward
+anchors carried for the current state, reverse anchors computed at the
+candidate).  A NaN log α (a non-SPD posterior factor) is a reject.  With
+scale adaptation the carry also holds each chain's log-scales and step
+count, updated after the accept test.
 """
 from __future__ import annotations
 
@@ -73,9 +75,14 @@ class MhCarry(NamedTuple):
     state: FitState
     log_post: torch.Tensor  # [B] cached product-evaluator value
     named: torch.Tensor  # [B, k] cached named evaluator values
-    # GP-posterior factors anchored at the CURRENT state, one per ICP mixture
-    # component in component order; they always equal anchor_factors(state)
+    # anchors at the CURRENT state, one per anchored mixture component in
+    # component order (ICP: GP-posterior factors; MALA: ∇log π [B, r]);
+    # they always equal anchor_factors(state)
     icp_factors: tuple = ()
+    # scale adaptation (MixtureProgram.adapt; None without it), float32 as
+    # in the reference, which computes (1 + t)^decay in float32
+    adapt_log_scales: Optional[torch.Tensor] = None  # [B, C]
+    step_idx: Optional[torch.Tensor] = None  # [B]
 
 
 class ChainRecord(NamedTuple):
@@ -126,6 +133,25 @@ def _where(accept: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+def _where_anchor(accept: torch.Tensor, a, b):
+    """Per chain, anchor a where accepted, else b: ICP posterior factors
+    field by field, or MALA's gradient."""
+    if isinstance(a, gp.PosteriorFactors):
+        return gp.PosteriorFactors(*(_where(accept, x, y) for x, y in zip(a, b)))
+    return _where(accept, a, b)
+
+
+def _normals_of(gpmm, mixture: MixtureProgram):
+    """points [B, V, 3] → unit vertex normals, or None when no component
+    reads them (no ICP component)."""
+    if not mixture.needs_normals():
+        return lambda points: None
+    adjacency = torch.as_tensor(
+        vertex_face_adjacency(gpmm.cells.cpu().numpy(), gpmm.num_points),
+        dtype=torch.int64, device=gpmm.device)
+    return lambda points: vertex_normals_gather(points, gpmm.cells, adjacency)
+
+
 def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
                  store_params: bool = False, fuse: bool = True):
     """Build the MH step for a fixed configuration:
@@ -135,10 +161,10 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
     fuse=True shares one target-surface closest-point pass between the
     model-direction ICP correspondence and the Euclidean evaluator when the
     configuration allows it; the results are identical to separate passes."""
+    # gradient-informed components differentiate the target density itself
+    mixture.bind_target(evaluator)
     plan = _fusion_plan(mixture, evaluator) if fuse else None
-    adjacency = torch.as_tensor(
-        vertex_face_adjacency(gpmm.cells.cpu().numpy(), gpmm.num_points),
-        dtype=torch.int64, device=gpmm.device)
+    normals_of = _normals_of(gpmm, mixture)
     icp_idx = sorted(mixture.icp_components)
 
     def step(carry: MhCarry, noise: StepNoise | None = None,
@@ -147,14 +173,16 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
         if noise is None:
             noise = draw_noise(mixture, state.coeffs.shape[0], generator)
         factors_cur = dict(zip(icp_idx, carry.icp_factors))
+        scales = (torch.exp(carry.adapt_log_scales) if mixture.adapt is not None
+                  else None)
 
         # dense candidate generation, then per-chain selection
-        candidates = mixture.propose_all(state, factors_cur, noise.z)
+        candidates = mixture.propose_all(state, factors_cur, noise.z, scales)
         cand = _select(candidates, noise.idx)
 
         # reverse anchor + densities
         cand_pts = transformed_points(gpmm, cand)
-        cand_normals = vertex_normals_gather(cand_pts, gpmm.cells, adjacency)
+        cand_normals = normals_of(cand_pts)
         shared_icp = shared_eval = None
         if plan is not None:
             q = cand_pts[:, plan.eval_ids]
@@ -165,8 +193,8 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
             shared_eval = {plan.spec_name: d2_all}
         factors_cand = mixture.anchor_factors(cand, cand_pts, cand_normals,
                                               shared_icp)
-        log_q_fwd = mixture.log_q_mixture(state, cand, factors_cur)
-        log_q_rev = mixture.log_q_mixture(cand, state, factors_cand)
+        log_q_fwd = mixture.log_q_mixture(state, cand, factors_cur, scales)
+        log_q_rev = mixture.log_q_mixture(cand, state, factors_cand, scales)
         log_post_cand, named_cand = evaluator(cand, cand_pts, shared_eval)
 
         log_alpha = (log_post_cand - carry.log_post) + (log_q_rev - log_q_fwd)
@@ -174,16 +202,19 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
         accept = noise.log_u < log_alpha
 
         new_state = FitState(*(_where(accept, c, s) for c, s in zip(cand, state)))
-        new_factors = tuple(
-            gp.PosteriorFactors(*(_where(accept, fc, fp) for fc, fp in
-                                  zip(factors_cand[i], factors_cur[i])))
-            for i in icp_idx
-        )
+        new_factors = tuple(_where_anchor(accept, factors_cand[i], factors_cur[i])
+                            for i in icp_idx)
+        log_scales, step_idx = carry.adapt_log_scales, carry.step_idx
+        if mixture.adapt is not None:
+            log_scales = mixture.update_scales(log_scales, step_idx, noise.idx, log_alpha)
+            step_idx = step_idx + 1
         new_carry = MhCarry(
             state=new_state,
             log_post=torch.where(accept, log_post_cand, carry.log_post),
             named=_where(accept, named_cand, carry.named),
             icp_factors=new_factors,
+            adapt_log_scales=log_scales,
+            step_idx=step_idx,
         )
         record = ChainRecord(
             accepted=accept,
@@ -201,21 +232,23 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
 
 
 def init_carry(gpmm, evaluator: EvaluatorProgram, state: FitState,
-               mixture: MixtureProgram) -> MhCarry:
-    """Evaluator values + (with ICP components) the GP-posterior factors
-    anchored at the initial state."""
+               mixture: Optional[MixtureProgram] = None) -> MhCarry:
+    """Evaluator values, the anchors of the mixture's anchored components
+    at the initial state and, with adaptation, log-scales 0 and step 0."""
     pts = transformed_points(gpmm, state)
     log_post, named = evaluator(state, pts)
     factors = ()
-    if mixture.icp_components:
-        adjacency = torch.as_tensor(
-            vertex_face_adjacency(gpmm.cells.cpu().numpy(), gpmm.num_points),
-            dtype=torch.int64, device=gpmm.device)
-        normals = vertex_normals_gather(pts, gpmm.cells, adjacency)
-        fac = mixture.anchor_factors(state, pts, normals)
+    if mixture is not None and mixture.icp_components:
+        mixture.bind_target(evaluator)
+        fac = mixture.anchor_factors(state, pts, _normals_of(gpmm, mixture)(pts))
         factors = tuple(fac[i] for i in sorted(fac))
-    return MhCarry(state=state, log_post=log_post, named=named,
-                   icp_factors=factors)
+    log_scales = step_idx = None
+    if mixture is not None and mixture.adapt is not None:
+        n = state.coeffs.shape[0]
+        log_scales = torch.zeros((n, mixture.num_components), device=gpmm.device)
+        step_idx = torch.zeros(n, device=gpmm.device)
+    return MhCarry(state=state, log_post=log_post, named=named, icp_factors=factors,
+                   adapt_log_scales=log_scales, step_idx=step_idx)
 
 
 def run_chains(step, carry: MhCarry, n_steps: int,
@@ -226,6 +259,24 @@ def run_chains(step, carry: MhCarry, n_steps: int,
         carry, rec = step(carry, generator=generator)
         records.append(rec)
     return carry, records
+
+
+def run_chain(step, carry: MhCarry, n_steps: int,
+              generator: torch.Generator | None = None):
+    """Run one chain (a carry of batch 1) for n_steps → (final carry,
+    ``ChainRecord`` with [T, ...] fields)."""
+    if carry.log_post.shape[0] != 1:
+        raise ValueError(f"run_chain takes one chain, got {carry.log_post.shape[0]}; "
+                         "use run_chains")
+    carry, records = run_chains(step, carry, n_steps, generator)
+    return carry, ChainRecord(*(None if x is None else x[0]
+                                for x in stack_records(records)))
+
+
+def stack_states(states) -> FitState:
+    """Join a list of FitStates (each with its own chains, B = 1 for one
+    chain) into one batched FitState, in order."""
+    return FitState(*(torch.cat(fields) for fields in zip(*states)))
 
 
 def stack_records(records) -> ChainRecord:

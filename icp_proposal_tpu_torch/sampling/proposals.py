@@ -1,11 +1,13 @@
 """Proposal generators and their mixture, batched over chains.
 
-Counterpart of ``icp_proposal_tpu/sampling/proposals.py`` for the ported
-mixtures: the informed ICP proposal in both directions, the random-shape
-walk and the single-axis random pose walks.  As in the reference, the mixture is evaluated densely: every
-component proposes for every chain, one is selected per chain, and the
-transition density is the logsumexp over components of log w_c + log q_c,
-with −∞ where a component cannot reach the state (pose or scale changed).
+Counterpart of ``icp_proposal_tpu/sampling/proposals.py``: the informed
+ICP proposal in both directions, the Langevin (MALA) shape proposal, the
+random-shape walk and the single-axis random pose walks, with optional
+Robbins–Monro scale adaptation.  As in the reference, the mixture is
+evaluated densely: every component proposes for every chain, one is
+selected per chain, and the transition density is the logsumexp over
+components of log w_c + log q_c, with −∞ where a component cannot reach the
+state (pose or scale changed).
 """
 from __future__ import annotations
 
@@ -23,7 +25,11 @@ from icp_proposal_tpu_torch.ops.morton import morton_sort_ids
 from icp_proposal_tpu_torch.ops.surface_index import closest_auto
 from icp_proposal_tpu_torch.ops.surface_sampling import seeded_vertex_subset
 from icp_proposal_tpu_torch.sampling.context import TargetContext
-from icp_proposal_tpu_torch.sampling.state import FitState, pose_inverse_apply
+from icp_proposal_tpu_torch.sampling.state import (
+    FitState,
+    pose_inverse_apply,
+    transformed_points,
+)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _MODEL_SEED = 1024  # the reference's ICP model subset seed (targets: seed + 1)
@@ -87,8 +93,26 @@ class IcpSpec:
         return f"IcpProposal-{label}-{self.step_length}Step"
 
 
-ProposalSpec = Union[RandomShapeSpec, RotationSpec, TranslationSpec, IcpSpec]
-_POSE_SPECS = (RotationSpec, TranslationSpec)
+@dataclass(frozen=True)
+class MalaSpec:
+    """Gradient-informed shape proposal (MALA; beyond the reference):
+    α' = α + (h²/2)·∇log π(α) + h·ξ, ξ ~ N(0, I), with the exact asymmetric
+    Langevin correction.  log π is the product evaluator the chain samples,
+    bound when the step is built (``MixtureProgram.bind_target``)."""
+
+    step_size: float = 0.1
+
+    @property
+    def sigma(self):  # the scale adaptation reads every component's sigma
+        return self.step_size
+
+    @property
+    def name(self):
+        return f"MALA-{self.step_size}"
+
+
+ProposalSpec = Union[RandomShapeSpec, RotationSpec, TranslationSpec, IcpSpec,
+                     MalaSpec]
 
 
 def mixed_proposal_icp(n_points: int, projection_direction: str = "model_and_target",
@@ -130,6 +154,12 @@ def mixed_random_shape_proposal(steps=(0.1,)) -> List[Tuple[float, ProposalSpec]
     return [(w, RandomShapeSpec(sigma=s)) for s in steps]
 
 
+def gradient_shape_proposal(step_sizes=(0.2,)) -> List[Tuple[float, ProposalSpec]]:
+    """MALA mixture over coefficient space, one component a step size."""
+    w = 1.0 / len(step_sizes)
+    return [(w, MalaSpec(step_size=h)) for h in step_sizes]
+
+
 def nest(*weighted_groups) -> List[Tuple[float, ProposalSpec]]:
     """Combine weighted sub-mixtures into one flat normalized mixture."""
     flat: List[Tuple[float, ProposalSpec]] = []
@@ -163,6 +193,23 @@ def _all_but_axis_equal(a: FitState, b: FitState, field: str, axis: int):
 
 def _guard(cond, logp):
     return torch.where(cond, logp, -math.inf)
+
+
+def _col(x):
+    """A per-chain scale [B] as a column [B, 1]; a float stays a float."""
+    return x[:, None] if isinstance(x, torch.Tensor) else x
+
+
+def _log(x):
+    return torch.log(x) if isinstance(x, torch.Tensor) else math.log(x)
+
+
+def _gaussian_walk_logpdf(delta: torch.Tensor, sigma) -> torch.Tensor:
+    """log N(delta; 0, σ²I) over the last axis of delta [B, n]; σ a float or
+    a per-chain [B]."""
+    n = delta.shape[-1]
+    return (-0.5 * torch.sum((delta / _col(sigma)) ** 2, dim=-1)
+            - n * _log(sigma) - 0.5 * n * _LOG_2PI)
 
 
 def _take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -263,6 +310,72 @@ class IcpComponent:
         return _guard(_pose_scale_equal(from_state, to_state), logp)
 
 
+class MalaComponent:
+    """Langevin shape proposal over the bound target density (MalaSpec).
+
+    The same anchored protocol as ``IcpComponent``: the anchor (∇log π at a
+    state, [B, r]) is computed once a step at the candidate and carried for
+    the current state.  ``zeroed`` counts the non-finite gradient entries
+    set to 0 since the component was built (a device tensor, read without
+    a sync only when asked)."""
+
+    def __init__(self, spec: MalaSpec, gpmm):
+        self.spec = spec
+        self.gpmm = gpmm
+        self._evaluator = None  # set by bind()
+        self.zeroed = torch.zeros((), dtype=torch.int64, device=gpmm.device)
+
+    def bind(self, evaluator):
+        """Bind ∇log π to the product evaluator the chain samples."""
+        self._evaluator = evaluator
+
+    def factors(self, state: FitState, cur_points=None, cur_normals=None) -> torch.Tensor:
+        """∇log π at each chain's coefficients → [B, r], detached, with its
+        non-finite entries set to 0 (a degenerate closest-point
+        configuration; the proposal is then a random walk for that chain and
+        its density stays defined).  Chains are independent, so the gradient
+        of the sum over chains is each chain's own."""
+        if self._evaluator is None:
+            raise RuntimeError(
+                "MalaComponent is unbound: MixtureProgram.bind_target(evaluator) "
+                "runs in mh.make_mh_step and mh.init_carry; build the step there")
+        with torch.enable_grad():
+            coeffs = state.coeffs.detach().requires_grad_(True)
+            st = state._replace(coeffs=coeffs)
+            log_pi = self._evaluator(st, transformed_points(self.gpmm, st))[0]
+            (g,) = torch.autograd.grad(log_pi.sum(), coeffs)
+        finite = torch.isfinite(g)
+        self.zeroed += torch.sum(~finite)
+        return torch.where(finite, g, 0.0)
+
+    def propose(self, state: FitState, g: torch.Tensor, h, z: torch.Tensor) -> FitState:
+        """α' = α + (h²/2)·g + h·z, h a float or per-chain [B]."""
+        h = _col(h)
+        return state._replace(coeffs=state.coeffs + 0.5 * h * h * g + h * z)
+
+    def log_q(self, from_state: FitState, to_state: FitState, g_from: torch.Tensor, h):
+        h_col = _col(h)
+        mean = from_state.coeffs + 0.5 * h_col * h_col * g_from
+        logp = _gaussian_walk_logpdf(to_state.coeffs - mean, h)
+        return _guard(_pose_scale_equal(from_state, to_state), logp)
+
+
+@dataclass(frozen=True)
+class AdaptConfig:
+    """Diminishing Robbins–Monro scale adaptation (beyond the reference).
+
+    The log-scale s_c of component c is updated only on steps where c was
+    selected, s_c += rate / (1 + t)^decay · (min(1, e^{log α}) − target_c),
+    and frozen after ``adapt_steps``; target_c is ``target`` for a walk and
+    0.574 for MALA.  Diminishing adaptation keeps the chain ergodic; the
+    forward and reverse densities of a step use the same scales."""
+
+    target: float = 0.234
+    rate: float = 1.0
+    decay: float = 0.6
+    adapt_steps: int = 10 ** 9  # adapt "forever" by default
+
+
 class MixtureProgram:
     """A flattened, normalized proposal mixture over FitState.
 
@@ -272,32 +385,47 @@ class MixtureProgram:
     ICP component observes (the flagship setup passes a subset of the
     evaluator's, so one closest-point pass serves both); None takes the
     reference's seeded, Morton-ordered subset (``seed``).  Target vertices
-    are the seeded subset of ``seed + 1``."""
+    are the seeded subset of ``seed + 1``.  ``adapt``: an ``AdaptConfig``
+    for Robbins–Monro scale adaptation of every component but ICP, whose
+    step noise is the GP posterior itself; None keeps the scales fixed."""
 
     def __init__(self, weighted_specs, gpmm, ctx: TargetContext, model_boundary,
-                 parity: bool = False, seed: int = _MODEL_SEED, adapt=None,
-                 icp_model_ids=None):
-        if adapt is not None:
-            raise NotImplementedError(
-                "scale adaptation is not ported yet (ROADMAP queue 1, slice 7)")
+                 parity: bool = False, seed: int = _MODEL_SEED,
+                 adapt: AdaptConfig | None = None, icp_model_ids=None):
         for _, s in weighted_specs:
-            if not isinstance(s, (IcpSpec, RandomShapeSpec) + _POSE_SPECS):
-                raise NotImplementedError(
-                    f"{type(s).__name__} is not ported yet (ROADMAP queue 1: "
-                    f"MALA is slice 7)")
+            if not isinstance(s, (IcpSpec, MalaSpec, RandomShapeSpec, RotationSpec,
+                                  TranslationSpec)):
+                raise TypeError(f"unknown proposal spec {s}")
         total = sum(w for w, _ in weighted_specs)
         self.weights = [w / total for w, _ in weighted_specs]
         self.specs = [s for _, s in weighted_specs]
         self.names = [s.name for s in self.specs]
         self.parity = parity
+        self.adapt = adapt
         self.gpmm = gpmm
         self.ctx = ctx
+        dev = gpmm.device
         self._log_weights = torch.log(torch.tensor(self.weights, dtype=torch.float32,
-                                                   device=gpmm.device))
+                                                   device=dev))
+        # components with an adaptable scalar scale, and their acceptance
+        # targets: 0.574 for Langevin proposals, cfg.target (0.234) for walks
+        self.adaptable = np.asarray([not isinstance(s, IcpSpec) for s in self.specs],
+                                    np.float32)
+        self.adapt_targets = np.asarray(
+            [0.574 if isinstance(s, MalaSpec)
+             else (adapt.target if adapt is not None else 0.234) for s in self.specs],
+            np.float32)
+        self._adaptable_t = torch.as_tensor(self.adaptable, device=dev)
+        self._adapt_targets_t = torch.as_tensor(self.adapt_targets, device=dev)
+        # "anchored" components carry per-state data through the carry: ICP
+        # its GP-posterior factors, MALA ∇log π (the historic name is the
+        # reference's)
         self.icp_components = {}
         tpts = ctx.points.cpu().numpy()
         ref = gpmm.ref_points.cpu().numpy()
         for i, s in enumerate(self.specs):
+            if isinstance(s, MalaSpec):
+                self.icp_components[i] = MalaComponent(s, gpmm)
             if not isinstance(s, IcpSpec):
                 continue
             model_ids = (morton_sort_ids(ref, seeded_vertex_subset(
@@ -317,52 +445,94 @@ class MixtureProgram:
     def num_components(self):
         return len(self.specs)
 
+    def needs_normals(self) -> bool:
+        return any(isinstance(c, IcpComponent) for c in self.icp_components.values())
+
+    def bind_target(self, evaluator):
+        """Bind the gradient-informed components to the chain's target
+        density (``mh.make_mh_step`` and ``mh.init_carry`` call this)."""
+        for comp in self.icp_components.values():
+            if isinstance(comp, MalaComponent):
+                comp.bind(evaluator)
+
     def anchor_factors(self, state, cur_points, cur_normals, shared=None):
-        """ICP posterior factors anchored at ``state`` → dict idx → factors;
-        ``shared``: optional dict idx → (cp, fidx) from a fused query pass."""
+        """Anchors at ``state`` → dict idx → ICP posterior factors or MALA's
+        gradient; ``shared``: optional dict idx → (cp, fidx) from a fused
+        query pass."""
         shared = shared or {}
-        return {i: comp.factors(state, cur_points, cur_normals, shared.get(i))
+        return {i: (comp.factors(state, cur_points, cur_normals, shared.get(i))
+                    if isinstance(comp, IcpComponent)
+                    else comp.factors(state, cur_points, cur_normals))
                 for i, comp in self.icp_components.items()}
 
-    def propose_all(self, state: FitState, factors_cur,
-                    z: torch.Tensor) -> List[FitState]:
+    def _sigma(self, i, spec, scales):
+        """Component i's scale: its sigma, times the chains' adaptive factors
+        scales [B, C] when given (→ [B])."""
+        if scales is None:
+            return spec.sigma
+        return spec.sigma * scales[:, i]
+
+    def propose_all(self, state: FitState, factors_cur, z: torch.Tensor,
+                    scales: torch.Tensor | None = None) -> List[FitState]:
         """One candidate per component from standard normals z [B, C, r]; a
-        pose component reads its scalar draw at z[:, c, 0]."""
+        pose component reads its scalar draw at z[:, c, 0].  ``scales``
+        [B, C]: the adaptive scale factors of the carry (None → 1)."""
         candidates = []
         for i, spec in enumerate(self.specs):
             if isinstance(spec, IcpSpec):
                 cand = self.icp_components[i].propose(state, factors_cur[i], z[:, i])
+            elif isinstance(spec, MalaSpec):
+                cand = self.icp_components[i].propose(
+                    state, factors_cur[i], self._sigma(i, spec, scales), z[:, i])
             elif isinstance(spec, RandomShapeSpec):
-                cand = state._replace(coeffs=state.coeffs + spec.sigma * z[:, i])
+                eps = _col(self._sigma(i, spec, scales)) * z[:, i]
+                cand = state._replace(coeffs=state.coeffs + eps)
             else:
                 field = "rot" if isinstance(spec, RotationSpec) else "trans"
                 moved = getattr(state, field).clone()
-                moved[:, spec.axis] += spec.sigma * z[:, i, 0]
+                moved[:, spec.axis] += self._sigma(i, spec, scales) * z[:, i, 0]
                 cand = state._replace(**{field: moved})
             candidates.append(cand)
         return candidates
 
-    def log_q_mixture(self, from_state: FitState, to_state: FitState,
-                      factors_from) -> torch.Tensor:
+    def log_q_mixture(self, from_state: FitState, to_state: FitState, factors_from,
+                      scales: torch.Tensor | None = None) -> torch.Tensor:
         """log q_mix(to|from) = logsumexp_c [log w_c + log q_c(to|from)] → [B]."""
         comps = []
         for i, spec in enumerate(self.specs):
             if isinstance(spec, IcpSpec):
                 lq = self.icp_components[i].log_q(from_state, to_state,
                                                   factors_from[i], self.parity)
+            elif isinstance(spec, MalaSpec):
+                lq = self.icp_components[i].log_q(from_state, to_state, factors_from[i],
+                                                  self._sigma(i, spec, scales))
             elif isinstance(spec, RandomShapeSpec):
-                delta = to_state.coeffs - from_state.coeffs
-                r = delta.shape[-1]
-                logp = (-0.5 * torch.sum((delta / spec.sigma) ** 2, dim=-1)
-                        - r * math.log(spec.sigma) - 0.5 * r * _LOG_2PI)
+                logp = _gaussian_walk_logpdf(to_state.coeffs - from_state.coeffs,
+                                             self._sigma(i, spec, scales))
                 lq = _guard(_pose_scale_equal(from_state, to_state), logp)
             else:
+                sigma = self._sigma(i, spec, scales)
                 field = "rot" if isinstance(spec, RotationSpec) else "trans"
                 delta = (getattr(to_state, field)[:, spec.axis]
                          - getattr(from_state, field)[:, spec.axis])
-                logp = (-0.5 * (delta / spec.sigma) ** 2 - math.log(spec.sigma)
-                        - 0.5 * _LOG_2PI)
+                logp = -0.5 * (delta / sigma) ** 2 - _log(sigma) - 0.5 * _LOG_2PI
                 lq = _guard(_all_but_axis_equal(from_state, to_state, field,
                                                 spec.axis), logp)
             comps.append(self._log_weights[i] + lq)
         return torch.logsumexp(torch.stack(comps), dim=0)
+
+    def update_scales(self, log_scales: torch.Tensor, step_idx: torch.Tensor,
+                      selected: torch.Tensor, log_alpha: torch.Tensor) -> torch.Tensor:
+        """Robbins–Monro log-scale update per chain (no-op without
+        ``adapt``): log_scales [B, C], step_idx [B] float32, selected [B]
+        component ids, log α [B] → [B, C]."""
+        if self.adapt is None:
+            return log_scales
+        cfg = self.adapt
+        accept_prob = torch.clamp_max(torch.exp(torch.clamp_max(log_alpha, 0.0)), 1.0)
+        gamma = cfg.rate / (1.0 + step_idx) ** cfg.decay
+        active = (step_idx < cfg.adapt_steps).to(torch.float32)
+        onehot = (torch.nn.functional.one_hot(selected.long(), self.num_components)
+                  .to(torch.float32) * self._adaptable_t)
+        return log_scales + (active * gamma)[:, None] * onehot * (
+            accept_prob[:, None] - self._adapt_targets_t)

@@ -160,7 +160,7 @@ def test_evaluator_matches_jax(jdata, kernels_forced, case):
     pdata = _port_data(jdata)
     pctx = convert.context_from_arrays(
         jctx.points, jctx.cells, jctx.tri, jctx.boundary, jctx.index.cand, device="cpu")
-    pprog = pev.EvaluatorProgram(pdata.model, pctx, [getattr(pev, cls)(**kw)])
+    pprog = pev.build_evaluator(pdata.model, pctx, [getattr(pev, cls)(**kw)])
     assert pprog.named_keys == jprog.named_keys
     arrays = _pair_states(RANK, seed=3)
     js = _jstate(arrays)

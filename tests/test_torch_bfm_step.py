@@ -127,3 +127,34 @@ def test_bfm_step_parity(jdata, kernels_forced, partial, parity):
         jcarry = jnext
     assert compared >= N_CHAINS * N_STEPS - 2  # near-ties are rare
     assert 0 < accepted < N_CHAINS * N_STEPS  # both decisions were exercised
+
+
+@pytest.mark.parametrize("partial", [True, False], ids=["partial", "complete"])
+def test_run_bfm_fitting_matches_the_step_loop(jdata, tmp_path, partial):
+    """``run_bfm_fitting`` on the CPU, 2 chains × 3 steps on the rank-12
+    face: its acceptance and ``best_log_value`` equal those of the port's
+    own step loop from the same seed (one carry repeated for both chains,
+    noise from a generator seeded the same), and its JSON log holds chain
+    0's three records."""
+    from icp_proposal_tpu_torch.registration.sampling_registration import _expand
+    from icp_proposal_tpu_torch.sampling import loggers
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    data = _port_data(jdata)
+    log = tmp_path / "bfm.json"
+    result, same = pbfm.run_bfm_fitting(data, partial=partial, num_samples=3, n_chains=2,
+                                        json_path=str(log), seed=5, verbose=False,
+                                        device="cpu")
+    assert same is data and len(loggers.load_log(log)) == 3
+
+    _, mixture, evaluator = pbfm.make_bfm_fitting_setup(data, partial)
+    step = pmh.make_mh_step(data.model, mixture, evaluator, store_params=True)
+    carry = _expand(pmh.init_carry(data.model, evaluator, init_state(data.model, 1),
+                                   mixture), 2)
+    _, recs = pmh.run_chains(step, carry, 3, torch.Generator().manual_seed(5))
+    rec = pmh.stack_records(recs)
+    accepted = rec.accepted.numpy()
+    assert result.acceptance["overall"] == pytest.approx(float(accepted.mean()), abs=0)
+    assert accepted.any()
+    best = np.where(accepted, rec.log_product.numpy(), -np.inf).max()
+    assert result.best_log_value == float(best)

@@ -72,18 +72,38 @@ def _port_carry(jc):
     state = convert.state_from_arrays(
         *(np.asarray(x) for x in (st.scale, st.rot, st.trans, st.center, st.coeffs)),
         device="cpu")
+    anchors = [tuple(np.asarray(a) for a in f) if isinstance(f, tuple) else np.asarray(f)
+               for f in jc.icp_factors]
+    adapt = [None if x is None else np.asarray(x) for x in (jc.adapt_log_scales,
+                                                            jc.step_idx)]
     return convert.carry_from_arrays(
-        state, np.asarray(jc.log_post), np.asarray(jc.named),
-        [tuple(np.asarray(a) for a in f) for f in jc.icp_factors], device="cpu")
+        state, np.asarray(jc.log_post), np.asarray(jc.named), anchors, *adapt,
+        device="cpu")
+
+
+def _assert_gradients_match(got, want):
+    """MALA gradients: rtol 1e-4 where |g| > 1, atol 1e-4 below; the
+    entries zeroed as non-finite are the same ones."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(got == 0, want == 0)
+    big = np.abs(want) > 1
+    np.testing.assert_allclose(got[big], want[big], rtol=1e-4, atol=0)
+    np.testing.assert_allclose(got[~big], want[~big], rtol=0, atol=1e-4)
 
 
 def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
     """n_steps of N_CHAINS chains of one setup (``setup_kw`` passed to both
     packages' setup functions) in both packages from the
     same carry with the same noise: same proposal index, same accept
-    decision wherever |log α − log u| > 1e-3, log_post to rtol 1e-4 →
+    decision wherever |log α − log u| > 1e-3, log_post to rtol 1e-4; with
+    scale adaptation the step counts exactly and the log-scales to atol
+    1e-6 where the accept probability is clipped at 1, elsewhere plus the
+    change that log α's 1e-3 slack makes to the update; with MALA
+    components the gradient at each JAX carry's state against
+    ``jax.vmap(jax.grad(log π))`` (``_assert_gradients_match``) →
     (decisions compared, steps accepted)."""
     from icp_proposal_tpu.sampling import mh as jmh
+    from icp_proposal_tpu.sampling.proposals import MalaComponent as JMala
     from icp_proposal_tpu.sampling.state import init_state as jinit_state
 
     jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch, setup, coarse, **setup_kw)
@@ -93,6 +113,8 @@ def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
     assert r == 101
     assert mixture.names == jmix.names
     assert getattr(mixture, "parity", False) == getattr(jmix, "parity", False)
+    assert (None if mixture.adapt is None else vars(mixture.adapt)) == (
+        None if jmix.adapt is None else vars(jmix.adapt))
     # the port builds the same context and index as the reference
     np.testing.assert_array_equal(ctx.cells.numpy(), jctx.cells)
     np.testing.assert_array_equal(ctx.index.cand.numpy(), jctx.index.cand)
@@ -104,6 +126,9 @@ def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
     jcarry = jax.tree.map(lambda x: jnp.broadcast_to(x, (N_CHAINS,) + x.shape),
                           carry0)
     jstep_b = jax.jit(jax.vmap(jstep))
+    # JAX's MALA anchor: jax.grad of its bound log π, non-finite entries 0
+    mala = {i: jax.jit(jax.vmap(lambda st, c=c: c.factors(st, None, None)))
+            for i, c in jmix.icp_components.items() if isinstance(c, JMala)}
 
     def noise_of(key):  # the draws of mh.py:156 and proposals.py:585-598
         k_prop, k_sel, k_acc = jax.random.split(key, 3)
@@ -120,7 +145,8 @@ def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
         z, idx, log_u = (np.array(a) for a in noise_b(keys))
         noise = pmh.StepNoise(z=torch.as_tensor(z), idx=torch.as_tensor(idx).long(),
                               log_u=torch.as_tensor(log_u))
-        pnext, prec = step(_port_carry(jcarry), noise)
+        pcarry = _port_carry(jcarry)
+        pnext, prec = step(pcarry, noise)
 
         np.testing.assert_array_equal(prec.proposal_idx.numpy(),
                                       np.asarray(jrec.proposal_idx))
@@ -131,6 +157,22 @@ def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
                                    np.asarray(jrec.log_product), rtol=1e-4)
         np.testing.assert_allclose(pnext.log_post.numpy()[clear],
                                    np.asarray(jnext.log_post)[clear], rtol=1e-4)
+        if mixture.adapt is not None:
+            # atol 1e-6, plus what the decisions' own 1e-3 slack on log α
+            # moves the update γ·min(1, e^{log α}) by; 0 where the accept
+            # probability is clipped at 1
+            cfg = mixture.adapt
+            p_acc = np.exp(np.minimum(prec.log_alpha.numpy(), 0.0))
+            gamma = cfg.rate / (1.0 + pcarry.step_idx.numpy()) ** cfg.decay
+            slack = 1e-6 + gamma * np.where(p_acc < 1.0, p_acc * np.expm1(1e-3), 0.0)
+            diff = np.abs(pnext.adapt_log_scales.numpy()
+                          - np.asarray(jnext.adapt_log_scales))
+            assert np.all(diff <= slack[:, None]), (diff, slack)
+            np.testing.assert_array_equal(pnext.step_idx.numpy(),
+                                          np.asarray(jnext.step_idx))
+        for i, jgrad in mala.items():
+            _assert_gradients_match(mixture.icp_components[i].factors(pcarry.state),
+                                    jgrad(jcarry.state))
         compared += int(clear.sum())
         accepted += int(np.asarray(jrec.accepted).sum())
         jcarry = jnext
@@ -168,11 +210,16 @@ def test_one_step_parity_random_walk_options(monkeypatch):
 
 @pytest.mark.parametrize("name", ["femur.make_random_walk_setup",
                                   "bfm.make_bfm_fitting_setup",
-                                  "femur.make_icp_proposal_setup"])
+                                  "femur.make_icp_proposal_setup",
+                                  "femur.make_hybrid_setup",
+                                  "femur.make_mala_setup",
+                                  "femur.make_random_walk_adapt_setup",
+                                  "bfm.run_bfm_fitting"])
 def test_setup_signatures_match_the_reference(name):
     """A caller with the reference's signature can call the port's setup
-    functions: the same parameter names, order and defaults, with the
-    coarse pass (``coarse``) as the port's only extra."""
+    functions and entry points: the same parameter names, order and
+    defaults, with the coarse pass (``coarse``) and the device (``device``)
+    as the port's only extras."""
     import importlib
     import inspect
 
@@ -181,23 +228,42 @@ def test_setup_signatures_match_the_reference(name):
         f"icp_proposal_tpu.apps.{mod}"), fn)).parameters
     port = inspect.signature(getattr(importlib.import_module(
         f"icp_proposal_tpu_torch.apps.{mod}"), fn)).parameters
-    assert set(port) - set(ref) <= {"coarse"}
-    assert [p for p in port if p != "coarse"] == list(ref)
+    extras = {"coarse", "device"}
+    assert set(port) - set(ref) <= extras
+    assert [p for p in port if p not in extras] == list(ref)
     for p in ref:
         assert port[p].default == ref[p].default, p
+        assert port[p].kind == ref[p].kind, p
 
 
-def test_recommended_setup_and_adapt():
-    """``recommended_setup()`` names the reference's recommendation; the
-    random walk's scale adaptation is slice 7's and raises until then."""
+def test_recommended_setup_and_adapt(monkeypatch):
+    """``recommended_setup()`` names the reference's recommendation;
+    ``SETUPS`` has the reference's six keys and each builds on the stand-in;
+    ``rw-adapt`` and ``make_random_walk_setup(adapt=True)`` build a mixture
+    whose ``adapt`` equals the reference's ``AdaptConfig()`` and whose
+    ``adaptable`` and ``adapt_targets`` equal the reference's."""
     from icp_proposal_tpu.apps import femur as jfemur
+    from icp_proposal_tpu_torch.sampling.proposals import MixtureProgram
 
     assert pfemur.recommended_setup() == jfemur.recommended_setup() == "rw"
-    assert pfemur.recommended_setup() in pfemur.SETUPS
-    for setup in (lambda: pfemur.make_random_walk_setup(None, adapt=True),
-                  lambda: pfemur.SETUPS["rw-adapt"](None)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            setup()
+    assert sorted(pfemur.SETUPS) == sorted(jfemur.SETUPS)
+    jdata, (_, jmix, _) = _jax_standin(monkeypatch, "rw-adapt")
+    data = pfemur.FemurData(
+        model=convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in
+                                          jdata.model._asdict().items()}, device="cpu"),
+        target=jdata.target, target_boundary_mask=jdata.target_boundary_mask,
+        model_boundary_mask=jdata.model_boundary_mask)
+    built = {name: setup(data) for name, setup in pfemur.SETUPS.items()}
+    for name, (ctx, mixture, evaluator) in built.items():
+        assert isinstance(mixture, MixtureProgram), name
+        assert evaluator.ctx is ctx and mixture.ctx is ctx, name
+    for mixture in (built["rw-adapt"][1],
+                    pfemur.make_random_walk_setup(data, adapt=True)[1]):
+        assert vars(mixture.adapt) == vars(jmix.adapt)
+        np.testing.assert_array_equal(mixture.adaptable, jmix.adaptable)
+        np.testing.assert_array_equal(mixture.adapt_targets, jmix.adapt_targets)
+    assert built["rw"][1].adapt is None
+    assert built["hybrid"][1].adapt is not None and built["mala"][1].adapt is not None
 
 
 def test_context_switches():
@@ -280,27 +346,36 @@ def test_fused_step_matches_unfused():
 
 
 def test_port_runs_without_jax():
-    """Importing every module of the port (the registration slice's loggers,
-    diagnostics, metrics, winding numbers and ``runfitting`` included),
-    running a CPU step of the femur and the BFM partial setups and a short
-    CPU registration run with coarse="dot" leaves jax and the JAX package
-    out of sys.modules."""
+    """With any import of jax or of the JAX package blocked: importing every
+    module of the port (loggers, diagnostics, metrics, winding numbers,
+    ``runfitting``, MALA, adaptation and ``run_bfm_fitting`` included),
+    running a CPU step of the femur flagship, hybrid, MALA and adaptive
+    random-walk setups and of the BFM partial setup, a short CPU
+    registration run with coarse="dot" and a short ``run_bfm_fitting``
+    leaves jax and the JAX package out of sys.modules."""
     code = (
-        "import importlib, pkgutil, sys, torch\n"
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'icp_proposal_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib, pkgutil, torch\n"
         "import icp_proposal_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "from icp_proposal_tpu_torch.apps.bfm import load_synthetic_face_data, "
         "make_bfm_fitting_setup\n"
-        "from icp_proposal_tpu_torch.apps.femur import load_standin_femur_data, "
-        "make_icp_proposal_setup\n"
+        "from icp_proposal_tpu_torch.apps.bfm import run_bfm_fitting\n"
+        "from icp_proposal_tpu_torch.apps.femur import SETUPS, load_standin_femur_data\n"
         "from icp_proposal_tpu_torch.apps.femur import run_icp_proposal_registration\n"
         "from icp_proposal_tpu_torch.sampling import mh\n"
         "from icp_proposal_tpu_torch.sampling.state import init_state\n"
-        "for data, setup in ((load_standin_femur_data(device='cpu'), "
-        "make_icp_proposal_setup),\n"
-        "                    (load_synthetic_face_data(8, 2, device='cpu'), "
-        "lambda d: make_bfm_fitting_setup(d, partial=True))):\n"
+        "femur, face = load_standin_femur_data(device='cpu'), "
+        "load_synthetic_face_data(8, 2, device='cpu')\n"
+        "for data, setup in [(femur, SETUPS[s]) for s in "
+        "('flagship', 'hybrid', 'mala', 'rw-adapt')] + [\n"
+        "        (face, lambda d: make_bfm_fitting_setup(d, partial=True))]:\n"
         "    ctx, mix, ev = setup(data)\n"
         "    step = mh.make_mh_step(data.model, mix, ev)\n"
         "    carry = mh.init_carry(data.model, ev, init_state(data.model, 2), mix)\n"
@@ -308,6 +383,9 @@ def test_port_runs_without_jax():
         "    assert torch.isfinite(carry.log_post).all()\n"
         "res, _ = run_icp_proposal_registration(2, n_chains=2, setup='flagship', "
         "coarse='dot', accept_info_interval=1, verbose=False, device='cpu')\n"
+        "assert len(res.json_records) == 2\n"
+        "res, _ = run_bfm_fitting(face, partial=True, num_samples=2, n_chains=2, "
+        "verbose=False, device='cpu')\n"
         "assert len(res.json_records) == 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_proposal_tpu' or m.startswith('icp_proposal_tpu.')]\n"

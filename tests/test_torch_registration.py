@@ -293,7 +293,8 @@ def test_runfitting_resumes_from_the_last_accepted_state(standin, tmp_path):
 
 def test_femur_cli_runs_on_the_cpu(tmp_path, capsys):
     """``python -m icp_proposal_tpu_torch.apps.femur proposal ...`` on the
-    CPU: the reference's progress and reconstruction lines, and the log."""
+    CPU: the reference's progress and reconstruction lines, and the log;
+    ``--setup`` takes hybrid, mala and rw-adapt as well."""
     from icp_proposal_tpu_torch.apps import femur
 
     log = tmp_path / "cli.json"
@@ -302,5 +303,55 @@ def test_femur_cli_runs_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[2/2] chains=2" in out and "ID: SAMPLE average2surface:" in out
     assert len(ploggers.load_log(log)) == 2
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        femur.SETUPS["hybrid"](None)
+    for setup in ("hybrid", "mala", "rw-adapt"):
+        log = tmp_path / f"{setup}.json"
+        femur.main(["proposal", "--samples", "2", "--chains", "4", "--setup", setup,
+                    "--json", str(log), "--device", "cpu"])
+        assert "[2/2] chains=4" in capsys.readouterr().out
+        assert len(ploggers.load_log(log)) == 2
+
+
+def test_runfitting_carries_adaptation_across_segments():
+    """``runfitting`` in segments of 2 steps carries MALA's gradient anchors
+    and the adaptive log-scales and step counts from one segment to the
+    next: 6 steps of 3 chains equal, record for record, the port's own step
+    loop from the same carry (one chain's, repeated, as ``runfitting``
+    builds it) and seed."""
+    from icp_proposal_tpu_torch.mesh import make_mesh
+    from icp_proposal_tpu_torch.models.gpmm import instance_points
+    from icp_proposal_tpu_torch.models.synthetic import make_icosphere, make_synthetic_gpmm
+    from icp_proposal_tpu_torch.registration.sampling_registration import (
+        SamplingRegistration,
+        _expand,
+    )
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+    from icp_proposal_tpu_torch.sampling.evaluators import proximity_and_independent
+    from icp_proposal_tpu_torch.sampling.proposals import (
+        AdaptConfig,
+        MalaSpec,
+        MixtureProgram,
+        RandomShapeSpec,
+    )
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    points, cells = make_icosphere(subdivisions=2, radius=50.0)
+    model = make_synthetic_gpmm(points, cells, rank=6, sigma=40.0, scale=5.0, device="cpu")
+    alpha = torch.tensor([1.5, -1.0, 0.0, 0.0, 0.0, 0.0])
+    target = make_mesh(instance_points(model, alpha).numpy(), model.cells.numpy())
+    ctx = build_target_context(target, device="cpu")
+    evaluator = proximity_and_independent(model, ctx, sigma=1.0, n_points=60)
+    mixture = MixtureProgram([(0.5, MalaSpec(0.3)), (0.5, RandomShapeSpec(0.2))], model,
+                             ctx, np.zeros(model.num_points, bool), adapt=AdaptConfig())
+    reg = SamplingRegistration(model, target, mixture, evaluator, accept_info_interval=2,
+                               verbose=False)
+    result = reg.runfitting(6, seed=9, n_chains=3)
+
+    step = pmh.make_mh_step(model, mixture, evaluator, store_params=True)
+    carry = _expand(pmh.init_carry(model, evaluator, init_state(model, 1), mixture), 3)
+    carry, recs = pmh.run_chains(step, carry, 6, torch.Generator().manual_seed(9))
+    want = pmh.stack_records(recs)
+    for got, w in zip(result.records, want):
+        if w is not None:
+            np.testing.assert_array_equal(got, w.numpy())
+    assert torch.equal(result.final_states.coeffs, carry.state.coeffs)
+    assert float(carry.step_idx[0]) == 6.0 and bool((carry.adapt_log_scales != 0).any())
