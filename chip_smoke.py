@@ -50,7 +50,37 @@ Phases (each prints one line or a short block, and ends in
                  K4 supply the winners) against the CPU's;
 14. main:bfm-fitting  the BFM entry point ``run_bfm_fitting(partial=True)``
                  on the rank-200 face at 2,048 chains: a warm-up run, a
-                 timed run of 5 steps with a JSON log read back.
+                 timed run of 5 steps with a JSON log read back;
+15. setup:femur200  the stand-in femur GPMM-200 (rank 201) and GPMM-50
+                 (rank 51), host build timed;
+16. main:icp     the deterministic ICP entry point ``run_deterministic_icp``
+                 (100 iterations, 1,622 model ids and target points, σ =
+                 1e-15, both directions) on the GPMM-50: its ICP-Timing
+                 line, ms per iteration, non-finite iterations, launch
+                 counts, reconstruction against the mean shape's;
+17. check:icp    4 inits × 3 iterations of the deterministic ICP on the card
+                 and on the CPU plain twins at ranks 51 and 201 from the same
+                 inits, target points, model ids and flips: correspondence
+                 ids on the same instance points equal, coefficients within
+                 rtol 1e-4 and atol 1e-4·max|α|, fallbacks counted;
+18. kernels:harness  K5 (both modes) at the Hausdorff evaluator's femur
+                 widths (1,622 model vertices against 3,240 target faces;
+                 the target's vertices against each chain's faces), K6 and
+                 K7 at r = 201, each against its twin on 100 chains;
+19. main:experiments  the paper's harness ``run_std_icp_vs_chain_comparison``
+                 on the GPMM-200 with one target, 100 inits × 1,000 samples,
+                 Dice on: seconds, launches and samples/s per stage, the
+                 deterministic ICP batch's peak memory, the mean metrics per
+                 method and the experiment log read back;
+20. check:experiments-euclidean, check:experiments-hausdorff  as 5, for the
+                 harness's two MH setups at r = 201 from its own inits;
+21. main:random-init  ``run_random_init_comparison`` on the GPMM-100 with 5
+                 inits at full-resolution point counts, 200 ICP samples and
+                 5 × as many random-walk samples: per-method avg and
+                 Hausdorff distance and accepted steps, beside the inits'
+                 own distances;
+22. check:random-init-icp, check:random-init-rnd  as 5, for its two MH
+                 setups at r = 101 from its own inits.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  Then one JSON line with every kernel's numbers, and as
@@ -134,6 +164,55 @@ REG_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 0,
 REG_RUN_LAUNCHES = {"coarse_nearest_dot": 2, "refine_shortlist": 2,
                     "nearest_vertices[per_chain]": 1, "chol_solve": 2,
                     "surface_distances[shared]": 4}
+# the deterministic ICP: both directions every iteration (K3 shared + K4 for
+# the model direction, K3 per chain for the target direction), one
+# regression factor (K1 at r ≤ 104, K6 above)
+ICP_ITERATIONS = 100
+ICP_ITER_LAUNCHES = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
+                     "nearest_vertices[per_chain]": 1, "chol_solve": 1}
+ICP_ITER_LAUNCHES_BLOCKED = dict(ICP_ITER_LAUNCHES, chol_solve=0, chol_solve_blocked=1)
+# run_deterministic_icp(verbose=True) outside its iterations: the reconstruction
+# metrics' three K5 queries (average distance one, Hausdorff two)
+ICP_RUN_LAUNCHES = {"surface_distances[shared]": 3}
+ICP_CHECK_INITS, ICP_CHECK_ITERATIONS = 4, 3
+EXP_INITS, EXP_SAMPLES = 100, 1000
+# the harness's MH batches at r = 201.  Euclidean: the ICP's 402 model ids
+# are a prefix of the same seeded draw as the evaluator's 811, so one index
+# pass serves both (mh._fusion_plan); a step adds the target direction's K3
+# per chain, two K6 factors at the candidate and two K7 draws.  Hausdorff:
+# the evaluator takes K5 both ways and the ICP its own index pass.  The
+# initial carry queries the evaluator and the ICP anchors once, unfused,
+# with no draw.
+EXP_EUCLID_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
+                   "nearest_vertices[per_chain]": 1, "chol_solve_blocked": 2,
+                   "tri_solve_lt_blocked": 2}
+EXP_EUCLID_INIT = {"nearest_vertices[shared]": 2, "refine_shortlist": 2,
+                   "nearest_vertices[per_chain]": 1, "chol_solve_blocked": 2}
+EXP_HAUSDORFF_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
+                      "nearest_vertices[per_chain]": 1, "chol_solve_blocked": 2,
+                      "tri_solve_lt_blocked": 2, "surface_distances[shared]": 1,
+                      "surface_distances[per_chain]": 1}
+EXP_HAUSDORFF_INIT = dict(EXP_HAUSDORFF_STEP, tri_solve_lt_blocked=0)
+EXP_METRIC_LAUNCHES = {"surface_distances[shared]": 3}  # per mesh: avg 1, Hausdorff 2
+EXP_LOG_KEYS = ["index", "modelPath", "targetPath", "samplingEuclideanLoggerPath",
+                "samplingHausdorffLoggerPath", "coeffInit", "coeffSamplingEuclidean",
+                "coeffSamplingHausdorff", "coeffIcp", "samplingEuclidean",
+                "samplingHausdorff", "icp", "numOfEvaluationPoints", "numOfSamplePoints",
+                "normalNoise", "datetime", "comment"]
+RI_INITS, RI_ICP_SAMPLES, RI_MULTIPLIER = 5, 200, 5
+# run_random_init_comparison at r = 101, full-resolution point counts: the
+# ICP chains' model ids are the evaluator's, so one index pass a step serves
+# the symmetric evaluator's model→target term and the ICP (mh._fusion_plan);
+# a step adds K5 per chain (target→model), one K1 factor and one K2 draw;
+# the initial carry queries the index twice (unfused) and draws nothing.
+# The random walk a step (and its initial carry): one index pass and K5 per
+# chain.  Then the metrics, K5 shared 3 per (method, init).
+RI_ICP_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1, "chol_solve": 1,
+               "tri_solve_lt": 1, "surface_distances[per_chain]": 1}
+RI_ICP_INIT = dict(RI_ICP_STEP, tri_solve_lt=0, **{"nearest_vertices[shared]": 2,
+                                                   "refine_shortlist": 2})
+RI_RND_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
+               "surface_distances[per_chain]": 1}
 SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     "chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
     "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
@@ -429,8 +508,9 @@ def phase_kernels(torch, dev, data, ctx, ctx_dot):
 
 
 def _k5_records(torch, dev, rng, b, model, evaluator):
-    """K5 culled, the dense scan and the plain twin on the collective
-    evaluator's own queries at ``b`` chains moved off the mean: all three
+    """K5 culled, the dense scan and the plain twin on the evaluator's own
+    queries (a Hausdorff term's: every vertex) at ``b`` chains moved off
+    the mean: all three
     bitwise equal (d² and ids), else raise; the culled kernel's share of
     (query, tile) and (query, face) pairs from one counted call."""
     import numpy as np
@@ -443,9 +523,14 @@ def _k5_records(torch, dev, rng, b, model, evaluator):
     state = state._replace(coeffs=torch.as_tensor(
         rng.randn(b, model.rank).astype(np.float32) * 0.5, device=dev))
     pts = transformed_points(model, state).contiguous()
-    name = evaluator.specs[0].name
-    ids_m = torch.as_tensor(evaluator.model_ids(name), dtype=torch.int64, device=dev)
-    ids_t = torch.as_tensor(evaluator.target_ids(name), dtype=torch.int64, device=dev)
+    spec = evaluator.specs[0]
+    if hasattr(spec, "n_points"):  # a seeded subset each way
+        ids_m = torch.as_tensor(evaluator.model_ids(spec.name), dtype=torch.int64, device=dev)
+        ids_t = torch.as_tensor(evaluator.target_ids(spec.name), dtype=torch.int64,
+                                device=dev)
+    else:  # the Hausdorff term: every vertex each way
+        ids_m = torch.arange(model.num_points, device=dev)
+        ids_t = torch.arange(len(ctx.points), device=dev)
     cases = {"shared": (pts[:, ids_m].contiguous(), ctx.points, ctx.cells.int()),
              "per_chain": (ctx.points[ids_t].contiguous(), pts, model.cells.int())}
     records = {}
@@ -517,11 +602,34 @@ def phase_kernels_bfm(torch, dev, data, evaluator):
     return records
 
 
-def _print_records(tag, records):
+def phase_kernels_harness(torch, dev, data):
+    """K5 (both modes) at the femur widths of the Hausdorff evaluator (every
+    model vertex against the target's faces; every target vertex against
+    each chain's faces), K6 and K7 at r = 201, each against its plain twin
+    on ``EXP_INITS`` chains, the harness's batch → records, which go into
+    the kernels' records as ``at_harness``."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.apps.femur_experiments import _harness_setup
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    rng = np.random.RandomState(2)
+    model = data.model
+    *_, eval_hausdorff = _harness_setup(model, data.target, data.model_boundary_mask)
+    records = dict(zip(("chol_solve_blocked", "tri_solve_lt_blocked"), _chol_records(
+        torch, dev, rng, EXP_INITS, model.rank, cc.chol_solve_blocked,
+        cc.tri_solve_lt_blocked, "K6")[:2]))
+    records.update(_k5_records(torch, dev, rng, EXP_INITS, model, eval_hausdorff))
+    for rec in records.values():
+        rec.update(chains=EXP_INITS, rank=model.rank)
+    return records
+
+
+def _print_records(tag, records, chains=CMP_CHAINS):
     for name, rec in records.items():
-        for chains, r in ((CMP_CHAINS, rec), (N_CHAINS, rec.get("at_2048_chains"))):
+        for n, r in ((chains, rec), (N_CHAINS, rec.get("at_2048_chains"))):
             if r is not None:
-                _print_record(tag, name, r, chains)
+                _print_record(tag, name, r, n)
 
 
 def _print_record(tag, name, rec, chains):
@@ -734,11 +842,12 @@ def _to_device(obj, dev):
     return obj
 
 
-def phase_check(torch, dev, tag, model, setup, cpu_setup_of):
+def phase_check(torch, dev, tag, model, setup, cpu_setup_of, state=None):
     """8 chains, one step on the card and one on the CPU from the same carry
     with the same noise: same decisions (away from near-ties), same log
     posterior to rtol 1e-4.  ``cpu_setup_of(cpu_model)`` builds the same
-    setup on the CPU."""
+    setup on the CPU; the chains start from ``state`` [8] (default the
+    mean shape)."""
     from icp_proposal_tpu_torch.convert import gpmm_from_arrays
     from icp_proposal_tpu_torch.sampling import mh
     from icp_proposal_tpu_torch.sampling.state import init_state
@@ -750,9 +859,10 @@ def phase_check(torch, dev, tag, model, setup, cpu_setup_of):
     step = mh.make_mh_step(model, mixture, evaluator, store_params=True)
     cpu_step = mh.make_mh_step(cpu_model, cpu_mixture, cpu_evaluator, store_params=True)
     gen = torch.Generator(device=dev).manual_seed(11)
-    carry = mh.init_carry(model, evaluator, init_state(model, 8), mixture)
+    carry = mh.init_carry(model, evaluator, init_state(model, 8) if state is None else state,
+                          mixture)
     carry, _ = mh.run_chains(step, carry, 4, gen)  # chains drift apart
-    compared = 0
+    compared = accepted = 0
     for _ in range(3):
         noise = mh.draw_noise(mixture, 8, gen)
         nxt, rec = step(carry, noise)
@@ -767,14 +877,16 @@ def phase_check(torch, dev, tag, model, setup, cpu_setup_of):
         torch.testing.assert_close(rec.log_product, rec_c.log_product, rtol=1e-4,
                                    atol=0)
         compared += int(clear.sum())
+        accepted += int(rec.accepted.sum())
         for i, comp in mixture.icp_components.items():
             if hasattr(comp, "zeroed"):
                 _check_gradient(tag, comp.factors(carry.state).cpu(),
                                 cpu_mixture.icp_components[i].factors(
                                     _to_device(carry.state, "cpu")))
         carry = nxt
-    print(f"[{tag}] card vs CPU plain twins, 8 chains x 3 steps: {compared} decisions "
-          f"identical, log posterior within rtol 1e-4")
+    print(f"[{tag}] card vs CPU plain twins, r={model.rank}, 8 chains x 3 steps: "
+          f"{compared} decisions identical ({accepted} accepts), log posterior within "
+          f"rtol 1e-4")
 
 
 def _check_gradient(tag, got, want):
@@ -825,6 +937,342 @@ def phase_bfm_fitting(torch, dev, face):
         raise AssertionError(f"{tag}: non-finite result")
     print(f"[{tag}] JSON log {log.name}: {len(records)} records read back; best log "
           f"value {result.best_log_value:.4f}")
+    return launches
+
+
+def _scaled(per_step, n, outside=None):
+    """Launch counts of ``n`` steps of ``per_step`` plus ``outside``."""
+    out = {name: c * n for name, c in per_step.items()}
+    for name, c in (outside or {}).items():
+        out[name] = out.get(name, 0) + c
+    return out
+
+
+def _check_counts(tag, got, want):
+    """Every kernel's launches equal ``want`` (0 where it is not named)."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{tag}: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)}")
+
+
+def _delta(after, before):
+    return {name: after[name] - before[name] for name in after}
+
+
+def phase_icp(torch, dev, data):
+    """``run_deterministic_icp`` at the reference's widths on the GPMM-50,
+    verbose: its own ICP-Timing and reconstruction lines, ms per iteration,
+    non-finite iterations and launch counts → counts."""
+    import contextlib
+    import io
+    import re
+
+    from icp_proposal_tpu_torch.apps.femur import run_deterministic_icp
+    from icp_proposal_tpu_torch.registration.comparison import evaluate_reconstruction
+    from icp_proposal_tpu_torch.sampling.state import init_state, transformed_mesh
+
+    tag = "main:icp"
+    model = data.model
+    out = io.StringIO()
+    _reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        coeffs, fitted, _, nonfinite = run_deterministic_icp(
+            num_iterations=ICP_ITERATIONS, model_components=model.rank - 1, data=data,
+            device=dev)
+    _sync(torch)
+    dt = time.perf_counter() - t
+    launches = _read_counts()
+    for line in out.getvalue().splitlines():
+        print(f"[{tag}] {line}")
+    fit_s = float(re.search(r"ICP-Timing: (\S+) sec", out.getvalue()).group(1))
+    print(f"[{tag}] run_deterministic_icp(num_iterations={ICP_ITERATIONS}) on the stand-in "
+          f"GPMM-{model.rank - 1} (rank {model.rank}): {model.num_points} model ids and "
+          f"target points, sigma 1e-15, model_and_target; fit {fit_s:.3f} s = "
+          f"{1e3 * fit_s / ICP_ITERATIONS:.3f} ms/iteration; the whole call {dt:.3f} s "
+          f"(context, sampling and metrics included); non-finite iterations "
+          f"{int(nonfinite)}; launches {launches}")
+    _check_launches(tag, launches, ICP_ITER_LAUNCHES, ICP_ITERATIONS, ICP_RUN_LAUNCHES)
+    avg, hd = evaluate_reconstruction("ICP", fitted, data.target, verbose=False)
+    avg0, hd0 = evaluate_reconstruction("MEAN", transformed_mesh(model, init_state(model, 1)),
+                                        data.target, verbose=False)
+    print(f"[{tag}] reconstruction: average {avg:.4f} mm, Hausdorff {hd:.4f} mm; the mean "
+          f"shape's: average {avg0:.4f} mm, Hausdorff {hd0:.4f} mm")
+    if not (torch.isfinite(coeffs).all() and avg < avg0):
+        raise AssertionError(f"{tag}: the fit is not finite or not closer than the mean")
+    return launches
+
+
+def _icp_inputs(torch, model, target, n_inits, seed):
+    """Inits, model ids, target points and flips of the ICP check, drawn on
+    the host so that the card and the CPU get the same ones."""
+    from icp_proposal_tpu_torch.apps.femur_experiments import _batched_init_states
+    from icp_proposal_tpu_torch.ops.surface_sampling import (
+        sample_points_on_surface,
+        seeded_vertex_subset,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    inits = _batched_init_states(model, n_inits, seed).coeffs.cpu()
+    ids = torch.as_tensor(seeded_vertex_subset(model.num_points, model.num_points, seed),
+                          dtype=torch.int64)
+    tpts = sample_points_on_surface(target, model.num_points, generator=gen, device="cpu")
+    flips = torch.rand((ICP_CHECK_ITERATIONS, n_inits), generator=gen) < 0.5
+    flips[0, :2] = torch.tensor([True, False])  # both directions in the first iteration
+    return inits, ids, tpts, flips
+
+
+def phase_check_icp(torch, dev, data):
+    """``ICP_CHECK_INITS`` inits × ``ICP_CHECK_ITERATIONS`` iterations of
+    the deterministic ICP on the card and on the CPU plain twins, each
+    iteration from the CPU's coefficients: on the same instance points the
+    target faces (K3 shared + K4) and model vertices (K3 per chain) equal;
+    through each side's own decode a correspondence may differ only by what
+    the decodes' rounding shift explains; the coefficients within rtol 1e-4
+    and atol 1e-4·max|α|; the fallbacks the same."""
+    from icp_proposal_tpu_torch import convert
+    from icp_proposal_tpu_torch.models.gpmm import instance_points
+    from icp_proposal_tpu_torch.ops.closest_point import closest_point_on_triangle
+    from icp_proposal_tpu_torch.ops.closest_point_cuda import nearest_vertices
+    from icp_proposal_tpu_torch.ops.surface_index import closest_auto
+    from icp_proposal_tpu_torch.registration.icp_fitting import icp_iteration
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+
+    tag = "check:icp"
+    model = data.model
+    cpu_model = convert.gpmm_from_arrays(**{k: getattr(model, k).cpu().numpy()
+                                            for k in model.__dataclass_fields__},
+                                         device="cpu")
+    ctx = build_target_context(data.target, data.target_boundary_mask, device=dev)
+    ix = ctx.index
+    cpu_ctx = convert.context_from_arrays(ctx.points.cpu(), ctx.cells.cpu(), ctx.tri.cpu(),
+                                          ctx.boundary.cpu(), ix.cand.cpu(), device="cpu")
+    inits, ids, tpts, flips = _icp_inputs(torch, model, data.target, ICP_CHECK_INITS, 17)
+    coeffs = inits
+    worst = fallbacks = fallbacks_cpu = ties = max_shift = 0
+    for it in range(ICP_CHECK_ITERATIONS):
+        # the kernels on the same instance points as the twins: ids equal
+        cur = instance_points(cpu_model, coeffs)
+        tq = tpts.expand(ICP_CHECK_INITS, -1, -1).contiguous()
+        _, _, fidx_c = closest_auto(cur[:, ids], cpu_ctx.points, cpu_ctx.cells, cpu_ctx.index)
+        vid_c = nearest_vertices(tq, cur)
+        cur_d = cur.to(dev)
+        _, _, fidx = closest_auto(cur_d[:, ids.to(dev)], ctx.points, ctx.cells, ix)
+        vid = nearest_vertices(tq.to(dev), cur_d)
+        _sync(torch)
+        if not (torch.equal(fidx.cpu(), fidx_c) and torch.equal(vid.cpu(), vid_c)):
+            raise AssertionError(f"{tag}: r={model.rank} iteration {it}: correspondence ids "
+                                 "on the same instance points differ from the twins'")
+        # one whole iteration on each side
+        step = icp_iteration(model, ctx, ids.to(dev), tpts.to(dev), coeffs.to(dev), 1e-30,
+                             1.0, "model_and_target", flips[it].to(dev))
+        step_c = icp_iteration(cpu_model, cpu_ctx, ids, tpts, coeffs, 1e-30, 1.0,
+                               "model_and_target", flips[it])
+        got = step.coeffs.cpu()
+        fallbacks += int((~step.finite).sum())
+        fallbacks_cpu += int((~step_c.finite).sum())
+        if not torch.equal(step.finite.cpu(), step_c.finite):
+            raise AssertionError(f"{tag}: r={model.rank} iteration {it}: the card fell back "
+                                 f"on {fallbacks}, the CPU on {fallbacks_cpu} inits")
+        # the card's decode rounds otherwise than the CPU's: a correspondence
+        # may differ only where the two decodes' shift Δ explains it, i.e.
+        # the card's pick is no farther from the CPU's query than the CPU's
+        # pick plus 2Δ (distance is 1-Lipschitz), with 1e-5 relative rounding
+        shift = (instance_points(model, coeffs.to(dev)).cpu() - cur).norm(dim=-1)  # [B, V]
+        max_shift = max(max_shift, float(shift.max()))
+        a, b = step.face_idx.cpu().long(), step_c.face_idx.long()
+        bi, qi = torch.nonzero(a != b, as_tuple=True)
+        q = cur[bi, ids[qi]]
+        _, da = closest_point_on_triangle(q, *cpu_ctx.tri[a[bi, qi]].unbind(-2))
+        _, db = closest_point_on_triangle(q, *cpu_ctx.tri[b[bi, qi]].unbind(-2))
+        da, db = da.sqrt(), db.sqrt()
+        if not (da - db <= 2 * shift[bi, ids[qi]] + 1e-5 * db + 1e-6).all():
+            raise AssertionError(f"{tag}: a target face differs beyond the decodes' shift")
+        ties += len(bi)
+        a, b = step.vertex_ids.cpu().long(), step_c.vertex_ids.long()
+        bi, qi = torch.nonzero(a != b, as_tuple=True)
+        da = (tq[bi, qi] - cur[bi, a[bi, qi]]).norm(dim=-1)
+        db = (tq[bi, qi] - cur[bi, b[bi, qi]]).norm(dim=-1)
+        if not (da - db <= shift[bi, a[bi, qi]] + shift[bi, b[bi, qi]] + 1e-5 * db
+                + 1e-6).all():
+            raise AssertionError(f"{tag}: a model vertex differs beyond the decodes' shift")
+        ties += len(bi)
+        want = step_c.coeffs
+        scale = float(want.abs().max())
+        worst = max(worst, float(((got - want).abs() / (1e-4 * want.abs() + 1e-4 * scale))
+                                 .max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+        coeffs = want
+    print(f"[{tag}] r={model.rank}: {ICP_CHECK_INITS} inits x {ICP_CHECK_ITERATIONS} "
+          f"iterations card vs CPU plain twins: ids on the same instance points equal; "
+          f"{ties} of {2 * ICP_CHECK_INITS * ICP_CHECK_ITERATIONS * model.num_points} "
+          f"correspondences of the whole iterations differ, each within the decodes' shift "
+          f"(largest {max_shift:.3g} mm); coefficients' "
+          f"largest difference {worst:.3g} of the tolerance (rtol 1e-4, atol "
+          f"1e-4·max|α|); fallbacks card {fallbacks}, CPU {fallbacks_cpu}")
+
+
+def phase_experiments(torch, dev, data):
+    """``run_std_icp_vs_chain_comparison`` on the GPMM-200, one target,
+    ``EXP_INITS`` inits × ``EXP_SAMPLES`` samples with Dice: each stage
+    timed with its launches (asserted), the ICP batch's peak memory, the
+    per-method metrics and the log read back → counts."""
+    import tempfile
+
+    import numpy as np
+
+    from icp_proposal_tpu_torch.apps import femur_experiments as fe
+    from icp_proposal_tpu_torch.io.experiment_log import ExperimentLogger
+
+    tag = "main:experiments"
+    model = data.model
+    stages = []
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            _sync(torch)
+            before = _read_counts()
+            if stage == "icp":
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            _sync(torch)
+            rec = dict(stage=stage, seconds=time.perf_counter() - t,
+                       launches=_delta(_read_counts(), before))
+            if stage == "icp":
+                rec.update(peak=torch.cuda.max_memory_allocated(dev), base=base,
+                           nonfinite=out[1].cpu())
+            if stage == "mh":
+                rec.update(stage=f"mh:{type(args[2].specs[0]).__name__}",
+                           chains=args[3].coeffs.shape[0], steps=args[4],
+                           acceptance=float(np.mean(out.accepted)))
+            stages.append(rec)
+            return out
+        return run
+
+    names = {"_icp_batch": "icp", "_run_batch": "mh", "_distance_measures": "metrics"}
+    saved = {name: getattr(fe, name) for name in names}
+    try:
+        for name, stage in names.items():
+            setattr(fe, name, timed(stage, saved[name]))
+        with tempfile.TemporaryDirectory() as tmp:
+            log_path = str(Path(tmp) / "experiments.json")
+            _reset_counts()
+            t = time.perf_counter()
+            logger = fe.run_std_icp_vs_chain_comparison(
+                model, [data.target], ["map.stl"], data.model_boundary_mask, log_path,
+                n_inits=EXP_INITS, n_samples=EXP_SAMPLES, verbose=False, compute_dice=True)
+            _sync(torch)
+            dt = time.perf_counter() - t
+            launches = _read_counts()
+            records = ExperimentLogger(log_path).load_log()
+    finally:
+        for name, fn in saved.items():
+            setattr(fe, name, fn)
+    print(f"[{tag}] run_std_icp_vs_chain_comparison on the stand-in GPMM-200 (rank "
+          f"{model.rank}), one target, {EXP_INITS} inits x {EXP_SAMPLES} samples, Dice on: "
+          f"{dt:.3f} s; launches {launches}")
+    metrics = [r for r in stages if r["stage"] == "metrics"]
+    by_stage = [r for r in stages if r["stage"] != "metrics"] + [dict(
+        stage="metrics", seconds=sum(r["seconds"] for r in metrics),
+        launches={k: sum(r["launches"][k] for r in metrics) for k in launches})]
+    for rec in by_stage:
+        extra = ""
+        if rec["stage"] == "icp":
+            extra = (f"; peak allocated {rec['peak'] / 2 ** 30:.3f} GiB ({rec['base'] / 2 ** 30:.3f} "
+                     f"GiB before the batch); {int((rec['nonfinite'] > 0).sum())} of {EXP_INITS} "
+                     f"inits kept their coefficients on {int(rec['nonfinite'].sum())} "
+                     f"non-finite iterations; {1e3 * rec['seconds'] / ICP_ITERATIONS:.3f} "
+                     "ms/iteration")
+        if rec["stage"].startswith("mh"):
+            extra = (f"; {rec['chains']} chains x {rec['steps']} steps, "
+                     f"{rec['chains'] * rec['steps'] / rec['seconds']:.1f} samples/s, "
+                     f"{1e3 * rec['seconds'] / rec['steps']:.3f} ms/step (initial carry and "
+                     f"record drain included), acceptance {rec['acceptance']:.4f}")
+        print(f"[{tag}] stage {rec['stage']}: {rec['seconds']:.3f} s; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }{extra}")
+    want = {"icp": _scaled(ICP_ITER_LAUNCHES_BLOCKED, ICP_ITERATIONS),
+            "mh:IndependentPointsSpec": _scaled(EXP_EUCLID_STEP, EXP_SAMPLES,
+                                                EXP_EUCLID_INIT),
+            "mh:HausdorffSpec": _scaled(EXP_HAUSDORFF_STEP, EXP_SAMPLES,
+                                        EXP_HAUSDORFF_INIT),
+            "metrics": _scaled(EXP_METRIC_LAUNCHES, 3 * EXP_INITS)}
+    for rec in by_stage:
+        _check_counts(f"{tag} stage {rec['stage']}", rec["launches"], want[rec["stage"]])
+    if len(records) != EXP_INITS or any(list(r) != EXP_LOG_KEYS for r in records):
+        raise AssertionError(f"{tag}: the log must hold {EXP_INITS} records in the "
+                             "reference's schema")
+    for key in ("icp", "samplingEuclidean", "samplingHausdorff"):
+        vals = {m: [r[key][m] for r in records] for m in ("avg", "hausdorff", "dice")}
+        if not all(np.isfinite(v).all() for v in vals.values()):
+            raise AssertionError(f"{tag}: non-finite {key} metrics")
+        print(f"[{tag}] {key}: mean avg {np.mean(vals['avg']):.4f} mm, Hausdorff "
+              f"{np.mean(vals['hausdorff']):.4f} mm, Dice {np.mean(vals['dice']):.4f} over "
+              f"{EXP_INITS} inits")
+    print(f"[{tag}] experiment log: {len(records)} records read back, keys as the "
+          f"reference's; {len(logger.experiments)} in the logger")
+    return launches
+
+
+def phase_random_init(torch, dev, data):
+    """``run_random_init_comparison`` on the GPMM-100 with ``RI_INITS`` inits
+    at full-resolution point counts → counts; then each method's acceptance
+    and the inits' own distances, which a chain that accepted nothing keeps
+    as its best state."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.apps import femur_experiments as fe
+    from icp_proposal_tpu_torch.ops.metrics import avg_distance, hausdorff_distance
+    from icp_proposal_tpu_torch.sampling.state import transformed_mesh
+
+    tag = "main:random-init"
+    model = data.model
+    accepted = []
+    run_batch = fe._run_batch
+
+    def counted(*args, **kw):
+        out = run_batch(*args, **kw)
+        accepted.append(np.asarray(out.accepted))  # [C, T]
+        return out
+
+    fe._run_batch = counted
+    try:
+        _reset_counts()
+        t = time.perf_counter()
+        results = fe.run_random_init_comparison(
+            model, data.target, data.model_boundary_mask, data.target_boundary_mask,
+            n_inits=RI_INITS, n_icp_samples=RI_ICP_SAMPLES, rnd_multiplier=RI_MULTIPLIER,
+            verbose=False)
+        _sync(torch)
+        dt = time.perf_counter() - t
+        launches = _read_counts()
+    finally:
+        fe._run_batch = run_batch
+    n_rnd = RI_ICP_SAMPLES * RI_MULTIPLIER
+    print(f"[{tag}] run_random_init_comparison on the stand-in GPMM-100 (rank "
+          f"{model.rank}): {RI_INITS} inits, {model.num_points} ICP and evaluation points, "
+          f"{RI_ICP_SAMPLES} ICP and {n_rnd} random-walk samples: {dt:.3f} s; launches "
+          f"{launches}")
+    want = _scaled(RI_ICP_STEP, RI_ICP_SAMPLES, RI_ICP_INIT)
+    for name, n in _scaled(RI_RND_STEP, n_rnd + 1,
+                           {"surface_distances[shared]": 3 * 2 * RI_INITS}).items():
+        want[name] = want.get(name, 0) + n
+    _check_counts(tag, launches, want)
+    inits = fe._batched_init_states(model, RI_INITS, fe._fold_in(1024, 0))
+    at_init = [(float(avg_distance(m, data.target)), float(hausdorff_distance(m, data.target)))
+               for m in (transformed_mesh(model, inits, chain=i) for i in range(RI_INITS))]
+    print(f"[{tag}] the inits themselves: mean avg {np.mean([a for a, _ in at_init]):.4f} mm, "
+          f"Hausdorff {np.mean([h for _, h in at_init]):.4f} mm")
+    for method, acc in zip(("icp", "rnd"), accepted):
+        rows = [r for r in results if r["method"] == method]
+        avg, hd = np.mean([r["avg"] for r in rows]), np.mean([r["hausdorff"] for r in rows])
+        if not (np.isfinite(avg) and np.isfinite(hd)):
+            raise AssertionError(f"{tag}: non-finite {method} metrics")
+        print(f"[{tag}] {method}: mean avg {avg:.4f} mm, Hausdorff {hd:.4f} mm over "
+              f"{len(rows)} inits; accepted steps per chain {acc.sum(axis=1).tolist()} of "
+              f"{acc.shape[1]}")
     return launches
 
 
@@ -965,6 +1413,69 @@ def main() -> int:
     # 14. main path: the BFM entry point
     launches["bfm-fitting"] = phase_bfm_fitting(torch, dev, face)
     _sync(torch)
+    del face, bfm_setup, bfm_mixture, bfm_evaluator, built
+
+    # 15. the stand-in femur GPMM-200 and GPMM-50
+    femur_models = {}
+    for components in (200, 50):
+        t = time.perf_counter()
+        femur_models[components] = load_standin_femur_data(device=dev,
+                                                           model_components=components)
+        _sync(torch)
+        m = femur_models[components].model
+        print(f"[setup:femur200] stand-in femur GPMM-{components}: rank {m.rank}, "
+              f"{m.num_points} vertices; host build {time.perf_counter() - t:.1f} s")
+
+    # 16. main path: the deterministic ICP entry point
+    launches["icp"] = phase_icp(torch, dev, femur_models[50])
+
+    # 17. the deterministic ICP against the plain twins on the CPU
+    for components in (50, 200):
+        phase_check_icp(torch, dev, femur_models[components])
+    _sync(torch)
+
+    # 18. K5, K6 and K7 at the harness's widths against the plain twins
+    harness_records = phase_kernels_harness(torch, dev, femur_models[200])
+    _print_records("kernels:harness", harness_records, EXP_INITS)
+    for name, rec in harness_records.items():
+        records[name]["at_harness"] = rec
+    _sync(torch)
+
+    # 19. main path: the paper's harness
+    launches["experiments"] = phase_experiments(torch, dev, femur_models[200])
+
+    # 20. the harness's two MH setups against the plain twins on the CPU, from
+    # the harness's own inits
+    from icp_proposal_tpu_torch.apps import femur_experiments as fe
+
+    d200 = femur_models[200]
+
+    def harness_setups(m):
+        ctx_h, mix, eval_euclid, eval_hausdorff = fe._harness_setup(
+            m, d200.target, d200.model_boundary_mask)
+        return {"euclidean": (ctx_h, mix, eval_euclid),
+                "hausdorff": (ctx_h, mix, eval_hausdorff)}
+
+    inits = fe._batched_init_states(d200.model, 8, fe._fold_in(1024, 0, 0))
+    for name, setup_h in harness_setups(d200.model).items():
+        phase_check(torch, dev, f"check:experiments-{name}", d200.model, setup_h,
+                    lambda m, name=name: harness_setups(m)[name], state=inits)
+        _sync(torch)
+
+    # 21. main path: the random-init comparison
+    launches["random-init"] = phase_random_init(torch, dev, data)
+
+    # 22. its two MH setups against the plain twins on the CPU, from its inits
+    def random_init_setups(m):
+        ctx_ri, ev, mix_icp, mix_rnd = fe._random_init_setup(
+            m, data.target, data.model_boundary_mask, data.target_boundary_mask)
+        return {"icp": (ctx_ri, mix_icp, ev), "rnd": (ctx_ri, mix_rnd, ev)}
+
+    inits = fe._batched_init_states(data.model, 8, fe._fold_in(1024, 0))
+    for name, setup_ri in random_init_setups(data.model).items():
+        phase_check(torch, dev, f"check:random-init-{name}", data.model, setup_ri,
+                    lambda m, name=name: random_init_setups(m)[name], state=inits)
+        _sync(torch)
 
     kernels = []
     for name, rec in records.items():

@@ -89,6 +89,24 @@ def bfm_data_from_arrays(model: dict, target_points, target_cells, partial_point
     )
 
 
+def femur_data_from_arrays(model: dict, target_points, target_cells, target_boundary_mask,
+                           model_boundary_mask, model_landmarks=None, target_landmarks=None,
+                           device=DEFAULT_DEVICE):
+    """An ``apps.femur.FemurData``: ``model`` maps the ``Gpmm`` field names
+    to arrays (``gpmm_from_arrays``); the target mesh, masks and landmarks
+    stay host arrays."""
+    from icp_proposal_tpu_torch.apps.femur import FemurData
+
+    return FemurData(
+        model=gpmm_from_arrays(**model, device=device),
+        target=make_mesh(target_points, target_cells),
+        target_boundary_mask=np.asarray(target_boundary_mask, bool),
+        model_boundary_mask=np.asarray(model_boundary_mask, bool),
+        model_landmarks={k: np.asarray(v) for k, v in (model_landmarks or {}).items()},
+        target_landmarks={k: np.asarray(v) for k, v in (target_landmarks or {}).items()},
+    )
+
+
 def state_from_arrays(scale, rot, trans, center, coeffs,
                       device=DEFAULT_DEVICE) -> FitState:
     """A batched ``FitState`` from arrays with a leading chain axis."""

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -195,6 +195,42 @@ def posterior_factors_anisotropic_static(
                @ q_static.reshape(3 * m, r)) + (a - b) * torch.einsum(
         "bmr,bm->br", ntq, w * n_dot_y)
     return _factor(m_mat, rhs)
+
+
+def isotropic_system(gpmm: Gpmm, ids: torch.Tensor, obs_disp: torch.Tensor,
+                     weight: Optional[torch.Tensor] = None):
+    """Σᵢ wᵢQᵢᵀQᵢ [B, r, r] and Σᵢ wᵢQᵢᵀỹᵢ [B, r] over the observations
+    ids [B, m] with displacements obs_disp [B, m, 3] from the reference
+    points; ``weight`` [B, m] is wᵢ, None for all ones (then no weighted
+    copy of the gathered Q [B, m, 3, r] is made)."""
+    ids = ids.long()
+    q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
+    resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
+    bsz, m, _, r = q_o.shape
+    qf = q_o.reshape(bsz, 3 * m, r)
+    pqf = qf if weight is None else (q_o * weight[..., None, None]).reshape(bsz, 3 * m, r)
+    return qf.transpose(1, 2) @ pqf, (resid.reshape(bsz, 1, 3 * m) @ pqf)[:, 0]
+
+
+def posterior_factors_isotropic(
+    gpmm: Gpmm,
+    ids: torch.Tensor,  # [B, m] vertex ids of the observations
+    obs_disp: torch.Tensor,  # [B, m, 3] observed displacement from ref points
+    sigma2,  # isotropic noise variance σ² (a float, or [B] per chain)
+    mask: torch.Tensor,  # [B, m] float; 0 ⇒ observation excluded
+) -> PosteriorFactors:
+    """Posterior factors for isotropic observation noise σ²I, the
+    deterministic ICP's regression (reference
+    ``IcpBasedSurfaceFitting.scala:81``): M = I + QᵀQ/σ² over the masked
+    rows, rhs = (Q/σ²)ᵀỹ, factored and solved by K1 (r ≤ 104) or K6.  The
+    deterministic ICP solves the same system scaled by σ²
+    (``registration.icp_fitting._regression_mean``)."""
+    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=mask.device)
+    if sigma2.dim() == 1:
+        sigma2 = sigma2[:, None]
+    gram, rhs = isotropic_system(gpmm, ids, obs_disp, mask / sigma2)
+    gram.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    return _factor(gram, rhs)
 
 
 def sample_posterior_coeffs(factors: PosteriorFactors,

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch import convert
 from icp_proposal_tpu_torch.apps import bfm as pbfm

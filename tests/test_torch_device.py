@@ -6,6 +6,7 @@ import inspect
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch import convert
 from icp_proposal_tpu_torch.apps import bfm, femur

@@ -1,0 +1,188 @@
+"""The port's real-femur loader chain against the JAX package's.
+
+Landmark JSON, statismo HDF5 and STL files written by the JAX package's
+writers in a temporary directory (the real assets are not in the
+repository), read back by the port; rigid landmark alignment; and
+``load_femur_data(data_dir=...)`` in both packages on the same files: the
+model's arrays bitwise, the aligned target within 1e-5.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch_threads import one_torch_thread  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
+STANDIN = REPO / "artifacts" / "posterior"
+GPMM_FIELDS = ("ref_points", "cells", "mean_disp", "basis", "variance", "noise_variance",
+               "sbasis", "coeff_chol")
+
+
+def _rotation(rng):
+    q, _ = np.linalg.qr(rng.randn(3, 3))
+    return q * np.sign(np.linalg.det(q))
+
+
+@pytest.fixture(scope="module")
+def femur_dir(tmp_path_factory):
+    """A femur asset directory in the reference's layout, written by the JAX
+    package: the stand-in GPMM-50 as ``femur_gp_model_50-components.h5``,
+    six landmarks on the model's reference mesh, and the target (the MAP
+    mesh moved by a rigid transform) with its landmarks moved alike, plus
+    measurement noise of 0.05 mm, in the other order and with one name the
+    model lacks."""
+    from icp_proposal_tpu.io.landmarks import write_landmarks
+    from icp_proposal_tpu.io.statismo import write_statismo_gpmm
+    from icp_proposal_tpu.io.stl import read_stl, write_stl
+    from icp_proposal_tpu.models.build_femur import build_femur_gpmm
+
+    out = tmp_path_factory.mktemp("femur")
+    rng = np.random.RandomState(0)
+    mp, mc = read_stl(STANDIN / "mean.stl")
+    tp, tc = read_stl(STANDIN / "map.stl")
+    write_statismo_gpmm(out / "femur_gp_model_50-components.h5",
+                        build_femur_gpmm(mp, mc, 50))
+    rot, shift = _rotation(rng), rng.randn(3) * 20.0
+    lm_ids = rng.choice(len(mp), 6, replace=False)
+    write_landmarks(out / "femur_reference.json",
+                    {f"L{i}": mp[v] for i, v in enumerate(lm_ids)})
+    moved = (tp.astype(np.float64) @ rot.T + shift).astype(np.float32)
+    write_stl(out / "femur_target.stl", moved, tc)
+    write_landmarks(out / "femur_target.json",
+                    {f"L{i}": mp[v].astype(np.float64) @ rot.T + shift + rng.randn(3) * 0.05
+                     for i, v in reversed(list(enumerate(lm_ids)))}
+                    | {"extra": np.zeros(3)})
+    return out
+
+
+def test_landmarks_round_trip(tmp_path, femur_dir):
+    """The JAX-written landmark files read the same in both packages; the
+    port's writer is read back by JAX unchanged; ``common_landmarks`` keeps
+    the first set's order and drops the names the other lacks."""
+    from icp_proposal_tpu.io import landmarks as jlm
+    from icp_proposal_tpu_torch.io import landmarks as plm
+
+    for name in ("femur_reference.json", "femur_target.json"):
+        got, want = plm.read_landmarks(femur_dir / name), jlm.read_landmarks(femur_dir / name)
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+        plm.write_landmarks(tmp_path / name, got)
+        back = jlm.read_landmarks(tmp_path / name)
+        for k in want:
+            np.testing.assert_array_equal(back[k], want[k])
+    a = plm.read_landmarks(femur_dir / "femur_target.json")
+    b = plm.read_landmarks(femur_dir / "femur_reference.json")
+    pa, pb, names = plm.common_landmarks(a, b)
+    ja, jb, jnames = jlm.common_landmarks(a, b)
+    assert names == jnames and "extra" not in names and len(names) == 6
+    np.testing.assert_array_equal(pa, ja)
+    np.testing.assert_array_equal(pb, jb)
+
+
+def test_statismo_round_trip(tmp_path, femur_dir):
+    """The JAX-written model: ``read_statismo_arrays`` bitwise JAX's, the
+    port's ``Gpmm`` field by field bitwise JAX's; the port's writer read
+    back by JAX's reader bitwise."""
+    from icp_proposal_tpu.io import statismo as jst
+    from icp_proposal_tpu_torch.io import statismo as pst
+
+    path = femur_dir / "femur_gp_model_50-components.h5"
+    got, want = pst.read_statismo_arrays(path), jst.read_statismo_arrays(path)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    pm, jm = pst.read_statismo_gpmm(path, device="cpu"), jst.read_statismo_gpmm(path)
+    assert pm.rank == 51
+    for k in GPMM_FIELDS:
+        np.testing.assert_array_equal(getattr(pm, k).numpy(), np.asarray(getattr(jm, k)),
+                                      err_msg=k)
+    pst.write_statismo_gpmm(tmp_path / "port.h5", pm)
+    back = jst.read_statismo_arrays(tmp_path / "port.h5")
+    np.testing.assert_array_equal(back["basis"], want["basis"])
+    np.testing.assert_array_equal(back["points"], want["points"])
+    np.testing.assert_array_equal(back["variance"], want["variance"])
+    # the port writes the model's own (Morton-ordered) faces, which JAX's
+    # reader orders again the same way
+    back_cells = jst.read_statismo_gpmm(tmp_path / "port.h5").cells
+    np.testing.assert_array_equal(np.asarray(back_cells), np.asarray(jm.cells))
+
+
+def test_rigid_alignment_matches_jax():
+    """Kabsch on noisy landmarks, rotating about the origin and about a
+    given center: the port's transform bitwise JAX's (both host float64,
+    stored float32); ``apply`` and ``inverse_apply`` on numpy arrays
+    bitwise JAX's, on tensors within 1e-5, and they invert each other."""
+    from icp_proposal_tpu.ops.rigid import rigid_landmark_alignment as jalign
+    from icp_proposal_tpu_torch.ops.rigid import rigid_landmark_alignment as palign
+
+    rng = np.random.RandomState(3)
+    src = rng.randn(8, 3) * 30
+    dst = src @ _rotation(rng).T + rng.randn(3) * 5 + rng.randn(8, 3) * 0.01
+    pts = (rng.randn(100, 3) * 40).astype(np.float32)
+    for center in (None, np.array([1.0, -2.0, 3.0])):
+        got, want = palign(src, dst, center), jalign(src, dst, center)
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32
+            np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(got.apply(pts), np.asarray(want.apply(pts)))
+        np.testing.assert_array_equal(got.inverse_apply(pts),
+                                      np.asarray(want.inverse_apply(pts)))
+        t = got.apply(torch.as_tensor(pts))
+        assert isinstance(t, torch.Tensor)
+        np.testing.assert_allclose(t.numpy(), got.apply(pts), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.inverse_apply(t).numpy(), pts, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got.apply(src.astype(np.float32)), dst, atol=0.05)
+
+
+def test_load_femur_data_matches_jax(femur_dir):
+    """``load_femur_data(data_dir=...)`` on the JAX-written files in both
+    packages: the model's arrays bitwise, the landmark-aligned target within
+    1e-5 (and back on the MAP mesh within 0.2 mm), the cells, both boundary
+    masks and the landmarks equal; ``convert.femur_data_from_arrays`` of
+    JAX's data gives the port's."""
+    from icp_proposal_tpu.apps.femur import load_femur_data as jload
+    from icp_proposal_tpu.io.stl import read_stl
+    from icp_proposal_tpu_torch import convert
+    from icp_proposal_tpu_torch.apps.femur import load_femur_data
+
+    got = load_femur_data(50, str(femur_dir), device="cpu")
+    want = jload(50, str(femur_dir))
+    for k in GPMM_FIELDS:
+        np.testing.assert_array_equal(getattr(got.model, k).numpy(),
+                                      np.asarray(getattr(want.model, k)), err_msg=k)
+    np.testing.assert_allclose(got.target.points, np.asarray(want.target.points), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got.target.cells, np.asarray(want.target.cells))
+    np.testing.assert_array_equal(got.target_boundary_mask, want.target_boundary_mask)
+    np.testing.assert_array_equal(got.model_boundary_mask, want.model_boundary_mask)
+    assert list(got.target_landmarks) == list(want.target_landmarks)
+    for k, v in want.target_landmarks.items():
+        np.testing.assert_allclose(got.target_landmarks[k], v, rtol=0, atol=1e-5)
+    for k, v in want.model_landmarks.items():
+        np.testing.assert_array_equal(got.model_landmarks[k], v)
+    tp, _ = read_stl(STANDIN / "map.stl")
+    assert np.abs(got.target.points - tp).max() < 0.2
+    # the JAX workload carried across by the converter is the port's own
+    conv = convert.femur_data_from_arrays(
+        {k: np.asarray(v) for k, v in want.model._asdict().items()},
+        np.asarray(want.target.points), np.asarray(want.target.cells),
+        want.target_boundary_mask, want.model_boundary_mask, want.model_landmarks,
+        want.target_landmarks, device="cpu")
+    for k in GPMM_FIELDS:
+        assert torch.equal(getattr(conv.model, k), getattr(got.model, k)), k
+    np.testing.assert_array_equal(conv.target.cells, got.target.cells)
+    np.testing.assert_array_equal(conv.model_boundary_mask, got.model_boundary_mask)
+    assert list(conv.target_landmarks) == list(got.target_landmarks)
+
+
+def test_load_femur_data_raises_without_assets(tmp_path, femur_dir):
+    """Missing files raise and name what is missing; nothing falls back to
+    the stand-in.  Other component counts read their own file."""
+    from icp_proposal_tpu_torch.apps.femur import load_femur_data
+
+    with pytest.raises(FileNotFoundError, match="femur_gp_model_50-components.h5"):
+        load_femur_data(50, str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="femur_gp_model_100-components.h5"):
+        load_femur_data(100, str(femur_dir), device="cpu")

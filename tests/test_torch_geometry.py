@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu import mesh as jmesh
 from icp_proposal_tpu.io.stl import read_stl

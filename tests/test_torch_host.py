@@ -11,6 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu import mesh as jmesh
 from icp_proposal_tpu.io.stl import read_stl as jread_stl
@@ -110,3 +111,37 @@ def test_index_build_agrees(meshes, monkeypatch):
     np.testing.assert_array_equal(
         faces[cand][..., :9].transpose(0, 2, 1).reshape(1622, 576),
         points[cells][cand].transpose(0, 2, 3, 1).reshape(1622, 576))
+
+
+def test_loader_host_copies_identical(meshes, tmp_path):
+    """The real-femur loaders' host copies: landmark JSON reading and
+    matching, Kabsch alignment and its application to a mesh, and the
+    statismo reader's arrays, bitwise the JAX package's on the same files
+    (written by the JAX package's writers)."""
+    from icp_proposal_tpu.io import landmarks as jlm
+    from icp_proposal_tpu.io import statismo as jst
+    from icp_proposal_tpu.models.synthetic import make_synthetic_gpmm
+    from icp_proposal_tpu.ops.rigid import rigid_landmark_alignment as jalign
+    from icp_proposal_tpu_torch.io import landmarks as plm
+    from icp_proposal_tpu_torch.io import statismo as pst
+    from icp_proposal_tpu_torch.ops.rigid import rigid_landmark_alignment as palign
+
+    points, cells = meshes["map"]
+    rng = np.random.RandomState(4)
+    ids = rng.choice(len(points), 5, replace=False)
+    jlm.write_landmarks(tmp_path / "a.json", {f"p{i}": points[v] for i, v in enumerate(ids)})
+    jlm.write_landmarks(tmp_path / "b.json", {f"p{i}": points[v] * 1.01 + 3.0
+                                              for i, v in enumerate(ids[::-1])})
+    a, b = (plm.read_landmarks(tmp_path / n) for n in ("a.json", "b.json"))
+    src, dst, names = plm.common_landmarks(a, b)
+    j_src, j_dst, j_names = jlm.common_landmarks(*(jlm.read_landmarks(tmp_path / n)
+                                                   for n in ("a.json", "b.json")))
+    assert names == j_names
+    np.testing.assert_array_equal(src, j_src)
+    np.testing.assert_array_equal(dst, j_dst)
+    got, want = palign(src, dst), jalign(j_src, j_dst)
+    np.testing.assert_array_equal(got.apply(points), np.asarray(want.apply(points)))
+    jst.write_statismo_gpmm(tmp_path / "m.h5", make_synthetic_gpmm(points, cells, rank=3))
+    arrays, j_arrays = (m.read_statismo_arrays(tmp_path / "m.h5") for m in (pst, jst))
+    for k, v in j_arrays.items():
+        np.testing.assert_array_equal(arrays[k], v, err_msg=k)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from test_torch_mh import N_CHAINS, N_STEPS, STANDIN, _step_parity
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu.mesh import TriangleMesh as JMesh
 from icp_proposal_tpu.models import gpmm as jgp

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch import convert
 from icp_proposal_tpu_torch.apps import femur as pfemur
@@ -214,21 +215,29 @@ def test_one_step_parity_random_walk_options(monkeypatch):
                                   "femur.make_hybrid_setup",
                                   "femur.make_mala_setup",
                                   "femur.make_random_walk_adapt_setup",
-                                  "bfm.run_bfm_fitting"])
+                                  "bfm.run_bfm_fitting",
+                                  "registration.icp_fitting.icp_surface_fitting",
+                                  "femur.run_deterministic_icp",
+                                  "femur.load_femur_data",
+                                  "femur_experiments.run_std_icp_vs_chain_comparison",
+                                  "femur_experiments.run_random_init_comparison"])
 def test_setup_signatures_match_the_reference(name):
     """A caller with the reference's signature can call the port's setup
     functions and entry points: the same parameter names, order and
-    defaults, with the coarse pass (``coarse``) and the device (``device``)
-    as the port's only extras."""
+    defaults, with the coarse pass (``coarse``), the device (``device``),
+    the workload (``data``) and the injected randomness (``generator``,
+    ``flips``, ``draws``) as the port's only extras.  A bare module name is
+    one of ``apps``."""
     import importlib
     import inspect
 
-    mod, fn = name.split(".")
+    mod, fn = name.rsplit(".", 1)
+    mod = mod if "." in mod else f"apps.{mod}"
     ref = inspect.signature(getattr(importlib.import_module(
-        f"icp_proposal_tpu.apps.{mod}"), fn)).parameters
+        f"icp_proposal_tpu.{mod}"), fn)).parameters
     port = inspect.signature(getattr(importlib.import_module(
-        f"icp_proposal_tpu_torch.apps.{mod}"), fn)).parameters
-    extras = {"coarse", "device"}
+        f"icp_proposal_tpu_torch.{mod}"), fn)).parameters
+    extras = {"coarse", "device", "data", "generator", "flips", "draws"} - set(ref)
     assert set(port) - set(ref) <= extras
     assert [p for p in port if p not in extras] == list(ref)
     for p in ref:
@@ -345,14 +354,16 @@ def test_fused_step_matches_unfused():
     assert torch.equal(cf.log_post, cu.log_post)
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """With any import of jax or of the JAX package blocked: importing every
     module of the port (loggers, diagnostics, metrics, winding numbers,
-    ``runfitting``, MALA, adaptation and ``run_bfm_fitting`` included),
+    ``runfitting``, MALA, adaptation, ``run_bfm_fitting``, the deterministic
+    ICP, the experiment harnesses and the real-femur loaders included),
     running a CPU step of the femur flagship, hybrid, MALA and adaptive
     random-walk setups and of the BFM partial setup, a short CPU
-    registration run with coarse="dot" and a short ``run_bfm_fitting``
-    leaves jax and the JAX package out of sys.modules."""
+    registration run with coarse="dot", a short ``run_bfm_fitting``, a
+    2-iteration ``run_deterministic_icp`` and a 2-init paper harness on a
+    small sphere leaves jax and the JAX package out of sys.modules."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -361,6 +372,7 @@ def test_port_runs_without_jax():
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib, pkgutil, torch\n"
+        "torch.set_num_threads(1)\n"
         "import icp_proposal_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -387,13 +399,30 @@ def test_port_runs_without_jax():
         "res, _ = run_bfm_fitting(face, partial=True, num_samples=2, n_chains=2, "
         "verbose=False, device='cpu')\n"
         "assert len(res.json_records) == 2\n"
+        "from icp_proposal_tpu_torch.apps.femur import FemurData, run_deterministic_icp\n"
+        "from icp_proposal_tpu_torch.apps.femur_experiments import "
+        "run_std_icp_vs_chain_comparison\n"
+        "from icp_proposal_tpu_torch.mesh import TriangleMesh\n"
+        "from icp_proposal_tpu_torch.models.gpmm import instance_points\n"
+        "from icp_proposal_tpu_torch.models.synthetic import make_icosphere, "
+        "make_synthetic_gpmm\n"
+        "pts, cells = make_icosphere(1, 50.0)\n"
+        "sm = make_synthetic_gpmm(pts, cells, rank=4, device='cpu')\n"
+        "tgt = TriangleMesh(instance_points(sm, torch.full((4,), 0.5)), sm.cells)\n"
+        "none = torch.zeros(len(pts), dtype=torch.bool)\n"
+        "coeffs, _, _, nonfinite = run_deterministic_icp(2, verbose=False, "
+        "data=FemurData(sm, tgt, none, none), device='cpu')\n"
+        "assert coeffs.shape == (4,) and torch.isfinite(coeffs).all()\n"
+        "log = run_std_icp_vs_chain_comparison(sm, [tgt], ['t'], none, sys.argv[1], "
+        "n_inits=2, n_samples=3, verbose=False)\n"
+        "assert len(log.load_log()) == 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_proposal_tpu' or m.startswith('icp_proposal_tpu.')]\n"
         "print('LOADED', bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "experiments.json")],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
 

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch.sampling import loggers as ploggers
 from icp_proposal_tpu_torch.sampling import mh as pmh
@@ -294,7 +295,9 @@ def test_runfitting_resumes_from_the_last_accepted_state(standin, tmp_path):
 def test_femur_cli_runs_on_the_cpu(tmp_path, capsys):
     """``python -m icp_proposal_tpu_torch.apps.femur proposal ...`` on the
     CPU: the reference's progress and reconstruction lines, and the log;
-    ``--setup`` takes hybrid, mala and rw-adapt as well."""
+    ``--setup`` takes hybrid, mala and rw-adapt as well; the ``icp`` mode
+    runs the deterministic ICP (``--iterations 3``) on the stand-in
+    GPMM-50 with the reference's timing and reconstruction lines."""
     from icp_proposal_tpu_torch.apps import femur
 
     log = tmp_path / "cli.json"
@@ -309,6 +312,9 @@ def test_femur_cli_runs_on_the_cpu(tmp_path, capsys):
                     "--json", str(log), "--device", "cpu"])
         assert "[2/2] chains=4" in capsys.readouterr().out
         assert len(ploggers.load_log(log)) == 2
+    femur.main(["icp", "--iterations", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "ICP-Timing:" in out and "ID: SAMPLE average2surface:" in out
 
 
 def test_runfitting_carries_adaptation_across_segments():
