@@ -51,36 +51,63 @@ Phases (each prints one line or a short block, and ends in
 14. main:bfm-fitting  the BFM entry point ``run_bfm_fitting(partial=True)``
                  on the rank-200 face at 2,048 chains: a warm-up run, a
                  timed run of 5 steps with a JSON log read back;
-15. setup:femur200  the stand-in femur GPMM-200 (rank 201) and GPMM-50
+15. main:face-pipeline  the face user pipeline, files in a temporary
+                 directory: ``prepare_bfm_dataset`` on binary-PLY scans of
+                 the face stand-in's target (×1,000, moved rigidly, landmarks
+                 with the nose tip), ``create_gp_model face`` at the
+                 reference's defaults on the open patch of subdivision 5
+                 (7,925 vertices decimated to 2,000; 800 Nyström points;
+                 rank 200), ``load_bfm_data`` and ``run_bfm_fitting(partial=
+                 True)`` at 2,048 chains × 5 steps: seconds per stage,
+                 launches;
+16. setup:femur200  the stand-in femur GPMM-200 (rank 201) and GPMM-50
                  (rank 51), host build timed;
-16. main:icp     the deterministic ICP entry point ``run_deterministic_icp``
+17. main:icp     the deterministic ICP entry point ``run_deterministic_icp``
                  (100 iterations, 1,622 model ids and target points, σ =
                  1e-15, both directions) on the GPMM-50: its ICP-Timing
                  line, ms per iteration, non-finite iterations, launch
                  counts, reconstruction against the mean shape's;
-17. check:icp    4 inits × 3 iterations of the deterministic ICP on the card
+18. check:icp    4 inits × 3 iterations of the deterministic ICP on the card
                  and on the CPU plain twins at ranks 51 and 201 from the same
                  inits, target points, model ids and flips: correspondence
                  ids on the same instance points equal, coefficients within
                  rtol 1e-4 and atol 1e-4·max|α|, fallbacks counted;
-18. kernels:harness  K5 (both modes) at the Hausdorff evaluator's femur
+19. kernels:harness  K5 (both modes) at the Hausdorff evaluator's femur
                  widths (1,622 model vertices against 3,240 target faces;
                  the target's vertices against each chain's faces), K6 and
                  K7 at r = 201, each against its twin on 100 chains;
-19. main:experiments  the paper's harness ``run_std_icp_vs_chain_comparison``
+20. main:experiments  the paper's harness ``run_std_icp_vs_chain_comparison``
                  on the GPMM-200 with one target, 100 inits × 1,000 samples,
                  Dice on: seconds, launches and samples/s per stage, the
                  deterministic ICP batch's peak memory, the mean metrics per
                  method and the experiment log read back;
-20. check:experiments-euclidean, check:experiments-hausdorff  as 5, for the
+21. check:experiments-euclidean, check:experiments-hausdorff  as 5, for the
                  harness's two MH setups at r = 201 from its own inits;
-21. main:random-init  ``run_random_init_comparison`` on the GPMM-100 with 5
+22. main:random-init  ``run_random_init_comparison`` on the GPMM-100 with 5
                  inits at full-resolution point counts, 200 ICP samples and
                  5 × as many random-walk samples: per-method avg and
                  Hausdorff distance and accepted steps, beside the inits'
                  own distances;
-22. check:random-init-icp, check:random-init-rnd  as 5, for its two MH
-                 setups at r = 101 from its own inits.
+23. check:random-init-icp, check:random-init-rnd  as 5, for its two MH
+                 setups at r = 101 from its own inits;
+24. main:config  ``build_from_config(RunConfig(), …)`` (the flagship recipe
+                 on the reference's seeded ICP subsets) on the GPMM-100 at
+                 2,048 chains, timed like 4; check:config: RunConfig() builds
+                 the flagship recipe, both sides' ICP ids are fused into the
+                 evaluator's pass, each side steps from its own carry and
+                 takes every decision of the recipe written by hand on the
+                 same seeded subsets with equal carries, and as 5 against
+                 the CPU twins;
+25. main:femur-pipeline  the femur user pipeline, files in a temporary
+                 directory: ``align_shapes`` on a moved copy of the target,
+                 ``create_gp_model femur`` (GPMM-100), ``load_femur_data``,
+                 the registration entry point at 2,048 chains × 1,200
+                 samples with chain 0's JSON log, and ``apps.replay``
+                 ``replay`` and ``posterior`` at the JAX CLI's defaults:
+                 seconds per stage, launches, the decode of the replayed
+                 states and the variability maps timed; check:replay: the
+                 replayed and posterior points and maps on the card against
+                 the CPU from the same log.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  Then one JSON line with every kernel's numbers, and as
@@ -213,6 +240,35 @@ RI_ICP_INIT = dict(RI_ICP_STEP, tri_solve_lt=0, **{"nearest_vertices[shared]": 2
                                                    "refine_shortlist": 2})
 RI_RND_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
                "surface_distances[per_chain]": 1}
+# the user pipelines around the sampler.  Femur: align a moved copy of the
+# target, build the GPMM-100 with create_gp_model, read it back with
+# load_femur_data, register PIPE_SAMPLES steps (flagship, coarse "exact"),
+# then the replay CLI's two sub-commands at the JAX CLI's defaults.  A run
+# of runfitting(verbose=False) launches outside its steps the initial
+# carry's unfused queries (evaluator and model-direction ICP: K3 shared + K4
+# each; target-direction ICP: K3 per chain) and its two K1 factors.
+PIPE_SAMPLES = 1200
+PIPE_RUN_LAUNCHES = {"nearest_vertices[shared]": 2, "refine_shortlist": 2,
+                     "nearest_vertices[per_chain]": 1, "chol_solve": 2}
+REPLAY_STRIDE, REPLAY_SNAPSHOTS = 10, 50  # JAX CLI: replay --stride, --max-snapshots
+POST_BURN_IN, POST_TAKE_EVERY = 200, 50  # JAX CLI: posterior --burn-in, --take-every
+# Face: prepare_bfm_dataset on binary-PLY scans of the face stand-in
+# (×1,000, moved rigidly), create_gp_model face at the reference's defaults
+# on the open patch of subdivision FACE_REF_SUBDIV, load_bfm_data, then
+# run_bfm_fitting(partial=True, verbose=False): outside its steps the
+# initial carry (collective evaluator: K5 shared and per chain; model-
+# direction ICP: K3 + K4, one K6)
+FACE_REF_SUBDIV = 5
+FACE_DECIMATE_TO, FACE_RANK = 2000, 200  # create_gp_model face's defaults
+FACE_SCANS = 2
+FACE_FIT_RUN_LAUNCHES = {"surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
+                         "nearest_vertices[shared]": 1, "refine_shortlist": 1,
+                         "chol_solve_blocked": 1}
+# the configured run: build_from_config(RunConfig()) observes the
+# reference's seeded ICP subsets, the evaluator's seeded subset's first
+# 2·rank ids, so one index pass still serves both (mh._fusion_plan): the
+# flagship step's launches
+CONFIG_STEP_LAUNCHES = FEMUR_STEP_LAUNCHES
 SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     "chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
     "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
@@ -1276,6 +1332,449 @@ def phase_random_init(torch, dev, data):
     return launches
 
 
+def _within(tag, what, got, want, rtol=1e-5, rel_atol=1e-4):
+    """|got − want| ≤ rtol·|want| + rel_atol·max|want| elementwise (host
+    arrays), else raise → the largest difference."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{tag}: {what} shape {got.shape}, expected {want.shape}")
+    atol = rel_atol * max(float(np.abs(want).max()), 1e-12)
+    diff = np.abs(got - want)
+    if not np.all(diff <= atol + rtol * np.abs(want)):
+        raise AssertionError(f"{tag}: {what} differs by up to {diff.max():.3g} "
+                             f"(atol {atol:.3g}, rtol {rtol:g})")
+    return float(diff.max())
+
+
+def _landmark_ids(points, nose=False):
+    """Six well-spread vertex ids: the extremes along x, y and z (the
+    highest z first, the face's nose tip)."""
+    import numpy as np
+
+    ids = [int(np.argmax(points[:, 2])), int(np.argmin(points[:, 2])),
+           int(np.argmax(points[:, 0])), int(np.argmin(points[:, 0])),
+           int(np.argmax(points[:, 1])), int(np.argmin(points[:, 1]))]
+    names = ["center.nose.tip" if nose else "z-max", "z-min", "x-max", "x-min", "y-max",
+             "y-min"]
+    return dict(zip(names, ids))
+
+
+def _rigid(angle, axis, shift):
+    """A rotation by ``angle`` about ``axis`` (Rodrigues) and a shift →
+    (R [3, 3], t [3]) in float64."""
+    import numpy as np
+
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    r = np.eye(3) + np.sin(angle) * kx + (1 - np.cos(angle)) * kx @ kx
+    return r, np.asarray(shift, np.float64)
+
+
+def _write_binary_ply(path, points, cells):
+    """A binary little-endian PLY (float x/y/z, uchar count + int indices),
+    as BFM scans come."""
+    import numpy as np
+
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(points)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {len(cells)}\nproperty list uchar int vertex_indices\n"
+            "end_header\n")
+    faces = np.zeros(len(cells), np.dtype([("n", "u1"), ("v", "<i4", (3,))]))
+    faces["n"], faces["v"] = 3, cells
+    with open(path, "wb") as f:
+        f.write(head.encode("ascii"))
+        f.write(np.asarray(points, "<f4").tobytes())
+        f.write(faces.tobytes())
+
+
+def phase_femur_pipeline(torch, dev, data, smi):
+    """The femur user pipeline at full width, files under a temporary
+    directory: ``align_shapes`` on a moved copy of the stand-in target and
+    its landmarks; ``create_gp_model femur`` (GPMM-100) from the stand-in's
+    mean mesh; ``load_femur_data(100, data_dir=…)``; the registration entry
+    point (flagship, ``N_CHAINS`` chains × ``PIPE_SAMPLES`` samples, chain
+    0's JSON log); ``apps.replay`` ``replay`` and ``posterior`` at the JAX
+    CLI's defaults.  Launch counts asserted over the whole pipeline; the
+    decode of the replayed states and the maps timed on their own →
+    (counts, the model read back, chain 0's records)."""
+    import tempfile
+
+    import numpy as np
+
+    from icp_proposal_tpu_torch.analysis.posterior_variability import (
+        variability_map_normal,
+        variability_map_total,
+    )
+    from icp_proposal_tpu_torch.analysis.replay import replay_states
+    from icp_proposal_tpu_torch.apps import create_gp_model, replay
+    from icp_proposal_tpu_torch.apps.align_shapes import align_shapes
+    from icp_proposal_tpu_torch.apps.femur import (
+        STANDIN_DIR,
+        load_femur_data,
+        run_icp_proposal_registration,
+    )
+    from icp_proposal_tpu_torch.io.landmarks import write_landmarks
+    from icp_proposal_tpu_torch.io.stl import write_stl
+    from icp_proposal_tpu_torch.sampling import loggers
+    from icp_proposal_tpu_torch.sampling.mh import stack_states
+    from icp_proposal_tpu_torch.sampling.state import transformed_points
+
+    tag = "main:femur-pipeline"
+    tpoints, tcells = data.target
+    lm_ids = _landmark_ids(tpoints)
+    r, t = _rigid(0.4, (1.0, -2.0, 0.5), (30.0, -12.0, 7.5))
+    moved = (tpoints.astype(np.float64) @ r.T + t).astype(np.float32)
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for sub in ("scans", "scan_landmarks", "femur", "replay", "posterior"):
+            (tmp / sub).mkdir()
+        write_stl(tmp / "scans" / "femur_target.stl", moved, tcells)
+        write_landmarks(tmp / "scan_landmarks" / "femur_target.json",
+                        {n: moved[i].astype(np.float64) for n, i in lm_ids.items()})
+        # the stand-in's target sits in the model frame: its landmarks there
+        # are the model's
+        model_lms = {n: tpoints[i].astype(np.float64) for n, i in lm_ids.items()}
+        write_landmarks(tmp / "femur" / "femur_reference.json", model_lms)
+        _sync(torch)
+        _reset_counts()
+        t0 = time.perf_counter()
+        n = align_shapes(str(tmp / "scans"), str(tmp / "scan_landmarks"),
+                         str(tmp / "femur" / "femur_reference.json"), str(tmp / "aligned"),
+                         verbose=False)
+        for name in ("meshes/femur_target.stl", "landmarks/femur_target.json"):
+            (tmp / "aligned" / name).replace(tmp / "femur" / Path(name).name)
+        secs["align_shapes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        create_gp_model.main(["femur", "--reference", str(STANDIN_DIR / "mean.stl"),
+                              "--components", "100", "--out-dir", str(tmp / "femur"),
+                              "--device", str(dev)])
+        _sync(torch)
+        secs["create_gp_model femur"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fdata = load_femur_data(100, data_dir=str(tmp / "femur"), device=dev)
+        _sync(torch)
+        secs["load_femur_data"] = time.perf_counter() - t0
+        log = tmp / "chain0.json"
+        t0 = time.perf_counter()
+        result, _ = run_icp_proposal_registration(
+            num_samples=PIPE_SAMPLES, n_chains=N_CHAINS, json_path=str(log), seed=9,
+            verbose=False, setup="flagship", data=fdata, device=dev)
+        _sync(torch)
+        secs["registration"] = time.perf_counter() - t0
+        common = ["--components", "100", "--data-dir", str(tmp / "femur"), "--device",
+                  str(dev)]
+        t0 = time.perf_counter()
+        replay.main(["replay", str(log), "--out-dir", str(tmp / "replay"), *common])
+        secs["replay CLI"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replay.main(["posterior", str(log), "--out-dir", str(tmp / "posterior"), *common])
+        _sync(torch)
+        secs["posterior CLI"] = time.perf_counter() - t0
+        launches = _read_counts()
+        records = loggers.load_log(log)
+        snapshots = sorted((tmp / "replay").iterdir())
+        artifacts = sorted(p.name for p in (tmp / "posterior").iterdir())
+
+    print(f"[{tag}] align_shapes {n} mesh, create_gp_model femur, load_femur_data, "
+          f"registration, replay, posterior: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in secs.items()) + f"; nvidia-smi: {smi}")
+    model = fdata.model
+    print(f"[{tag}] model read back: rank {model.rank}, {model.num_points} vertices, "
+          f"{model.cells.shape[0]} faces; registration {N_CHAINS} chains x "
+          f"{PIPE_SAMPLES} samples: FittingResult.samples_per_sec "
+          f"{result.samples_per_sec:.1f}, acceptance {result.acceptance['overall']:.4f}; "
+          f"launches {launches}")
+    _check_launches(tag, launches, FEMUR_STEP_LAUNCHES, PIPE_SAMPLES, PIPE_RUN_LAUNCHES)
+    if (model.rank, model.num_points, model.cells.shape[0]) != (101, 1622, 3240):
+        raise AssertionError(f"{tag}: the GPMM-100 read back has the wrong width")
+    for name in ("ref_points", "cells", "basis", "variance"):
+        if not torch.equal(getattr(model, name), getattr(data.model, name)):
+            raise AssertionError(f"{tag}: the model read back differs from the stand-in "
+                                 f"GPMM-100 in {name}")
+    shift = _within(tag, "the aligned target", fdata.target.points, tpoints, rtol=0,
+                    rel_atol=1e-6)
+    if not np.array_equal(fdata.target.cells, tcells):
+        raise AssertionError(f"{tag}: the aligned target's cells differ")
+    states = replay_states(records, REPLAY_STRIDE, device=dev)
+    if (len(records) != PIPE_SAMPLES or len(snapshots) != min(REPLAY_SNAPSHOTS, len(states))
+            or artifacts != ["map.stl", "mean.stl", "variability_normal.ply",
+                             "variability_total.ply"]):
+        raise AssertionError(f"{tag}: log {len(records)} records, {len(snapshots)} "
+                             f"snapshots, posterior files {artifacts}")
+    print(f"[{tag}] aligned target within {shift:.3g} mm of the stand-in's; the model read "
+          f"back equals the stand-in GPMM-100 (points, cells, basis, variance); log "
+          f"{len(records)} records; {len(snapshots)} replay snapshots of {len(states)} "
+          f"states; posterior files {artifacts}")
+
+    # the decode of the replayed states and the maps, on the card, timed
+    thinned = [loggers.sample_to_state(rec, dev) for rec in loggers.samples_from_log(
+        records, take_every_n=POST_TAKE_EVERY, burn_in=POST_BURN_IN)]
+    batch, post = stack_states(states), stack_states(thinned)
+    _sync(torch)
+    t0 = time.perf_counter()
+    pts = transformed_points(model, batch)
+    _sync(torch)
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    sample_points = transformed_points(model, post)
+    _sync(torch)
+    t0 = time.perf_counter()
+    total = variability_map_total(sample_points)
+    normal = variability_map_normal(sample_points, model.cells)
+    _sync(torch)
+    maps_ms = 1e3 * (time.perf_counter() - t0)
+    if not (torch.isfinite(pts).all() and torch.isfinite(total).all()
+            and torch.isfinite(normal).all() and bool((normal <= total + 1e-5).all())):
+        raise AssertionError(f"{tag}: non-finite replay points or maps")
+    print(f"[{tag}] decode of {len(states)} replayed states [{len(states)}, "
+          f"{model.num_points}, 3] in one call {decode_ms:.3f} ms; variability maps over "
+          f"{len(thinned)} posterior samples {maps_ms:.3f} ms (total up to "
+          f"{float(total.max()):.4f} mm², normal up to {float(normal.max()):.4f}); "
+          f"nvidia-smi: {smi}")
+    return launches, model, records
+
+
+def phase_check_replay(torch, dev, model, records):
+    """``replay_meshes`` and ``posterior_analysis`` from the same log on the
+    card and on the CPU: the same number of states; points and maps within
+    rtol 1e-5 and atol 1e-4 of their largest magnitude."""
+    from icp_proposal_tpu_torch.analysis.replay import posterior_analysis, replay_meshes
+    from icp_proposal_tpu_torch.convert import gpmm_from_arrays
+
+    tag = "check:replay"
+    cpu_model = gpmm_from_arrays(**{k: getattr(model, k).cpu().numpy()
+                                    for k in model.__dataclass_fields__}, device="cpu")
+    got, want = replay_meshes(model, records), replay_meshes(cpu_model, records)
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{tag}: {len(got)} replayed meshes, {len(want)} on the CPU")
+    worst = {"replay points": _within(tag, "replay points", got, want)}
+    post, post_c = posterior_analysis(model, records), posterior_analysis(cpu_model, records)
+    if post["num_samples"] != post_c["num_samples"]:
+        raise AssertionError(f"{tag}: posterior sample counts differ")
+    for key in ("map_points", "mean_points", "variability_total", "variability_normal"):
+        worst[key] = _within(tag, key, post[key], post_c[key])
+    print(f"[{tag}] card vs CPU from the same log: {len(got)} replayed meshes, "
+          f"{post['num_samples']} posterior samples; largest differences " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()) + " (held rtol 1e-5 + atol 1e-4 of "
+          "the largest magnitude)")
+
+
+def phase_face_pipeline(torch, dev, face, smi):
+    """The face user pipeline, files under a temporary directory:
+    ``prepare_bfm_dataset`` on ``FACE_SCANS`` binary-PLY scans of the face
+    stand-in's target (×1,000, moved rigidly, landmarks with
+    ``center.nose.tip``); ``create_gp_model face`` at the reference's
+    defaults (decimate to 2,000, 800 sample points, 200 components) on the
+    open patch of subdivision ``FACE_REF_SUBDIV``; ``load_bfm_data``;
+    ``run_bfm_fitting(partial=True)`` at ``N_CHAINS`` chains ×
+    ``BFM_FIT_STEPS`` steps.  Launch counts asserted over the pipeline →
+    counts."""
+    import tempfile
+
+    import numpy as np
+
+    from icp_proposal_tpu_torch.apps import create_gp_model
+    from icp_proposal_tpu_torch.apps.bfm import (
+        load_bfm_data,
+        prepare_bfm_dataset,
+        run_bfm_fitting,
+    )
+    from icp_proposal_tpu_torch.io.landmarks import write_landmarks
+    from icp_proposal_tpu_torch.io.stl import write_stl
+    from icp_proposal_tpu_torch.models.synthetic import make_open_patch
+
+    tag = "main:face-pipeline"
+    tpoints, tcells = face.target
+    lm_ids = _landmark_ids(tpoints, nose=True)
+    ref_points, ref_cells = make_open_patch(FACE_REF_SUBDIV, radius=0.1, z_cut=0.55)
+    n_cut = len(tpoints) // 6  # the stand-in's own occlusion size
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for sub in ("scans", "scan_landmarks", "bfm"):
+            (tmp / sub).mkdir()
+        for k in range(FACE_SCANS):
+            r, t = _rigid(0.3 + 0.2 * k, (0.5, 1.0, -1.0 + k), (0.02 * (k + 1), -0.01, 0.03))
+            moved = (tpoints.astype(np.float64) @ r.T + t) * 1000.0
+            _write_binary_ply(tmp / "scans" / f"subject{k}.ply", moved, tcells)
+            write_landmarks(tmp / "scan_landmarks" / f"subject{k}.json",
+                            {n: moved[i] for n, i in lm_ids.items()})
+        write_landmarks(tmp / "bfm" / "bfm.json",
+                        {n: tpoints[i].astype(np.float64) for n, i in lm_ids.items()})
+        write_stl(tmp / "face_reference.stl", ref_points, ref_cells)
+        _sync(torch)
+        _reset_counts()
+        t0 = time.perf_counter()
+        n = prepare_bfm_dataset(str(tmp / "scans"), str(tmp / "scan_landmarks"),
+                                str(tmp / "bfm" / "bfm.json"), str(tmp / "bfm"),
+                                n_nose_cut=n_cut, verbose=False)
+        secs["prepare_bfm_dataset"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        create_gp_model.main(["face", "--reference", str(tmp / "face_reference.stl"),
+                              "--out", str(tmp / "bfm" / "faceGPmodel_200c.h5"),
+                              "--device", str(dev)])
+        _sync(torch)
+        secs["create_gp_model face"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bfm = load_bfm_data(str(tmp / "bfm"), device=dev)
+        _sync(torch)
+        secs["load_bfm_data"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result, _ = run_bfm_fitting(bfm, partial=True, num_samples=BFM_FIT_STEPS,
+                                    n_chains=N_CHAINS, json_path=str(tmp / "bfm_log.json"),
+                                    seed=5, verbose=False)
+        _sync(torch)
+        secs["run_bfm_fitting"] = time.perf_counter() - t0
+        launches = _read_counts()
+        partial = sorted(p.name for p in (tmp / "bfm" / "partial" / "meshes").iterdir())
+
+    model = bfm.model
+    print(f"[{tag}] prepare_bfm_dataset {n} scans, create_gp_model face, load_bfm_data, "
+          f"run_bfm_fitting: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+          + f"; nvidia-smi: {smi}")
+    print(f"[{tag}] reference {len(ref_points)} vertices decimated to {model.num_points}, "
+          f"{model.cells.shape[0]} faces, rank {model.rank}; partial target "
+          f"{len(bfm.target_partial.points)} of {len(bfm.target.points)} vertices; "
+          f"run_bfm_fitting(partial=True) {N_CHAINS} chains x {BFM_FIT_STEPS} steps: "
+          f"FittingResult.samples_per_sec {result.samples_per_sec:.1f}, acceptance "
+          f"{result.acceptance['overall']:.4f}; launches {launches}")
+    _check_launches(tag, launches, BFM_STEP_LAUNCHES, BFM_FIT_STEPS, FACE_FIT_RUN_LAUNCHES)
+    if ((model.num_points, model.rank) != (min(FACE_DECIMATE_TO, len(ref_points)), FACE_RANK)
+            or n != FACE_SCANS or len(partial) != n):
+        raise AssertionError(f"{tag}: model {model.num_points} vertices rank {model.rank}, "
+                             f"{n} scans prepared, partial meshes {partial}")
+    # the STL reader numbers vertices by first appearance: compare corners
+    shift = _within(tag, "the aligned scan", bfm.target.points[bfm.target.cells],
+                    tpoints[tcells], rtol=0, rel_atol=1e-5)
+    if not (result.best_log_value > -float("inf")
+            and torch.isfinite(result.final_states.coeffs).all()):
+        raise AssertionError(f"{tag}: non-finite result")
+    print(f"[{tag}] aligned scan within {shift:.3g} of the stand-in's target; best log "
+          f"value {result.best_log_value:.4f}")
+    return launches
+
+
+def phase_config(torch, dev, data, smi):
+    """``build_from_config(RunConfig(), …)`` on the stand-in GPMM-100 at
+    ``N_CHAINS`` chains, timed like ``[main]`` → (counts, setup)."""
+    from icp_proposal_tpu_torch.utils.config import RunConfig, build_from_config
+
+    t0 = time.perf_counter()
+    setup = build_from_config(RunConfig(), data.model, data.target,
+                              data.model_boundary_mask, data.target_boundary_mask)
+    _sync(torch)
+    print(f"[main:config] build_from_config(RunConfig()) on the stand-in GPMM-100: "
+          f"{setup[1].names}; {time.perf_counter() - t0:.1f} s; nvidia-smi: {smi}")
+    _, mixture, evaluator = setup
+    launches = phase_main(torch, dev, "main:config", data.model, mixture, evaluator,
+                          WARMUP_STEPS, TIMED_STEPS, CONFIG_STEP_LAUNCHES)
+    return launches, setup
+
+
+def _leaves(torch, x):
+    """The tensors of a carry (nested named tuples), in field order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for y in x for t in _leaves(torch, y)]
+    if x is None:
+        return []
+    raise TypeError(f"unexpected carry leaf {type(x).__name__}")
+
+
+def phase_check_config(torch, dev, data, setup):
+    """The config-built step against the flagship recipe written by hand:
+    the same mixture names, weights and specs and the same evaluator specs
+    as ``make_icp_proposal_setup``; the hand-written mixture observes the
+    same seeded ICP subsets (the hand-built setup's own slice of the
+    evaluator's points would change the proposals), each mixture's ICP
+    model ids lie in its evaluator's subset, and the fusion plan serves
+    every model-direction ICP component from the evaluator's query pass
+    on both sides; then 32 chains × 3 steps, each side from its own carry
+    with the same noise: every decision and every tensor of the carry
+    (state, log posterior, named values, ICP factors) identical."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from icp_proposal_tpu_torch.apps.femur import make_icp_proposal_setup
+    from icp_proposal_tpu_torch.sampling import mh
+    from icp_proposal_tpu_torch.sampling.proposals import (
+        IcpComponent,
+        MixtureProgram,
+        mixed_proposal_icp,
+        mixed_random_shape_proposal,
+        nest,
+    )
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    tag = "check:config"
+    model = data.model
+    _, mixture, evaluator = setup
+    ctx_h, flag_mix, flag_ev = make_icp_proposal_setup(data)
+
+    def rows(specs):
+        return [(type(x).__name__, dc.asdict(x)) for x in specs]
+
+    if (mixture.names != flag_mix.names or mixture.weights != flag_mix.weights
+            or rows(mixture.specs) != rows(flag_mix.specs)
+            or rows(evaluator.specs) != rows(flag_ev.specs)
+            or evaluator.named_keys != flag_ev.named_keys):
+        raise AssertionError(f"{tag}: RunConfig() does not build the flagship recipe")
+    hand = MixtureProgram(
+        nest((0.9, mixed_proposal_icp(n_points=2 * model.rank,
+                                      projection_direction="model_and_target",
+                                      tangential_noise=10.0, noise_along_normal=5.0,
+                                      step_length=0.1)),
+             (0.1, mixed_random_shape_proposal())),
+        model, ctx_h, data.model_boundary_mask)
+
+    def icp_ids(mix):
+        return {i: c.model_ids for i, c in mix.icp_components.items()
+                if isinstance(c, IcpComponent) and c.spec.direction == "model"}
+
+    ids_c, ids_h = icp_ids(mixture), icp_ids(hand)
+    if not ids_c or sorted(ids_c) != sorted(ids_h) or any(
+            not np.array_equal(ids_c[i], ids_h[i]) for i in ids_c):
+        raise AssertionError(f"{tag}: the ICP components observe other model vertices")
+    for side, mix, ev, ids in (("config", mixture, evaluator, ids_c),
+                               ("hand", hand, flag_ev, ids_h)):
+        plan = mh._fusion_plan(mix, ev)
+        eval_ids = set(np.asarray(ev.model_ids(plan.spec_name)).tolist()) if plan else set()
+        if plan is None or sorted(plan.icp_maps) != sorted(ids) or any(
+                not set(v.tolist()) <= eval_ids for v in ids.values()):
+            raise AssertionError(f"{tag}: the {side} mixture's ICP ids are not served by "
+                                 "its evaluator's query pass")
+    steps = {name: mh.make_mh_step(model, mix, ev, store_params=True)
+             for name, (mix, ev) in (("config", (mixture, evaluator)),
+                                     ("hand", (hand, flag_ev)))}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    carry = mh.init_carry(model, evaluator, init_state(model, 32), mixture)
+    hand_carry = mh.init_carry(model, flag_ev, init_state(model, 32), hand)
+    accepted, n_leaves = 0, 0
+    for step in range(4):
+        got, want = _leaves(torch, carry), _leaves(torch, hand_carry)
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{tag}: the carries differ after {step} steps")
+        n_leaves = len(got)
+        if step == 3:
+            break
+        noise = mh.draw_noise(mixture, 32, gen)
+        carry, rec = steps["config"](carry, noise)
+        hand_carry, rec_h = steps["hand"](hand_carry, noise)
+        if not torch.equal(rec.accepted, rec_h.accepted):
+            raise AssertionError(f"{tag}: the config-built step decides otherwise than "
+                                 "the hand-built flagship recipe")
+        accepted += int(rec.accepted.sum())
+    print(f"[{tag}] RunConfig() builds the flagship recipe (names, weights, specs, "
+          f"evaluator); the same {sum(len(v) for v in ids_c.values())} ICP model ids "
+          f"on both sides, all in the evaluator's subset and fused; 32 chains x 3 steps, "
+          f"each from its own carry: 96 decisions identical ({accepted} accepts), all "
+          f"{n_leaves} carry tensors equal bitwise after every step")
+
+
 def main() -> int:
     import torch
 
@@ -1413,9 +1912,13 @@ def main() -> int:
     # 14. main path: the BFM entry point
     launches["bfm-fitting"] = phase_bfm_fitting(torch, dev, face)
     _sync(torch)
+
+    # 15. main path: the face pipeline (scans of the face stand-in's target)
+    launches["face-pipeline"] = phase_face_pipeline(torch, dev, face, smi)
+    _sync(torch)
     del face, bfm_setup, bfm_mixture, bfm_evaluator, built
 
-    # 15. the stand-in femur GPMM-200 and GPMM-50
+    # 16. the stand-in femur GPMM-200 and GPMM-50
     femur_models = {}
     for components in (200, 50):
         t = time.perf_counter()
@@ -1426,25 +1929,25 @@ def main() -> int:
         print(f"[setup:femur200] stand-in femur GPMM-{components}: rank {m.rank}, "
               f"{m.num_points} vertices; host build {time.perf_counter() - t:.1f} s")
 
-    # 16. main path: the deterministic ICP entry point
+    # 17. main path: the deterministic ICP entry point
     launches["icp"] = phase_icp(torch, dev, femur_models[50])
 
-    # 17. the deterministic ICP against the plain twins on the CPU
+    # 18. the deterministic ICP against the plain twins on the CPU
     for components in (50, 200):
         phase_check_icp(torch, dev, femur_models[components])
     _sync(torch)
 
-    # 18. K5, K6 and K7 at the harness's widths against the plain twins
+    # 19. K5, K6 and K7 at the harness's widths against the plain twins
     harness_records = phase_kernels_harness(torch, dev, femur_models[200])
     _print_records("kernels:harness", harness_records, EXP_INITS)
     for name, rec in harness_records.items():
         records[name]["at_harness"] = rec
     _sync(torch)
 
-    # 19. main path: the paper's harness
+    # 20. main path: the paper's harness
     launches["experiments"] = phase_experiments(torch, dev, femur_models[200])
 
-    # 20. the harness's two MH setups against the plain twins on the CPU, from
+    # 21. the harness's two MH setups against the plain twins on the CPU, from
     # the harness's own inits
     from icp_proposal_tpu_torch.apps import femur_experiments as fe
 
@@ -1462,10 +1965,10 @@ def main() -> int:
                     lambda m, name=name: harness_setups(m)[name], state=inits)
         _sync(torch)
 
-    # 21. main path: the random-init comparison
+    # 22. main path: the random-init comparison
     launches["random-init"] = phase_random_init(torch, dev, data)
 
-    # 22. its two MH setups against the plain twins on the CPU, from its inits
+    # 23. its two MH setups against the plain twins on the CPU, from its inits
     def random_init_setups(m):
         ctx_ri, ev, mix_icp, mix_rnd = fe._random_init_setup(
             m, data.target, data.model_boundary_mask, data.target_boundary_mask)
@@ -1476,6 +1979,27 @@ def main() -> int:
         phase_check(torch, dev, f"check:random-init-{name}", data.model, setup_ri,
                     lambda m, name=name: random_init_setups(m)[name], state=inits)
         _sync(torch)
+
+    # 24. main path: the configured run, and its check against the hand-built
+    # flagship recipe and the CPU twins
+    launches["config"], config_setup = phase_config(torch, dev, data, smi)
+    phase_check_config(torch, dev, data, config_setup)
+
+    def cpu_config(m):
+        from icp_proposal_tpu_torch.utils.config import RunConfig, build_from_config
+
+        return build_from_config(RunConfig(), m, data.target, data.model_boundary_mask,
+                                 data.target_boundary_mask)
+
+    phase_check(torch, dev, "check:config", data.model, config_setup, cpu_config)
+    _sync(torch)
+
+    # 25. main path: the femur pipeline (align, build, load, register, replay,
+    # posterior); its replay and posterior against the CPU from the same log
+    launches["femur-pipeline"], pipe_model, pipe_records = phase_femur_pipeline(
+        torch, dev, data, smi)
+    phase_check_replay(torch, dev, pipe_model, pipe_records)
+    _sync(torch)
 
     kernels = []
     for name, rec in records.items():

@@ -1,24 +1,33 @@
-"""BFM face workload: the synthetic face stand-in and the fitting setups.
+"""BFM face workload: data preparation, the real-asset loader, the
+synthetic face stand-in and the fitting setups.
 
 Counterpart of ``icp_proposal_tpu/apps/bfm.py`` (reference ``apps/bfm``:
-``AlignShapes.scala``, ``BfmFittingComplete.scala``,
-``BfmFittingPartial.scala``).  The BFM-2017 model and scans are
-license-gated and not in the repository; ``load_synthetic_face_data``
-builds the reference's stand-in instead, which runs the same code path: an
-open icosphere patch with a FaceKernel GPMM, a target drawn from the model
-and a partial target with a synthesized occlusion.  ``run_bfm_fitting`` is the
-end-to-end entry point.  Loading the real assets
-(``load_bfm_data``, ``prepare_bfm_dataset``) is not ported yet.
+``AlignShapes.scala``, ``LoadTestData.scala``, ``BfmFittingComplete.scala``,
+``BfmFittingPartial.scala``).  ``prepare_bfm_dataset`` scales and aligns
+the scans and synthesizes their partial variants; ``load_bfm_data`` reads
+the model and the prepared targets from a directory the caller names.  The
+BFM-2017 model and scans are license-gated and not in the repository;
+``load_synthetic_face_data`` builds the reference's stand-in instead, which
+runs the same code path: an open icosphere patch with a FaceKernel GPMM, a
+target drawn from the model and a partial target with a synthesized
+occlusion.  ``run_bfm_fitting`` is the end-to-end entry point.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict
 
 import numpy as np
 
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.mesh import TriangleMesh, boundary_vertex_mask, make_mesh
 from icp_proposal_tpu_torch.models.gpmm import Gpmm
+
+# the reference's data directory (``apps/bfm/Paths.scala``), relative to the
+# working directory; ``load_bfm_data(data_dir=...)`` names another
+BFM_DATA_DIR = Path("data") / "bfm"
 
 
 def synthesize_partial_target(points: np.ndarray, cells: np.ndarray,
@@ -42,6 +51,129 @@ def synthesize_partial_target(points: np.ndarray, cells: np.ndarray,
     remap = -np.ones(len(points), dtype=np.int64)
     remap[used] = np.arange(len(used))
     return points[used], remap[new_cells_full].astype(np.int32), used
+
+
+def align_scan(scan_points, scan_landmarks: Dict[str, np.ndarray],
+               model_landmarks: Dict[str, np.ndarray], scale: float = 1e-3):
+    """Scale a scan and its landmarks (the reference scales BFM scans by
+    1/1000, ``AlignShapes.scala:66``), then rigidly align them to the model
+    landmarks by the common names, rotating about the origin → (aligned
+    points [V, 3] float32, aligned landmarks)."""
+    from icp_proposal_tpu_torch.io.landmarks import common_landmarks
+    from icp_proposal_tpu_torch.ops.rigid import rigid_landmark_alignment
+
+    pts = np.asarray(scan_points, np.float64) * scale
+    lms = {k: np.asarray(v, np.float64) * scale for k, v in scan_landmarks.items()}
+    src, dst, _ = common_landmarks(lms, model_landmarks)
+    t = rigid_landmark_alignment(src, dst, center=np.zeros(3))
+    aligned = t.apply(pts.astype(np.float32))
+    aligned_lms = {k: t.apply(v[None, :].astype(np.float32))[0] for k, v in lms.items()}
+    return aligned, aligned_lms
+
+
+def prepare_bfm_dataset(
+    scans_dir: str,
+    landmarks_dir: str,
+    model_landmarks_path: str,
+    out_dir: str,
+    nose_landmark: str = "center.nose.tip",
+    n_nose_cut: int = 1000,
+    mouth_mask_ids=(),
+    verbose: bool = True,
+) -> int:
+    """The BFM data preparation (reference ``bfm/AlignShapes.scala:55-101``):
+    every ``.ply`` or ``.stl`` scan in ``scans_dir`` with landmarks of the
+    same basename in ``landmarks_dir`` is scaled by 1/1000 and rigidly
+    aligned to the model landmarks (``align_scan``), written to
+    ``out_dir/aligned/{meshes,landmarks}``; where its landmarks name
+    ``nose_landmark``, the partial variant (the ``n_nose_cut`` vertices
+    nearest the nose tip and ``mouth_mask_ids`` cut away, the nose landmark
+    dropped) goes to ``out_dir/partial/{meshes,landmarks}``.  Returns the
+    number of scans prepared."""
+    from icp_proposal_tpu_torch.io.landmarks import read_landmarks, write_landmarks
+    from icp_proposal_tpu_torch.io.ply import read_ply
+    from icp_proposal_tpu_torch.io.stl import read_stl, write_stl
+
+    model_lms = read_landmarks(model_landmarks_path)
+    for sub in ("aligned/meshes", "aligned/landmarks", "partial/meshes",
+                "partial/landmarks"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+
+    count = 0
+    for fname in sorted(os.listdir(scans_dir)):
+        base, ext = os.path.splitext(fname)
+        if ext.lower() not in (".ply", ".stl"):
+            continue
+        lm_path = os.path.join(landmarks_dir, base + ".json")
+        if not os.path.exists(lm_path):
+            if verbose:
+                print(f"skipping {fname}: no landmarks")
+            continue
+        reader = read_ply if ext.lower() == ".ply" else read_stl
+        points, cells = reader(os.path.join(scans_dir, fname))
+        lms = read_landmarks(lm_path)
+        aligned, aligned_lms = align_scan(points, lms, model_lms, scale=1e-3)
+        write_stl(os.path.join(out_dir, "aligned/meshes", base + ".stl"), aligned, cells)
+        write_landmarks(os.path.join(out_dir, "aligned/landmarks", base + ".json"),
+                        aligned_lms)
+
+        if nose_landmark in aligned_lms:
+            p_pts, p_cells, _ = synthesize_partial_target(
+                aligned, cells, aligned_lms[nose_landmark],
+                n_cut=n_nose_cut, extra_cut_ids=mouth_mask_ids,
+            )
+            partial_lms = {k: v for k, v in aligned_lms.items() if k != nose_landmark}
+            write_stl(os.path.join(out_dir, "partial/meshes", base + ".stl"),
+                      p_pts, p_cells)
+            write_landmarks(os.path.join(out_dir, "partial/landmarks", base + ".json"),
+                            partial_lms)
+        count += 1
+        if verbose:
+            print(f"prepared {fname}")
+    return count
+
+
+def load_bfm_data(data_dir: str = None, target_index: int = 0,
+                  model_file: str = "faceGPmodel_200c.h5",
+                  device=DEFAULT_DEVICE) -> "BfmData":
+    """The real BFM workload from ``data_dir`` (default ``BFM_DATA_DIR``;
+    reference ``bfm/LoadTestData``): the statismo face GPMM ``model_file``
+    on ``device`` (the card unless ``device="cpu"``) and the prepared target
+    ``aligned/meshes/*.stl`` number ``target_index`` (sorted by name) with
+    its partial variant from ``partial/meshes`` (the complete target where
+    there is none).  Raises FileNotFoundError when the model or the aligned
+    meshes are missing; it never substitutes the stand-in
+    (``load_synthetic_face_data``)."""
+    from icp_proposal_tpu_torch.io.statismo import read_statismo_gpmm
+    from icp_proposal_tpu_torch.io.stl import read_stl
+
+    device = resolve_device(device)
+    data_dir = str(data_dir or BFM_DATA_DIR)
+    model_path = os.path.join(data_dir, model_file)
+    aligned_dir = os.path.join(data_dir, "aligned", "meshes")
+    partial_dir = os.path.join(data_dir, "partial", "meshes")
+    if not (os.path.exists(model_path) and os.path.isdir(aligned_dir)):
+        raise FileNotFoundError(
+            f"BFM assets not found under {data_dir} (license-gated download; "
+            "see reference README.md:57-72). Use load_synthetic_face_data().")
+    model = read_statismo_gpmm(model_path, device=device)
+    targets = sorted(f for f in os.listdir(aligned_dir) if f.endswith(".stl"))
+    tname = targets[target_index]
+    t_pts, t_cells = read_stl(os.path.join(aligned_dir, tname))
+    p_path = os.path.join(partial_dir, tname)
+    if os.path.exists(p_path):
+        p_pts, p_cells = read_stl(p_path)
+    else:
+        p_pts, p_cells = t_pts, t_cells
+    return BfmData(
+        model=model,
+        target=make_mesh(t_pts, t_cells),
+        target_partial=make_mesh(p_pts, p_cells),
+        model_boundary_mask=boundary_vertex_mask(model.cells.cpu().numpy(),
+                                                 model.num_points),
+        target_boundary_mask=boundary_vertex_mask(t_cells, len(t_pts)),
+        partial_boundary_mask=boundary_vertex_mask(p_cells, len(p_pts)),
+    )
 
 
 @dataclass

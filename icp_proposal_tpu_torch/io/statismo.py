@@ -12,8 +12,11 @@ Layout:
     model/noiseVariance  [1]    f32
 
 The GP is over displacement fields: mean displacement = mean − points.
-``h5py`` is imported inside the functions: nothing on the card's path needs
-it.
+The files go through ``io/hdf5.py`` (numpy), which reads what ``h5py``
+writes and writes what it reads; the H100 host has no ``h5py``.  Only the
+six datasets above are read; if one of them is chunked, compressed or
+behind a version 2 object header, the reader raises ``ValueError`` and the
+file must be rewritten with contiguous datasets.
 """
 from __future__ import annotations
 
@@ -25,15 +28,16 @@ from icp_proposal_tpu_torch.device import DEFAULT_DEVICE
 def read_statismo_arrays(path) -> dict:
     """The model's host arrays: points [V, 3], cells [F, 3], mean_disp
     [V, 3], basis [V, 3, r], variance [r] and noise_variance (a float)."""
-    import h5py
+    from icp_proposal_tpu_torch.io.hdf5 import read_datasets
 
-    with h5py.File(path, "r") as f:
-        points = np.asarray(f["representer/points"], dtype=np.float32).T  # [V,3]
-        cells = np.asarray(f["representer/cells"], dtype=np.int32).T  # [F,3]
-        mean_shape = np.asarray(f["model/mean"], dtype=np.float32).reshape(-1, 3)
-        basis = np.asarray(f["model/pcaBasis"], dtype=np.float32)  # [3V, r]
-        variance = np.asarray(f["model/pcaVariance"], dtype=np.float32)
-        noise = float(np.asarray(f["model/noiseVariance"]).ravel()[0])
+    f = read_datasets(path, ["representer/points", "representer/cells", "model/mean",
+                             "model/pcaBasis", "model/pcaVariance", "model/noiseVariance"])
+    points = np.asarray(f["representer/points"], dtype=np.float32).T  # [V,3]
+    cells = np.asarray(f["representer/cells"], dtype=np.int32).T  # [F,3]
+    mean_shape = np.asarray(f["model/mean"], dtype=np.float32).reshape(-1, 3)
+    basis = np.asarray(f["model/pcaBasis"], dtype=np.float32)  # [3V, r]
+    variance = np.asarray(f["model/pcaVariance"], dtype=np.float32)
+    noise = float(np.asarray(f["model/noiseVariance"]).ravel()[0])
     v = points.shape[0]
     r = basis.shape[1]
     return {
@@ -66,22 +70,20 @@ def read_statismo_gpmm(path, device=DEFAULT_DEVICE):
 def write_statismo_gpmm(path, gpmm) -> None:
     """Write a ``Gpmm`` in the statismo layout (readable by
     ``read_statismo_gpmm``, by the JAX package's reader and by scalismo)."""
-    import h5py
+    from icp_proposal_tpu_torch.io.hdf5 import write_datasets
 
     points = gpmm.ref_points.cpu().numpy().astype(np.float32)
     cells = gpmm.cells.cpu().numpy().astype(np.int32)
     mean_shape = points + gpmm.mean_disp.cpu().numpy().astype(np.float32)
     basis = gpmm.basis.cpu().numpy().astype(np.float32)
     v, _, r = basis.shape
-    with h5py.File(path, "w") as f:
-        f.create_dataset("representer/points", data=points.T)
-        f.create_dataset("representer/cells", data=cells.T)
-        f["representer"].attrs["datasetType"] = np.bytes_("POLYGON_MESH")
-        f.create_dataset("model/mean", data=mean_shape.reshape(-1))
-        f.create_dataset("model/pcaBasis", data=basis.reshape(3 * v, r))
-        f.create_dataset("model/pcaVariance",
-                         data=gpmm.variance.cpu().numpy().astype(np.float32))
-        f.create_dataset("model/noiseVariance",
-                         data=np.asarray([float(gpmm.noise_variance)], dtype=np.float32))
-        f.create_dataset("version/majorVersion", data=np.int32(0))
-        f.create_dataset("version/minorVersion", data=np.int32(9))
+    write_datasets(path, {
+        "representer/points": points.T,
+        "representer/cells": cells.T,
+        "model/mean": mean_shape.reshape(-1),
+        "model/pcaBasis": basis.reshape(3 * v, r),
+        "model/pcaVariance": gpmm.variance.cpu().numpy().astype(np.float32),
+        "model/noiseVariance": np.asarray([float(gpmm.noise_variance)], dtype=np.float32),
+        "version/majorVersion": np.int32(0),
+        "version/minorVersion": np.int32(9),
+    }, {"representer": {"datasetType": np.bytes_("POLYGON_MESH")}})

@@ -11,9 +11,10 @@ from ``icp_proposal_tpu/models/build_face.py`` (reference
     symmetrize = I·base(x,y) + diag(−1,1,1)·base(x, mirror_x(y))
 
 ``FaceKernel`` evaluates base(x, y) once per call where the reference
-evaluates it twice; the values are the same.  ``build_face_gpmm`` (which
-needs mesh decimation) is not ported yet; the synthetic face stand-in
-(``apps/bfm.load_synthetic_face_data``) builds its model directly.
+evaluates it twice; the values are the same.  ``build_face_gpmm`` is the
+reference's model builder (``bfm/CreateGPModel.scala:32-65``); the
+synthetic face stand-in (``apps/bfm.load_synthetic_face_data``) builds its
+model directly.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.models.kernels import BSplineScalar, MatrixKernel
 
 LEVELS_WITH_SCALE: Tuple[Tuple[int, float], ...] = (
@@ -136,3 +138,46 @@ class FaceKernel(MatrixKernel):
         ybar = np.asarray(y) * np.array([-1.0, 1.0, 1.0])
         symmetrized = base + np.einsum("ij,...jk->...ik", self._jbar, self.base(x, ybar))
         return 0.7 * symmetrized + 0.3 * base
+
+
+def build_face_gpmm(
+    ref_points,
+    ref_cells,
+    num_components: int = 200,
+    num_sample_points: int = 800,
+    decimate_to: int | None = 2000,
+    seed: int = 1024,
+    device=DEFAULT_DEVICE,
+):
+    """The face model builder (reference ``bfm/CreateGPModel.scala:32-65``):
+    decimate the reference mesh to ``decimate_to`` vertices (None keeps it),
+    trivial all-3 masks, ``FaceKernel``, Nyström over ``num_sample_points``
+    area-weighted vertices (``seed``) with ``num_components`` basis
+    functions, zero mean.  Built in float64 on the host, the model's tensors
+    on ``device`` (the card unless ``device="cpu"``)."""
+    from icp_proposal_tpu_torch.models.gpmm import make_gpmm
+    from icp_proposal_tpu_torch.models.nystrom import nystrom_lowrank
+    from icp_proposal_tpu_torch.ops.decimate import decimate
+    from icp_proposal_tpu_torch.ops.surface_sampling import area_weighted_vertex_subset
+
+    device = resolve_device(device)  # before the host build, not after
+    pts = np.asarray(ref_points, np.float64)
+    cls = np.asarray(ref_cells)
+    if decimate_to is not None and decimate_to < len(pts):
+        new_pts, new_cells, _ = decimate(pts, cls, decimate_to)
+        pts, cls = np.asarray(new_pts, np.float64), new_cells
+
+    kernel = FaceKernel(FaceMask.trivial(len(pts)), pts)
+    n_sample = min(num_sample_points, len(pts))
+    sample_ids = area_weighted_vertex_subset(pts, cls, n_sample, seed)
+    basis, variance = nystrom_lowrank(kernel, pts[sample_ids], pts,
+                                      num_basis=num_components)
+    return make_gpmm(
+        ref_points=pts.astype(np.float32),
+        cells=cls,
+        mean_disp=np.zeros((len(pts), 3), np.float32),
+        basis=basis,
+        variance=variance,
+        noise_variance=0.0,
+        device=device,
+    )

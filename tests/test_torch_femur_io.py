@@ -2,7 +2,8 @@
 
 Landmark JSON, statismo HDF5 and STL files written by the JAX package's
 writers in a temporary directory (the real assets are not in the
-repository), read back by the port; rigid landmark alignment; and
+repository), read back by the port; the port's numpy HDF5 against
+``h5py``; rigid landmark alignment; and
 ``load_femur_data(data_dir=...)`` in both packages on the same files: the
 model's arrays bitwise, the aligned target within 1e-5.
 """
@@ -107,6 +108,109 @@ def test_statismo_round_trip(tmp_path, femur_dir):
     # reader orders again the same way
     back_cells = jst.read_statismo_gpmm(tmp_path / "port.h5").cells
     np.testing.assert_array_equal(np.asarray(back_cells), np.asarray(jm.cells))
+
+
+def test_hdf5_interoperates_with_h5py(tmp_path):
+    """``io/hdf5.py`` (the port's numpy HDF5, since the H100 host has no
+    ``h5py``): what it writes, ``h5py`` reads back with the same values,
+    dtypes, shapes and the group attribute; what ``h5py`` writes by default
+    it reads back alike (float32/64, signed and unsigned integers, scalars,
+    fixed-length strings, nested groups, a group of 200 members that spans
+    many symbol-table nodes); the statismo files of both writers hold the
+    same arrays; a format it does not cover raises ``ValueError``."""
+    import h5py
+
+    from icp_proposal_tpu.io import statismo as jst
+    from icp_proposal_tpu.models.synthetic import make_icosphere, make_synthetic_gpmm
+    from icp_proposal_tpu_torch import convert
+    from icp_proposal_tpu_torch.io import hdf5
+    from icp_proposal_tpu_torch.io import statismo as pst
+
+    rng = np.random.RandomState(1)
+    data = {"a/f32": rng.randn(3, 50).astype(np.float32), "a/i32": rng.randint(
+        -9, 9, (3, 7)).astype(np.int32), "a/b/c/f64": rng.randn(4, 2),
+        "u8": np.arange(5, dtype=np.uint8), "s": np.asarray([b"ab", b"cde"]),
+        "v/scalar": np.int32(7), **{f"many/d{i:03d}": np.full(2, i) for i in range(200)}}
+    hdf5.write_datasets(tmp_path / "port.h5", data, {"a": {"kind": np.bytes_("MESH")}})
+    with h5py.File(tmp_path / "h5py.h5", "w") as f:
+        for k, v in data.items():
+            f.create_dataset(k, data=v)
+    with h5py.File(tmp_path / "port.h5", "r") as f:
+        assert f["a"].attrs["kind"] == b"MESH"
+        read = {k: f[k][()] for k in data}
+    for got in (read, hdf5.read_datasets(tmp_path / "h5py.h5"),
+                hdf5.read_datasets(tmp_path / "port.h5")):
+        assert sorted(got) == sorted(data)
+        for k, v in data.items():
+            g = np.asarray(got[k])
+            assert g.dtype == v.dtype and g.shape == np.shape(v), k
+            np.testing.assert_array_equal(g, v, err_msg=k)
+
+    points, cells = make_icosphere(subdivisions=1, radius=10.0)
+    jm = make_synthetic_gpmm(points, cells, rank=3)
+    jst.write_statismo_gpmm(tmp_path / "jax_model.h5", jm)
+    pst.write_statismo_gpmm(tmp_path / "port_model.h5", convert.gpmm_from_arrays(
+        **{k: np.asarray(v) for k, v in jm._asdict().items()}, device="cpu"))
+    with h5py.File(tmp_path / "jax_model.h5", "r") as f, \
+            h5py.File(tmp_path / "port_model.h5", "r") as g:
+        names = []
+        f.visit(names.append)
+        for name in names:
+            if isinstance(f[name], h5py.Dataset):
+                np.testing.assert_array_equal(g[name][()], f[name][()], err_msg=name)
+                assert g[name].dtype == f[name].dtype, name
+        assert g["representer"].attrs["datasetType"] == f["representer"].attrs["datasetType"]
+
+    with h5py.File(tmp_path / "latest.h5", "w", libver="latest") as f:
+        f.create_dataset("x", data=np.zeros(3))
+    with h5py.File(tmp_path / "chunked.h5", "w") as f:
+        f.create_dataset("x", data=np.zeros((8, 8)), chunks=(4, 4))
+    for name in ("latest.h5", "chunked.h5"):
+        with pytest.raises(ValueError, match="HDF5"):
+            hdf5.read_datasets(tmp_path / name)
+
+
+def test_statismo_read_skips_unrelated_datasets(tmp_path):
+    """A statismo file written by the JAX package (``h5py``) and then given
+    objects that ``io/hdf5.py`` cannot decode beside the model (a chunked,
+    gzip-compressed dataset and a variable-length string under
+    ``modelinfo/``, a group stored as link messages) reads back as before:
+    the reader opens only the six statismo datasets.  Asking for a missing
+    dataset raises ``KeyError``, and a model dataset that is itself chunked
+    raises ``ValueError``."""
+    import h5py
+
+    from icp_proposal_tpu.io import statismo as jst
+    from icp_proposal_tpu.models.synthetic import make_icosphere, make_synthetic_gpmm
+    from icp_proposal_tpu_torch.io import hdf5
+    from icp_proposal_tpu_torch.io import statismo as pst
+
+    points, cells = make_icosphere(subdivisions=1, radius=10.0)
+    path = tmp_path / "model.h5"
+    jst.write_statismo_gpmm(path, make_synthetic_gpmm(points, cells, rank=3))
+    want = pst.read_statismo_arrays(path)
+    with h5py.File(path, "a") as f:
+        f.create_dataset("modelinfo/scores", data=np.zeros((16, 16)), chunks=(4, 4),
+                         compression="gzip")
+        f.create_dataset("modelinfo/build-time", data="2017-01-01",
+                         dtype=h5py.string_dtype())
+        f.create_group("modelinfo/tracked", track_order=True).create_dataset(
+            "x", data=np.zeros(2))
+    back = pst.read_statismo_arrays(path)
+    assert sorted(back) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    with pytest.raises(ValueError, match="HDF5"):
+        hdf5.read_datasets(path)
+    with pytest.raises(KeyError, match="model/absent"):
+        hdf5.read_datasets(path, ["model/mean", "model/absent"])
+
+    with h5py.File(path, "a") as f:
+        basis = f["model/pcaBasis"][()]
+        del f["model/pcaBasis"]
+        f.create_dataset("model/pcaBasis", data=basis, chunks=True)
+    with pytest.raises(ValueError, match="HDF5"):
+        pst.read_statismo_arrays(path)
 
 
 def test_rigid_alignment_matches_jax():

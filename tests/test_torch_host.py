@@ -145,3 +145,124 @@ def test_loader_host_copies_identical(meshes, tmp_path):
     arrays, j_arrays = (m.read_statismo_arrays(tmp_path / "m.h5") for m in (pst, jst))
     for k, v in j_arrays.items():
         np.testing.assert_array_equal(arrays[k], v, err_msg=k)
+
+
+def _binary_ply(path, points, cells, quads=()):
+    """A binary little-endian PLY with an extra vertex property before and
+    after x/y/z (skipped by the readers), an unknown fixed-size element
+    between vertices and faces, triangles, and ``quads`` (split by the
+    readers)."""
+    head = ["ply", "format binary_little_endian 1.0", f"element vertex {len(points)}",
+            "property uchar flag", "property float x", "property float y",
+            "property float z", "property double confidence", "element extra 2",
+            "property int a", "property short b",
+            f"element face {len(cells) + len(quads)}",
+            "property list uchar int vertex_indices", "end_header"]
+    vdt = np.dtype([("flag", "u1"), ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                    ("confidence", "<f8")])
+    verts = np.zeros(len(points), vdt)
+    verts["flag"] = np.arange(len(points)) % 7
+    for k, c in enumerate("xyz"):
+        verts[c] = points[:, k]
+    verts["confidence"] = np.linspace(0, 1, len(points))
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode("ascii"))
+        f.write(verts.tobytes())
+        f.write(b"\x01" * (2 * 6))
+        for face in [*cells, *quads]:
+            f.write(np.uint8(len(face)).tobytes() + np.asarray(face, "<i4").tobytes())
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary"])
+def test_ply_io_identical(meshes, tmp_path, fmt):
+    """``read_ply`` of an ascii file (written by each package's
+    ``write_ply``, whose bytes must be equal) and of a binary little-endian
+    file with extra properties, an unknown element and quads: the same
+    points and cells as the JAX package's reader, bitwise."""
+    from icp_proposal_tpu.io import ply as jply
+    from icp_proposal_tpu_torch.io import ply as pply
+
+    points, cells = meshes["map"]
+    path = tmp_path / f"m_{fmt}.ply"
+    if fmt == "ascii":
+        jply.write_ply(tmp_path / "j.ply", points, cells)
+        pply.write_ply(path, points, cells)
+        assert path.read_bytes() == (tmp_path / "j.ply").read_bytes()
+    else:
+        quads = [[0, 1, 2, 3], [10, 11, 12, 13]]
+        _binary_ply(path, points * 1000.0, cells, quads)
+    got, want = pply.read_ply(path), jply.read_ply(path)
+    assert got[1].shape == (len(cells) + (0 if fmt == "ascii" else 4), 3)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def _open_patch(subdivisions):
+    from icp_proposal_tpu.models.synthetic import make_open_patch
+
+    return make_open_patch(subdivisions=subdivisions, radius=0.1, z_cut=0.55)
+
+
+@pytest.mark.parametrize("case", ["sphere-642-to-200", "open-patch-1977-to-800"])
+def test_decimate_identical(case):
+    """``decimate`` on JAX's ``test_decimate_sphere`` input and on the
+    subdivision-4 open patch (the face stand-in's mesh): the same kept ids,
+    cells and points, bitwise (heap ties and set order decide which vertices
+    survive)."""
+    from icp_proposal_tpu.models.synthetic import make_icosphere
+    from icp_proposal_tpu.ops.decimate import decimate as jdecimate
+    from icp_proposal_tpu_torch.ops.decimate import decimate as pdecimate
+
+    if case.startswith("sphere"):
+        (points, cells), target = make_icosphere(subdivisions=3, radius=50.0), 200
+    else:
+        (points, cells), target = _open_patch(4), 800
+    assert len(points) == int(case.split("-")[-3])
+    got, want = pdecimate(points, cells, target), jdecimate(points, cells, target)
+    assert len(got[2]) == target
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_decimate_gpmm_identical():
+    """``decimate_gpmm`` on JAX's ``test_decimate_gpmm`` model (sphere, rank
+    5, to 80 vertices), the port starting from JAX's arrays: the kept ids and
+    every array of the decimated model bitwise."""
+    from icp_proposal_tpu.models.synthetic import make_icosphere, make_synthetic_gpmm
+    from icp_proposal_tpu.ops.decimate import decimate_gpmm as jdecimate_gpmm
+    from icp_proposal_tpu_torch import convert
+    from icp_proposal_tpu_torch.ops.decimate import decimate_gpmm as pdecimate_gpmm
+
+    points, cells = make_icosphere(subdivisions=2, radius=50.0)
+    jmodel = make_synthetic_gpmm(points, cells, rank=5)
+    model = convert.gpmm_from_arrays(**{k: np.asarray(v) for k, v in
+                                        jmodel._asdict().items()}, device="cpu")
+    (small, kept), (jsmall, jkept) = (pdecimate_gpmm(model, 80, device="cpu"),
+                                      jdecimate_gpmm(jmodel, 80))
+    assert small.num_points == 80 and small.rank == 5 and small.device.type == "cpu"
+    np.testing.assert_array_equal(kept, jkept)
+    for name, want in jsmall._asdict().items():
+        np.testing.assert_array_equal(getattr(small, name).numpy(), np.asarray(want),
+                                      err_msg=name)
+
+
+def test_scalar_field_ply_bytes_identical(meshes, tmp_path):
+    """``write_scalar_field_ply`` writes the JAX package's bytes, from host
+    arrays and from CPU tensors (converted to numpy before formatting), and
+    for a constant field (the zero colour ramp)."""
+    from icp_proposal_tpu.io.scalar_field import write_scalar_field_ply as jwrite
+    from icp_proposal_tpu_torch.io.scalar_field import write_scalar_field_ply as pwrite
+
+    points, cells = meshes["mean"]
+    values = np.random.RandomState(2).gamma(2.0, 0.3, len(points)).astype(np.float32)
+    for tag, vals in (("field", values), ("constant", np.full(len(points), 0.5))):
+        jwrite(tmp_path / f"j_{tag}.ply", points, cells, vals)
+        want = (tmp_path / f"j_{tag}.ply").read_bytes()
+        pwrite(tmp_path / f"p_{tag}.ply", points, cells, vals)
+        pwrite(tmp_path / f"t_{tag}.ply", torch.as_tensor(points), torch.as_tensor(cells),
+               torch.as_tensor(vals))
+        assert (tmp_path / f"p_{tag}.ply").read_bytes() == want
+        assert (tmp_path / f"t_{tag}.ply").read_bytes() == want
+    assert b"tensor(" not in want

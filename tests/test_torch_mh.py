@@ -220,7 +220,19 @@ def test_one_step_parity_random_walk_options(monkeypatch):
                                   "femur.run_deterministic_icp",
                                   "femur.load_femur_data",
                                   "femur_experiments.run_std_icp_vs_chain_comparison",
-                                  "femur_experiments.run_random_init_comparison"])
+                                  "femur_experiments.run_random_init_comparison",
+                                  "align_shapes.align_shapes", "bfm.align_scan",
+                                  "bfm.prepare_bfm_dataset", "bfm.load_bfm_data",
+                                  "models.build_face.build_face_gpmm",
+                                  "ops.decimate.decimate", "ops.decimate.decimate_gpmm",
+                                  "io.ply.read_ply", "io.ply.write_ply",
+                                  "io.scalar_field.write_scalar_field_ply",
+                                  "utils.config.build_from_config",
+                                  "analysis.replay.replay_states",
+                                  "analysis.replay.replay_meshes",
+                                  "analysis.replay.posterior_analysis",
+                                  "analysis.posterior_variability.variability_map_total",
+                                  "analysis.posterior_variability.variability_map_normal"])
 def test_setup_signatures_match_the_reference(name):
     """A caller with the reference's signature can call the port's setup
     functions and entry points: the same parameter names, order and
@@ -363,12 +375,15 @@ def test_port_runs_without_jax(tmp_path):
     random-walk setups and of the BFM partial setup, a short CPU
     registration run with coarse="dot", a short ``run_bfm_fitting``, a
     2-iteration ``run_deterministic_icp`` and a 2-init paper harness on a
-    small sphere leaves jax and the JAX package out of sys.modules."""
+    small sphere, a small ``build_face_gpmm`` (decimation included), a step
+    of ``build_from_config(RunConfig())``, a ``posterior_analysis`` and a
+    statismo round trip (with ``h5py`` blocked too: the H100 host has none)
+    leaves jax and the JAX package out of sys.modules."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'icp_proposal_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'icp_proposal_tpu', 'h5py'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib, pkgutil, torch\n"
@@ -416,6 +431,26 @@ def test_port_runs_without_jax(tmp_path):
         "log = run_std_icp_vs_chain_comparison(sm, [tgt], ['t'], none, sys.argv[1], "
         "n_inits=2, n_samples=3, verbose=False)\n"
         "assert len(log.load_log()) == 2\n"
+        "from icp_proposal_tpu_torch.analysis.replay import posterior_analysis\n"
+        "from icp_proposal_tpu_torch.models.build_face import build_face_gpmm\n"
+        "from icp_proposal_tpu_torch.models.synthetic import make_open_patch\n"
+        "from icp_proposal_tpu_torch.utils.config import RunConfig, build_from_config\n"
+        "fm = build_face_gpmm(*make_open_patch(2, 0.1, 0.6), num_components=4, "
+        "num_sample_points=16, decimate_to=60, device='cpu')\n"
+        "assert fm.num_points == 60 and fm.rank == 4\n"
+        "ctx, mix, ev = build_from_config(RunConfig(), sm, tgt, none, none)\n"
+        "step = mh.make_mh_step(sm, mix, ev)\n"
+        "carry = mh.init_carry(sm, ev, init_state(sm, 2), mix)\n"
+        "carry, rec = step(carry, generator=torch.Generator().manual_seed(0))\n"
+        "recs = [dict(status=True, rigid=[0.0] * 9, coeff=[0.1 * i] * 4, "
+        "logvalue={'product': float(i)}) for i in range(3)]\n"
+        "out = posterior_analysis(sm, recs, burn_in=0, take_every_n=1)\n"
+        "assert out['num_samples'] == 3 and out['variability_total'].shape == (len(pts),)\n"
+        "from icp_proposal_tpu_torch.io.statismo import read_statismo_gpmm, "
+        "write_statismo_gpmm\n"
+        "write_statismo_gpmm(sys.argv[1] + '.h5', fm)\n"
+        "back = read_statismo_gpmm(sys.argv[1] + '.h5', device='cpu')\n"
+        "assert torch.equal(back.basis, fm.basis) and torch.equal(back.cells, fm.cells)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_proposal_tpu' or m.startswith('icp_proposal_tpu.')]\n"
         "print('LOADED', bad)\n"
