@@ -107,7 +107,23 @@ Phases (each prints one line or a short block, and ends in
                  seconds per stage, launches, the decode of the replayed
                  states and the variability maps timed; check:replay: the
                  replayed and posterior points and maps on the card against
-                 the CPU from the same log.
+                 the CPU from the same log;
+26. main:pod     ``apps.pod_chains`` at its defaults in this process: 1,024
+                 chains x 1,000 steps of the stand-in GPMM-100 flagship with
+                 records, pooled acceptance, R-hat and ESS (one process, no
+                 collective): samples/s, launches; then the bare step
+                 (store_params=False) at 1,024 chains: the ratio is the
+                 runner's overhead;
+27. check:pod    64 chains x 100 steps (a) with no group, (b) in an NCCL
+                 group of one rank (the all-reduces on the card; equal to (a)
+                 bitwise), (c) as two gloo rank processes sharing the card
+                 (decisions equal to (a)'s away from |log a - log u| <= 1e-3,
+                 pooled stats within 1e-5 of |x| + the field's max|x|), (d)
+                 pooled R-hat and ESS
+                 against split_rhat/ess of the gathered traces (rtol 1e-4);
+28. main:dryrun  ``graft_entry.dryrun_multichip(torch.cuda.device_count())``:
+                 one NCCL rank process per card, 64 chains x 100 steps of the
+                 stand-in GPMM-50 flagship, pooled by all-reduce.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  Then one JSON line with every kernel's numbers, and as
@@ -269,6 +285,18 @@ FACE_FIT_RUN_LAUNCHES = {"surface_distances[shared]": 1, "surface_distances[per_
 # 2·rank ids, so one index pass still serves both (mh._fusion_plan): the
 # flagship step's launches
 CONFIG_STEP_LAUNCHES = FEMUR_STEP_LAUNCHES
+# The pod run: apps/pod_chains at its defaults (the stand-in GPMM-100,
+# flagship, records kept), one process; its initial carry launches what
+# runfitting's does (PIPE_RUN_LAUNCHES), then the flagship step's launches a
+# step.  The bare step (store_params=False) and the runner are then timed
+# in turns at the same chains.
+POD_CHAINS, POD_STEPS = 1024, 1000
+POD_RUN_LAUNCHES = PIPE_RUN_LAUNCHES
+POD_BARE_WARMUP, POD_BARE_STEPS = 5, 100
+# [check:pod]: 64 chains x 100 steps with no group, in an NCCL group of one
+# rank, and over two gloo ranks sharing the card
+POD_CHECK_CHAINS, POD_CHECK_STEPS, POD_CHECK_SEED = 64, 100, 1024
+POD_RANK_TIMEOUT = 300.0
 SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     "chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
     "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
@@ -1775,6 +1803,253 @@ def phase_check_config(torch, dev, data, setup):
           f"{n_leaves} carry tensors equal bitwise after every step")
 
 
+def phase_pod(torch, dev, data, setup):
+    """``apps.pod_chains`` at its defaults in this process (``POD_CHAINS``
+    chains x ``POD_STEPS`` steps, stand-in GPMM-100, flagship, records kept,
+    ``--out`` read back); launches asserted over the whole call; then, from
+    the same inits in the same process, the bare flagship step
+    (store_params=False) and the runner with records and pooling in turns →
+    counts."""
+    from icp_proposal_tpu_torch.apps import pod_chains
+    from icp_proposal_tpu_torch.apps.femur_experiments import _batched_init_states
+    from icp_proposal_tpu_torch.parallel.runner import make_chain_mesh, run_sharded_chains
+    from icp_proposal_tpu_torch.sampling import mh
+
+    tag = "main:pod"
+    BUILD.mkdir(exist_ok=True)
+    out_path = BUILD / "pod_chains.json"
+    _reset_counts()
+    t = time.perf_counter()
+    out = pod_chains.main(["--chains", str(POD_CHAINS), "--steps", str(POD_STEPS),
+                           "--out", str(out_path), "--device", str(dev)])
+    _sync(torch)
+    wall = time.perf_counter() - t
+    launches = _read_counts()
+    sps = out["samples_per_sec"]
+    print(f"[{tag}] pod_chains: {out['chains']} chains x {out['steps']} steps, GPMM-"
+          f"{out['components']} {out['setup']}, {out['devices']} device: {sps:.1f} samples/s "
+          f"({1e3 * out['chains'] / sps:.3f} ms/step with records and pooling); the whole "
+          f"call {wall:.1f} s (stand-in build, setup and initial carry included); pooled "
+          f"acceptance {out['pooled_acceptance']:.4f}, max split-R-hat (first 8) "
+          f"{out['rhat_max_first8']:.4f}, ESS(coeff 0) {out['ess_coeff0']:.1f}, "
+          f"diagnostics_via {out['diagnostics_via']}; launches {launches}")
+    _check_launches(tag, launches, FEMUR_STEP_LAUNCHES, POD_STEPS, POD_RUN_LAUNCHES)
+    if json.loads(out_path.read_text()) != out:
+        raise AssertionError(f"{tag}: --out does not hold the printed result")
+    if not (0.0 < out["pooled_acceptance"] < 1.0 and out["rhat_max_first8"] > 0
+            and out["ess_coeff0"] > 0 and out["diagnostics_via"] == "single_device_fast_path"):
+        raise AssertionError(f"{tag}: degenerate pooled diagnostics {out}")
+
+    # in turns, from the pod run's inits: the bare step (mh.run_chains,
+    # store_params=False), the runner with records and pooling, the runner,
+    # the bare step, POD_BARE_STEPS steps each after one warm-up of each
+    _, mixture, evaluator = setup
+    bare_step = mh.make_mh_step(data.model, mixture, evaluator)
+    rec_step = mh.make_mh_step(data.model, mixture, evaluator, store_params=True)
+    carry0 = mh.init_carry(data.model, evaluator,
+                           _batched_init_states(data.model, POD_CHAINS, 1024), mixture)
+    mesh = make_chain_mesh([dev])
+    runs = {
+        "bare": lambda n: mh.run_chains(bare_step, carry0, n,
+                                        torch.Generator(device=dev).manual_seed(0)),
+        "runner": lambda n: run_sharded_chains(rec_step, carry0, 0, n, mesh,
+                                               burn_in=n // 5)[2].acceptance.item(),
+    }
+    for run in runs.values():
+        run(POD_BARE_WARMUP)
+    _sync(torch)
+    ms = {"bare": [], "runner": []}
+    for name in ("bare", "runner", "runner", "bare"):
+        t = time.perf_counter()
+        runs[name](POD_BARE_STEPS)
+        _sync(torch)
+        ms[name].append(1e3 * (time.perf_counter() - t) / POD_BARE_STEPS)
+    bare = POD_CHAINS / (sum(ms["bare"]) / 2e3)
+    print(f"[{tag}] in turns at {POD_CHAINS} chains, {POD_BARE_STEPS} steps each: the bare "
+          f"step (store_params=False) {', '.join(f'{x:.3f}' for x in ms['bare'])} ms/step "
+          f"({bare:.1f} samples/s); the runner with records and pooling "
+          f"{', '.join(f'{x:.3f}' for x in ms['runner'])} ms/step: records and pooling add "
+          f"{100 * (sum(ms['runner']) / sum(ms['bare']) - 1):.1f} %; the pod run / bare step "
+          f"{sps / bare:.4f} (its first steps in the process included)")
+    return launches
+
+
+def _pod_run(torch, dev, setup, world=1):
+    """``POD_CHECK_CHAINS`` x ``POD_CHECK_STEPS`` flagship chains through
+    ``run_sharded_chains`` over the current process group (none: this
+    process alone), this rank's share → (records, final carry, stats)."""
+    from icp_proposal_tpu_torch.apps.femur_experiments import _batched_init_states, _fold_in
+    from icp_proposal_tpu_torch.parallel.runner import make_chain_mesh, run_sharded_chains
+    from icp_proposal_tpu_torch.sampling import mh
+    from icp_proposal_tpu_torch.sampling.state import FitState
+
+    _, mixture, evaluator = setup
+    model = mixture.gpmm
+    mesh = make_chain_mesh([dev] * world)
+    states = _batched_init_states(model, POD_CHECK_CHAINS, POD_CHECK_SEED)
+    carries = mh.init_carry(model, evaluator,
+                            FitState(*(x[mesh.chain_rows(POD_CHECK_CHAINS)] for x in states)),
+                            mixture)
+    step = mh.make_mh_step(model, mixture, evaluator, store_params=True)
+    final, records, stats = run_sharded_chains(
+        step, carries, _fold_in(POD_CHECK_SEED, 7), POD_CHECK_STEPS, mesh,
+        burn_in=POD_CHECK_STEPS // 5)
+    return records, final, stats
+
+
+def pod_check_rank(rank, world, init, out, device):
+    """One rank of [check:pod] (c): a gloo rank on ``device`` (both ranks on
+    the one card), the stand-in GPMM-100 flagship built anew; saves this
+    rank's decisions, log α, coefficient trace and the pooled stats."""
+    import torch
+    import torch.distributed as dist
+
+    from icp_proposal_tpu_torch.apps.femur import (
+        load_standin_femur_data,
+        make_icp_proposal_setup,
+    )
+    from icp_proposal_tpu_torch.parallel.distributed import COLLECTIVE_TIMEOUT
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, world_size=int(world), rank=int(rank),
+                            timeout=COLLECTIVE_TIMEOUT)
+    try:
+        setup = make_icp_proposal_setup(load_standin_femur_data(device=dev))
+        records, final, stats = _pod_run(torch, dev, setup, int(world))
+        torch.save({"accepted": records.accepted.cpu(), "log_alpha": records.log_alpha.cpu(),
+                    "coeffs": records.coeffs.cpu(), "final_coeffs": final.state.coeffs.cpu(),
+                    "stats": {k: v.cpu() for k, v in stats._asdict().items()}}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _stats_within(torch, tag, what, got, want, tol):
+    """Every field of the pooled stats ``got`` (a dict) against ``want``
+    (``PooledStats``): |got − want| ≤ tol · (|want| + the field's largest
+    |want|), so entries near zero are held to the field's scale →
+    the largest |got − want| / max|want| over the fields."""
+    worst = 0.0
+    for name, x in want._asdict().items():
+        x, y = x.cpu(), got[name].cpu()
+        scale = float(x.abs().max())
+        if not bool(((y - x).abs() <= tol * (x.abs() + scale)).all()):
+            raise AssertionError(f"{tag}: {what}: pooled {name} {y} against {x} "
+                                 f"(tol {tol} of |x| + max|x|)")
+        worst = max(worst, float((y - x).abs().max()) / max(scale, 1e-30))
+    return worst
+
+
+def phase_check_pod(torch, dev, setup):
+    """The short pod run ``POD_CHECK_CHAINS`` x ``POD_CHECK_STEPS`` four ways:
+    (a) no process group; (b) an NCCL group of one rank (``file://``), the
+    all-reduces on the card: pooled stats equal to (a)'s bitwise; (c) two
+    gloo rank processes sharing the card (NCCL refuses two ranks on one
+    device): every decision equal to (a)'s, chain for chain, except at
+    |log α − log u| ≤ 1e-3 (a chain that flips there is left out from that
+    step on), pooled stats within 1e-5 of |x| + the field's largest |x| (32
+    and 64 chains may take other cuBLAS GEMMs, so coefficients near zero
+    differ in their own last digits); (d) the pooled R-hat and ESS of
+    (a) and (c) against ``split_rhat``/``ess`` of the gathered traces, rtol
+    1e-4."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from icp_proposal_tpu_torch.apps.femur_experiments import _fold_in
+    from icp_proposal_tpu_torch.parallel.distributed import initialize_distributed, run_ranks
+    from icp_proposal_tpu_torch.sampling import diagnostics, mh
+
+    tag = "check:pod"
+    burn = POD_CHECK_STEPS // 5
+    t = time.perf_counter()
+    rec_a, final_a, stats_a = _pod_run(torch, dev, setup)
+    _sync(torch)
+    print(f"[{tag}] (a) no group: {POD_CHECK_CHAINS} chains x {POD_CHECK_STEPS} steps in "
+          f"{time.perf_counter() - t:.2f} s; pooled acceptance {float(stats_a.acceptance):.4f}, "
+          f"max R-hat {float(stats_a.rhat.max()):.4f}, ESS {float(stats_a.ess):.1f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            backend = dist.get_backend()
+            rec_b, _, stats_b = _pod_run(torch, dev, setup)
+            _sync(torch)
+        finally:
+            dist.destroy_process_group()
+    if not torch.equal(rec_b.accepted, rec_a.accepted):
+        raise AssertionError(f"{tag}: (b) decisions differ from (a)")
+    for name, x in stats_a._asdict().items():
+        if not torch.equal(getattr(stats_b, name), x):
+            raise AssertionError(f"{tag}: (b) pooled {name} differs from (a)")
+    print(f"[{tag}] (b) one-rank {backend} group, all-reduces on the card: every decision "
+          f"and every pooled stat equal to (a) bitwise")
+
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.pod_check_rank(*sys.argv[1:])", str(r), str(world),
+                 f"file://{tmp}/rendezvous", f"{tmp}/out{r}.pt", str(dev)]
+                for r in range(world)]
+        t = time.perf_counter()
+        run_ranks(cmds, POD_RANK_TIMEOUT, tmp, cwd=Path(__file__).resolve().parent)
+        outs = [torch.load(f"{tmp}/out{r}.pt") for r in range(world)]
+    wall_c = time.perf_counter() - t
+    for out in outs[1:]:
+        for name, x in out["stats"].items():
+            if not torch.equal(x, outs[0]["stats"][name]):
+                raise AssertionError(f"{tag}: (c) ranks disagree on pooled {name}")
+    # log u of every step: the same generator draws the whole batch's noise
+    _, mixture, _ = setup
+    gen = torch.Generator(device=dev).manual_seed(_fold_in(POD_CHECK_SEED, 7))
+    log_u = torch.stack([mh.draw_noise(mixture, POD_CHECK_CHAINS, gen).log_u
+                         for _ in range(POD_CHECK_STEPS)], dim=1).cpu()
+    tie = (rec_a.log_alpha.cpu() - log_u).abs() <= 1e-3
+    differ = torch.cat([o["accepted"] for o in outs]) != rec_a.accepted.cpu()
+    # a chain that flips at a tie parts from (a): compare it up to that step
+    parted = (differ & tie).any(dim=1)
+    first = torch.where(parted, (differ & tie).int().argmax(dim=1), POD_CHECK_STEPS)
+    compared = torch.arange(POD_CHECK_STEPS)[None, :] <= first[:, None]
+    if (differ & ~tie & compared).any():
+        raise AssertionError(f"{tag}: (c) {int((differ & ~tie & compared).sum())} decisions "
+                             "differ from (a) away from a tie")
+    worst = _stats_within(torch, tag, "(c) against (a)", outs[0]["stats"], stats_a, 1e-5)
+    coeff_err = float((torch.cat([o["final_coeffs"] for o in outs])
+                       - final_a.state.coeffs.cpu()).abs().max())
+    print(f"[{tag}] (c) {world} gloo rank processes on one {dev.type} device, "
+          f"{POD_CHECK_CHAINS // world} chains each, {wall_c:.1f} s with start-up: "
+          f"{int((compared & ~tie).sum())} decisions away from a tie, all equal to (a)'s; "
+          f"{int(tie.sum())} at |log a - log u| <= 1e-3, {int(parted.sum())} chains parted "
+          f"at one; final coefficients within {coeff_err:.3g} of (a)'s; pooled stats "
+          f"within {worst:.3g} of each field's largest magnitude (held 1e-5 of |x| + "
+          "max|x|)")
+
+    for what, traces, stats in (("(a)", rec_a.coeffs, stats_a._asdict()),
+                                ("(c)", torch.cat([o["coeffs"] for o in outs]),
+                                 outs[0]["stats"])):
+        tail = traces[:, burn:, :8]
+        for name, want in (("rhat", diagnostics.split_rhat(tail)),
+                           ("ess", diagnostics.ess(tail[..., 0]))):
+            if not torch.allclose(stats[name].cpu(), want.cpu(), rtol=1e-4, atol=0.0):
+                raise AssertionError(f"{tag}: (d) {what} pooled {name} {stats[name]} against "
+                                     f"the gathered traces' {want}")
+    print(f"[{tag}] (d) pooled R-hat and ESS of (a) and (c) equal split_rhat/ess of the "
+          "gathered traces within rtol 1e-4")
+
+
+def phase_dryrun(torch):
+    """``graft_entry.dryrun_multichip`` over every card (one NCCL rank per
+    card, started as processes)."""
+    from icp_proposal_tpu_torch.graft_entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    t = time.perf_counter()
+    dryrun_multichip(n)
+    print(f"[main:dryrun] dryrun_multichip({n}) passed in {time.perf_counter() - t:.1f} s "
+          "(rank processes' start-up included)")
+
+
 def main() -> int:
     import torch
 
@@ -2000,6 +2275,20 @@ def main() -> int:
         torch, dev, data, smi)
     phase_check_replay(torch, dev, pipe_model, pipe_records)
     _sync(torch)
+    del pipe_model, pipe_records
+
+    # 26. main path: the pod run (apps.pod_chains at its defaults), then the
+    # bare step at its chains
+    launches["pod"] = phase_pod(torch, dev, data, setup)
+    _sync(torch)
+
+    # 27. the short pod run with no group, in a one-rank NCCL group and over
+    # two gloo rank processes; pooled R-hat/ESS against the gathered traces
+    phase_check_pod(torch, dev, setup)
+    _sync(torch)
+
+    # 28. the driver's dry run, one NCCL rank process per card
+    phase_dryrun(torch)
 
     kernels = []
     for name, rec in records.items():

@@ -157,10 +157,11 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
     """Build the MH step for a fixed configuration:
     ``step(carry, noise=None, generator=None) -> (carry, record)``.
 
-    ``noise`` (a ``StepNoise``) is drawn from ``generator`` when not given.
-    fuse=True shares one target-surface closest-point pass between the
-    model-direction ICP correspondence and the Euclidean evaluator when the
-    configuration allows it; the results are identical to separate passes."""
+    ``noise`` (a ``StepNoise``) is drawn from ``generator`` when not given;
+    ``step.mixture`` is the mixture it is drawn for.  fuse=True shares one
+    target-surface closest-point pass between the model-direction ICP
+    correspondence and the Euclidean evaluator when the configuration allows
+    it; the results are identical to separate passes."""
     # gradient-informed components differentiate the target density itself
     mixture.bind_target(evaluator)
     plan = _fusion_plan(mixture, evaluator) if fuse else None
@@ -228,6 +229,7 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
         )
         return new_carry, record
 
+    step.mixture = mixture
     return step
 
 

@@ -232,14 +232,22 @@ def test_one_step_parity_random_walk_options(monkeypatch):
                                   "analysis.replay.replay_meshes",
                                   "analysis.replay.posterior_analysis",
                                   "analysis.posterior_variability.variability_map_total",
-                                  "analysis.posterior_variability.variability_map_normal"])
+                                  "analysis.posterior_variability.variability_map_normal",
+                                  "parallel.runner.run_sharded_chains",
+                                  "parallel.runner.make_chain_mesh",
+                                  "parallel.distributed.chains_for_host",
+                                  "parallel.distributed.initialize_distributed",
+                                  "sampling.diagnostics.pooled_split_rhat",
+                                  "sampling.diagnostics.pooled_ess"])
 def test_setup_signatures_match_the_reference(name):
     """A caller with the reference's signature can call the port's setup
     functions and entry points: the same parameter names, order and
     defaults, with the coarse pass (``coarse``), the device (``device``),
     the workload (``data``) and the injected randomness (``generator``,
-    ``flips``, ``draws``) as the port's only extras.  A bare module name is
-    one of ``apps``."""
+    ``flips``, ``draws``) as the port's only extras.  One rename: the pooled
+    diagnostics take a process ``group`` where JAX takes a mesh
+    ``axis_name`` (both default None).  A bare module name is one of
+    ``apps``."""
     import importlib
     import inspect
 
@@ -249,6 +257,9 @@ def test_setup_signatures_match_the_reference(name):
         f"icp_proposal_tpu.{mod}"), fn)).parameters
     port = inspect.signature(getattr(importlib.import_module(
         f"icp_proposal_tpu_torch.{mod}"), fn)).parameters
+    if fn.startswith("pooled_"):
+        ref = {("group" if p == "axis_name" else p): v.replace(name="group")
+               if p == "axis_name" else v for p, v in ref.items()}
     extras = {"coarse", "device", "data", "generator", "flips", "draws"} - set(ref)
     assert set(port) - set(ref) <= extras
     assert [p for p in port if p not in extras] == list(ref)
