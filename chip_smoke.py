@@ -123,7 +123,19 @@ Phases (each prints one line or a short block, and ends in
                  against split_rhat/ess of the gathered traces (rtol 1e-4);
 28. main:dryrun  ``graft_entry.dryrun_multichip(torch.cuda.device_count())``:
                  one NCCL rank process per card, 64 chains x 100 steps of the
-                 stand-in GPMM-50 flagship, pooled by all-reduce.
+                 stand-in GPMM-50 flagship, pooled by all-reduce;
+29. main:evidence  the posterior-evidence tools (``icp_proposal_tpu_torch.
+                 tools``) through their ``main()`` at cut sizes (``EV_ARGS``)
+                 on the stand-in GPMM-50: the index sweep at K = 16, 32, 64,
+                 128 (and K8's coarse pass at 64), the quick mixing sweep,
+                 the three long-run samplers, the quality rows (femur and
+                 face), two rounds of the converged run (one process) and the
+                 numpy sampler against the port: seconds, launches, a JSON
+                 summary each; the sweep's K = 64 errors against the CPU
+                 twins', the converged run's pooled R-hat against the
+                 gathered traces';
+30. kernels:evidence  K4 at each of those K on the sweep's queries against
+                 its twin (ids and winner corners bitwise).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  Then one JSON line with every kernel's numbers, and as
@@ -297,6 +309,42 @@ POD_BARE_WARMUP, POD_BARE_STEPS = 5, 100
 # rank, and over two gloo ranks sharing the card
 POD_CHECK_CHAINS, POD_CHECK_STEPS, POD_CHECK_SEED = 64, 100, 1024
 POD_RANK_TIMEOUT = 300.0
+# [main:evidence]: the posterior-evidence tools (icp_proposal_tpu_torch.tools)
+# through their main() on the stand-in GPMM-50 (the JAX tools' width), cut
+# in chains and steps; each must launch the kernels of its path at least once
+EV_KS = (16, 32, 64, 128)
+EV_ARGS = {
+    "validate_index": ["--ks", *map(str, EV_KS)],
+    "validate_index[dot]": ["--ks", "64", "--coarse", "dot"],
+    "mixing_sweep": ["--quick", "--chains", "64", "--steps", "250"],
+    "posterior_parity": ["--chains", "64", "--steps", "500", "--segment", "250"],
+    "quality_run": ["--chains", "16", "--samples", "250"],
+    "quality_bfm": ["--chains", "16", "--samples", "200"],
+    "converged_run": ["--chains", "64", "--round-steps", "500", "--max-rounds", "2",
+                      "--segment-steps", "250"],
+    "crossimpl_parity": ["--port-chains", "2", "--procs", "2", "--steps", "500",
+                         "--burn", "100", "--chains", "64"],
+}
+_EV_FEMUR = ("chol_solve", "tri_solve_lt", "nearest_vertices[shared]",
+             "nearest_vertices[per_chain]", "refine_shortlist", "surface_distances[shared]")
+EV_KERNELS = {
+    "validate_index": ("nearest_vertices[shared]", "refine_shortlist",
+                       "surface_distances[shared]"),
+    "validate_index[dot]": ("coarse_nearest_dot", "refine_shortlist",
+                            "surface_distances[shared]"),
+    "mixing_sweep": _EV_FEMUR,
+    "posterior_parity": _EV_FEMUR,
+    "quality_run": _EV_FEMUR,
+    # rank 24: K1/K2, the partial face's collective evaluator K5 both ways
+    "quality_bfm": ("chol_solve", "tri_solve_lt", "nearest_vertices[shared]",
+                    "refine_shortlist", "surface_distances[shared]",
+                    "surface_distances[per_chain]"),
+    "converged_run": ("nearest_vertices[shared]", "refine_shortlist"),  # the random walk
+    # parity mode without the index: K5 for the evaluator and the model
+    # direction, K3 per chain for the target direction
+    "crossimpl_parity": ("chol_solve", "tri_solve_lt", "nearest_vertices[per_chain]",
+                         "surface_distances[shared]"),
+}
 SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     "chol_solve": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:74"),
     "tri_solve_lt": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:329"),
@@ -2050,6 +2098,177 @@ def phase_dryrun(torch):
           "(rank processes' start-up included)")
 
 
+def _evidence_summary(name, out):
+    """The few numbers of a tool's output that [main:evidence] prints and
+    checks; raises where an output is degenerate."""
+    import math
+
+    def finite(*xs):
+        if not all(x is not None and math.isfinite(x) for x in xs):
+            raise AssertionError(f"[main:evidence] {name}: non-finite output {xs}")
+
+    if name.startswith("validate_index"):
+        for row in out:
+            finite(row["max_abs_err_mm"], row["max_rel_err"], row["frac_mismatched"])
+            if row["frac_mismatched"] > 0.05 or row["n_queries"] != out[0]["n_queries"]:
+                raise AssertionError(f"[main:evidence] {name}: {row}")
+        return {f"K={r['k']} {r['regime']}": [r["max_abs_err_mm"], r["frac_mismatched"]]
+                for r in out}
+    if name in ("mixing_sweep", "posterior_parity"):
+        runs = out if name == "mixing_sweep" else out["runs"]
+        acc = {r["label"]: r["acceptance_overall"] for r in runs}
+        for r in runs:
+            finite(r["acceptance_overall"], r["final_avg_dist_mm_mean"])
+            if not 0.0 < r["acceptance_overall"] < 1.0:
+                raise AssertionError(f"[main:evidence] {name}: acceptance {acc}")
+        parity, exact = (("flagship-parity-s0.1", "flagship-exact-s0.1")
+                         if name == "mixing_sweep" else ("icp-parity", "icp-exact"))
+        if acc[parity] <= acc[exact]:  # the parity density's known bias
+            raise AssertionError(f"[main:evidence] {name}: parity acceptance "
+                                 f"{acc[parity]} not above the exact {acc[exact]}")
+        summary = {"acceptance": acc}
+        if name == "posterior_parity":
+            summary["max_z"] = {c["pair"]: c["max_z"] for c in out["comparisons"]}
+            finite(*summary["max_z"].values())
+        return summary
+    if name == "quality_run":
+        rows = out["rows"]
+        for r in rows.values():
+            finite(r["map_avg_distance_mm"], r["ess_per_wall_second"])
+        if out["recommended_by_ess_per_wall_second"] not in rows:
+            raise AssertionError(f"[main:evidence] {name}: {out}")
+        return {"map_avg_distance_mm": {k: r["map_avg_distance_mm"] for k, r in rows.items()},
+                "ess_per_wall_second": {k: r["ess_per_wall_second"] for k, r in rows.items()},
+                "recommended_by_ess_per_wall_second":
+                    out["recommended_by_ess_per_wall_second"],
+                "index_check": out["index_check"]}
+    if name == "quality_bfm":
+        rows = out["rows"]
+        for r in rows.values():
+            finite(r["map_avg_distance_vs_full_target"], r["ess_first8_mean"])
+        return {k: {"map_avg": r["map_avg_distance_vs_full_target"],
+                    "acceptance": r["acceptance"]["overall"]} for k, r in rows.items()}
+    if name == "converged_run":
+        # two rounds: the host R-hat covers round 1 alone, as the pooled one does
+        pooled = out["rounds"][-1]["collective_split_rhat_max_first8"]
+        host = out["host_split_rhat_max_first8_postburn"]
+        if len(out["rounds"]) != 2 or abs(pooled - host) > 1e-4 * abs(host):
+            raise AssertionError(f"[main:evidence] {name}: pooled R-hat {pooled} against "
+                                 f"the gathered traces' {host}")
+        return {"rhat_by_round": [r["collective_split_rhat_max_first8"]
+                                  for r in out["rounds"]], "host_rhat": host,
+                "pooled_acceptance": out["rounds"][-1]["pooled_acceptance"]}
+    finite(out["max_abs_z_first"])  # crossimpl_parity
+    return {k: out[k] for k in ("max_abs_z_first", "pass_3sigma_first",
+                                "max_delta_in_posterior_sd_first")} | {
+        "acceptance": {"numpy": out["port"]["acceptance"], "port": out["jax"]["acceptance"]}}
+
+
+def phase_evidence(torch, dev, data):
+    """``[main:evidence]``: each tool of ``icp_proposal_tpu_torch.tools``
+    through its ``main()`` with ``EV_ARGS`` on the card, outputs under
+    build/evidence_smoke (each tool's own output in ``<tool>.log``), launch
+    counts read around each; the shortlist indices ``validate_index`` builds
+    are kept for [kernels:evidence], and its K = 64 rows are held to the
+    same sweep on the CPU twins (``data``: the stand-in GPMM-50 the tools
+    build) → (summed counts, indices by K, the sweep's queries by regime)."""
+    import contextlib
+    import importlib
+
+    from icp_proposal_tpu_torch.ops import surface_index
+
+    out_dir = BUILD / "evidence_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    built = {}
+    build_index = surface_index.build_surface_index
+
+    def keep(points, cells, k=surface_index.INDEX_K, coarse="exact", device="cuda"):
+        index = build_index(points, cells, k, coarse, device)
+        if coarse == "exact":
+            built[k] = index
+        return index
+
+    total = {}
+    outs = {}
+    for name, args in EV_ARGS.items():
+        module = name.split("[")[0]
+        tool = importlib.import_module(f"icp_proposal_tpu_torch.tools.{module}")
+        argv = [*args, "--device", str(dev), "--out", str(out_dir / f"{module}.json")]
+        if module == "crossimpl_parity":
+            argv += ["--port-cache", str(out_dir / "crossimpl_port_moments.npz")]
+        surface_index.build_surface_index = keep
+        _reset_counts()
+        t = time.perf_counter()
+        try:
+            with open(out_dir / f"{name}.log", "w") as log, contextlib.redirect_stdout(log):
+                outs[name] = tool.main(argv)
+            _sync(torch)
+        finally:
+            surface_index.build_surface_index = build_index
+        wall = time.perf_counter() - t
+        counts = _read_counts()
+        missing = [k for k in EV_KERNELS[name] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"[main:evidence] {name}: {missing} never launched; "
+                                 f"launches {counts}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        print(f"[main:evidence] {name} {' '.join(args)}: {wall:.1f} s; launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        print(f"[main:evidence] {name}: " + json.dumps(_evidence_summary(name, outs[name])))
+
+    # the card's K = 64 sweep against the same sweep on the CPU twins, on
+    # the tool's own queries (the stand-in ``data`` is the tools' GPMM-50)
+    from icp_proposal_tpu_torch.tools import validate_index as vi
+
+    gen = torch.Generator().manual_seed(1024)
+    queries = {regime: vi.perturbed_queries(data, gen, **kw)
+               for regime, kw in vi.REGIMES.items()}
+    idx = built[64]
+    cpu_index = surface_index.SurfaceIndex(idx.points.cpu(), idx.tri.cpu(), idx.cand.cpu(),
+                                           idx.points_aug.cpu())
+    for row in (r for r in outs["validate_index"] if r["k"] == 64):
+        err, _, frac = surface_index.validate_index(cpu_index, queries[row["regime"]],
+                                                    with_rel=True)
+        if abs(err - row["max_abs_err_mm"]) > 1e-5 or frac != row["frac_mismatched"]:
+            raise AssertionError(f"[main:evidence] validate_index K=64 {row['regime']}: "
+                                 f"card {row}, CPU twins {err}, {frac}")
+    print("[main:evidence] validate_index K=64: the card's errors equal the CPU twins' "
+          "(max_abs_err within 1e-5 mm, frac_mismatched equal) in every regime")
+    return total, built, queries
+
+
+def phase_kernels_evidence(torch, dev, indices, queries):
+    """``[kernels:evidence]``: K4 at each shortlist width of the index sweep
+    against its twin, on the sweep's own queries ([1, P, 3] a regime, the
+    coarse ids from K3): ids and winner corners bitwise in every regime,
+    timed on the last regime's (far-init) queries → records by K."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
+
+    records = {}
+    for k, idx in sorted(indices.items()):
+        for regime, q_np in queries.items():
+            q = torch.as_tensor(q_np, device=dev)[None].contiguous()
+            nv = cp.nearest_vertices(q, idx.points)
+            f, w = cp.refine_shortlist(q, nv, idx.cand, idx.faces)
+            f_p, w_p = cp.refine_shortlist_plain(q, nv, idx.cand, idx.faces)
+            _sync(torch)
+            err, mism = _id_errors(f, f_p)
+            if mism or not torch.equal(w.view(torch.int32), w_p.view(torch.int32)):
+                raise AssertionError(f"[kernels:evidence] K4 at K={k}, {regime}: {mism} "
+                                     "ids or the winner's corners differ from the twin")
+        rec = _record(torch, err, mism, lambda: cp.refine_shortlist(q, nv, idx.cand, idx.faces),
+                      lambda: cp.refine_shortlist_plain(q, nv, idx.cand, idx.faces),
+                      _nbytes(q, nv, idx.cand, idx.faces, f, w),
+                      PAIR_FLOPS * q.shape[1] * idx.k)
+        rec.update(k=k, queries=q.shape[1])
+        _print_record("kernels:evidence", f"refine_shortlist[K={k}]", rec, 1)
+        records[f"K={k}"] = rec
+    print(f"[kernels:evidence] K4 equals its twin bitwise (ids and winner corners) at "
+          f"K = {', '.join(map(str, sorted(indices)))} in all {len(queries)} regimes")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2289,6 +2508,13 @@ def main() -> int:
 
     # 28. the driver's dry run, one NCCL rank process per card
     phase_dryrun(torch)
+
+    # 29. main path: the posterior-evidence tools at cut sizes; 30. K4 at the
+    # index sweep's shortlist widths against its twin
+    launches["evidence"], ev_indices, ev_queries = phase_evidence(torch, dev, femur_models[50])
+    records["refine_shortlist"]["at_evidence"] = phase_kernels_evidence(
+        torch, dev, ev_indices, ev_queries)
+    _sync(torch)
 
     kernels = []
     for name, rec in records.items():

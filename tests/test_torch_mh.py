@@ -387,14 +387,17 @@ def test_port_runs_without_jax(tmp_path):
     registration run with coarse="dot", a short ``run_bfm_fitting``, a
     2-iteration ``run_deterministic_icp`` and a 2-init paper harness on a
     small sphere, a small ``build_face_gpmm`` (decimation included), a step
-    of ``build_from_config(RunConfig())``, a ``posterior_analysis`` and a
-    statismo round trip (with ``h5py`` blocked too: the H100 host has none)
-    leaves jax and the JAX package out of sys.modules."""
+    of ``build_from_config(RunConfig())``, a ``posterior_analysis``, a
+    statismo round trip (with ``h5py`` blocked too: the H100 host has none),
+    and the evidence tools' ``validate_index`` sweep and a ``posterior_parity``
+    long run on the sphere (with the repository's JAX ``tools`` package
+    blocked too: the port keeps copies of what it needs) leaves jax, the JAX
+    package and ``tools`` out of sys.modules."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'icp_proposal_tpu', 'h5py'):\n"
+        "        if name.split('.')[0] in ('jax', 'icp_proposal_tpu', 'h5py', 'tools'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib, pkgutil, torch\n"
@@ -462,8 +465,15 @@ def test_port_runs_without_jax(tmp_path):
         "write_statismo_gpmm(sys.argv[1] + '.h5', fm)\n"
         "back = read_statismo_gpmm(sys.argv[1] + '.h5', device='cpu')\n"
         "assert torch.equal(back.basis, fm.basis) and torch.equal(back.cells, fm.cells)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'icp_proposal_tpu' or m.startswith('icp_proposal_tpu.')]\n"
+        "from icp_proposal_tpu_torch.tools import posterior_parity, validate_index\n"
+        "sphere = FemurData(sm, tgt, none, none)\n"
+        "rows = validate_index.run(sphere, ks=(8,), verbose=False)\n"
+        "assert [r['k'] for r in rows] == [8] * 4\n"
+        "run = posterior_parity.run_long(sphere, 'icp-exact', 2, 8, 4, 1, parity=False, "
+        "step_length=0.1, noise_normal=5.0, tangential=10.0)\n"
+        "assert len(run['mcse_first8']) == 4 and run['icp_acceptance'] is not None\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'icp_proposal_tpu', "
+        "'tools')]\n"
         "print('LOADED', bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

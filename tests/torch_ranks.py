@@ -11,8 +11,8 @@ Every rank is waited for with its own limit (``RANK_TIMEOUT``); on a failure
 or a timeout all are killed and the test fails with the rank's output.
 
 The setups here (the JAX tests' sphere, the stand-in femur GPMM-50 flagship)
-import the port only, so the test process builds its unsharded references
-from the same functions.
+and the converged run on the sphere import the port only, so the test
+process builds its unsharded references from the same functions.
 """
 from __future__ import annotations
 
@@ -54,14 +54,28 @@ def local_rows(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sphere(specs):
+def sphere_data():
     """The sphere of the JAX package's sharded-runner tests
-    (``tests/test_registration.py``): icosphere of subdivision 1, radius 50,
-    rank-4 synthetic GPMM (σ = 40, scale 4), target at α = e₀, a
-    16-point Euclidean evaluator of σ = 1."""
+    (``tests/test_registration.py``) as a ``FemurData``: icosphere of
+    subdivision 1, radius 50, rank-4 synthetic GPMM (σ = 40, scale 4),
+    target at α = e₀."""
+    from icp_proposal_tpu_torch.apps.femur import FemurData
     from icp_proposal_tpu_torch.mesh import TriangleMesh, boundary_vertex_mask
     from icp_proposal_tpu_torch.models.gpmm import instance_points
     from icp_proposal_tpu_torch.models.synthetic import make_icosphere, make_synthetic_gpmm
+
+    points, cells = make_icosphere(subdivisions=1, radius=50.0)
+    model = make_synthetic_gpmm(points, cells, rank=4, sigma=40.0, scale=4.0, device="cpu")
+    alpha = torch.zeros(4)
+    alpha[0] = 1.0
+    target = TriangleMesh(points=instance_points(model, alpha), cells=model.cells)
+    mask = boundary_vertex_mask(np.asarray(cells), len(points))
+    return FemurData(model, target, mask, mask)
+
+
+def _sphere(specs):
+    """``sphere_data`` with the mixture of ``specs`` and a 16-point
+    Euclidean evaluator of σ = 1."""
     from icp_proposal_tpu_torch.sampling.context import build_target_context
     from icp_proposal_tpu_torch.sampling.evaluators import (
         IndependentPointsSpec,
@@ -69,14 +83,10 @@ def _sphere(specs):
     )
     from icp_proposal_tpu_torch.sampling.proposals import MixtureProgram, nest
 
-    points, cells = make_icosphere(subdivisions=1, radius=50.0)
-    model = make_synthetic_gpmm(points, cells, rank=4, sigma=40.0, scale=4.0, device="cpu")
-    alpha = torch.zeros(4)
-    alpha[0] = 1.0
-    target = TriangleMesh(points=instance_points(model, alpha), cells=model.cells)
-    ctx = build_target_context(target, device="cpu")
-    mixture = MixtureProgram(nest(*specs), model, ctx,
-                             boundary_vertex_mask(np.asarray(cells), len(points)))
+    data = sphere_data()
+    model = data.model
+    ctx = build_target_context(data.target, device="cpu")
+    mixture = MixtureProgram(nest(*specs), model, ctx, data.model_boundary_mask)
     evaluator = build_evaluator(
         model, ctx, [IndependentPointsSpec(sigma=1.0, mode="model_to_target", n_points=16)])
     return model, mixture, evaluator
@@ -176,8 +186,23 @@ def task_chains(inp, rank, world):
             "final_coeffs": final.state.coeffs, **_stats_dict(stats)}
 
 
+def task_converged(inp, rank, world):
+    """``tools.converged_run.main(inp["argv"])`` on ``sphere_data`` over the
+    ranks → its output's R-hats (rank 0 holds the host check's)."""
+    from icp_proposal_tpu_torch.tools import converged_run
+
+    converged_run.femur_data = lambda *a, **k: sphere_data()
+    out = converged_run.main(inp["argv"])
+    got = {"rhat": torch.tensor([r["collective_split_rhat_max_first8"]
+                                 for r in out["rounds"]], dtype=torch.float64)}
+    if "host_split_rhat_max_first8_postburn" in out:
+        got["host_rhat"] = torch.tensor(out["host_split_rhat_max_first8_postburn"],
+                                        dtype=torch.float64)
+    return got
+
+
 TASKS = {"diagnostics": task_diagnostics, "pooled_stats": task_pooled_stats,
-         "chains": task_chains}
+         "chains": task_chains, "converged": task_converged}
 
 
 def _main(task, rank, world, init, inp, out):
