@@ -38,6 +38,16 @@ Phases (each prints one line or a short block, and ends in
                  twins at the BFM path's shapes on 256 and on 2,048 chains;
                  K6 timed in turns against cholesky_ex, with its launch
                  configuration; K1 (4 warps) at r = 200 timed beside K6;
+9b. kernels:index  K9 (the shortlist index build) and K10 (the full d²
+                 matrix) against their twins on the card, ids and d²
+                 bitwise, on the inputs the index build gives them: the
+                 femur target at K = 16, 32, 64, 128, the face target and
+                 the partial face at K = 64, K10 at the femur shape, and an
+                 open patch whose faces span many tiles; then whole
+                 build_target_context calls on the card (femur and face),
+                 timed, each launching K9 once.  Every context built with
+                 an index launches K9 once: the main phases' launch tables
+                 count it;
 10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
                  timed steps, launch counts;
 11. check:bfm    as 5, for the BFM partial setup;
@@ -167,9 +177,10 @@ TOL = 1e-4  # K1/K2/K6/K7: |got − want| ≤ TOL + TOL·|want|; K3/K4/K5/K8 ids
 GAP_ULPS = 2.0 ** -21
 BUILD = Path(__file__).resolve().parent / "build"
 
-# the H100 SXM's published peaks (NVIDIA H100 datasheet): FP32 outside the
-# tensor cores, and HBM bandwidth
+# the H100 SXM's published peaks (NVIDIA H100 datasheet): FP32 and FP64
+# outside the tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
 # arithmetic operations the point→triangle cascade (_tile_dist2) executes for
 # every pair whatever the region: 15 edge/offset differences, 30 for the six
@@ -181,16 +192,21 @@ PAIR_FLOPS = 82
 NV_PAIR_FLOPS = 8  # nearest vertex: 3 differences, 3 products, 2 sums
 DOT_PAIR_FLOPS = 6  # dot-form nearest vertex: 3 products, 3 sums
 
+# every target context built with its shortlist index launches K9 once (the
+# index build); a step launches none, nor K10 (the full d² matrix, which no
+# path uses, as in the reference)
+CONTEXT_LAUNCHES = {"shortlist_topk": 1}
 FEMUR_STEP_LAUNCHES = {"chol_solve": 2, "tri_solve_lt": 2, "nearest_vertices[shared]": 1,
                        "nearest_vertices[per_chain]": 1, "refine_shortlist": 1,
                        "surface_distances[shared]": 0,
                        "surface_distances[per_chain]": 0, "chol_solve_blocked": 0,
-                       "tri_solve_lt_blocked": 0, "coarse_nearest_dot": 0}
+                       "tri_solve_lt_blocked": 0, "coarse_nearest_dot": 0,
+                       "shortlist_topk": 0, "point_tri_d2": 0}
 BFM_STEP_LAUNCHES = {"chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 1,
                      "nearest_vertices[per_chain]": 0, "refine_shortlist": 1,
                      "surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
                      "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1,
-                     "coarse_nearest_dot": 0}
+                     "coarse_nearest_dot": 0, "shortlist_topk": 0, "point_tri_d2": 0}
 # the adaptive femur setups: MALA's gradient runs the evaluator once more,
 # with its own index pass (K3 shared + K4; the backward pass launches no
 # kernel); hybrid keeps the flagship's fused pass and ICP factors
@@ -203,32 +219,33 @@ RW_STEP_LAUNCHES = dict(MALA_STEP_LAUNCHES, **{"nearest_vertices[shared]": 1,
                                                "refine_shortlist": 1})
 BFM_FIT_STEPS = 5
 # launches of the timed run_bfm_fitting(partial=True, verbose=True) outside
-# its steps: the initial carry (collective evaluator: K5 shared and per
-# chain; model-direction ICP: K3 + K4, one K6) and the boundary-aware
-# reconstruction metric (one K5)
+# its steps: the partial target's context (K9), the initial carry
+# (collective evaluator: K5 shared and per chain; model-direction ICP: K3 +
+# K4, one K6) and the boundary-aware reconstruction metric (one K5)
 BFM_FIT_RUN_LAUNCHES = {"surface_distances[shared]": 2, "surface_distances[per_chain]": 1,
                         "nearest_vertices[shared]": 1, "refine_shortlist": 1,
-                        "chol_solve_blocked": 1}
+                        "chol_solve_blocked": 1, **CONTEXT_LAUNCHES}
 # the femur step with coarse="dot": K8 takes the shared coarse pass from K3
 REG_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 0,
                                                  "coarse_nearest_dot": 1})
-# launches of one verbose registration run outside its steps: the initial
-# carry's unfused queries (evaluator and model-direction ICP: K8 + K4 each;
-# target-direction ICP: K3 per chain; two factorizations) and the four K5
-# queries of the reconstruction metrics
+# launches of one verbose registration run outside its steps: the target's
+# context (K9), the initial carry's unfused queries (evaluator and
+# model-direction ICP: K8 + K4 each; target-direction ICP: K3 per chain; two
+# factorizations) and the four K5 queries of the reconstruction metrics
 REG_RUN_LAUNCHES = {"coarse_nearest_dot": 2, "refine_shortlist": 2,
                     "nearest_vertices[per_chain]": 1, "chol_solve": 2,
-                    "surface_distances[shared]": 4}
+                    "surface_distances[shared]": 4, **CONTEXT_LAUNCHES}
 # the deterministic ICP: both directions every iteration (K3 shared + K4 for
 # the model direction, K3 per chain for the target direction), one
 # regression factor (K1 at r ≤ 104, K6 above)
 ICP_ITERATIONS = 100
 ICP_ITER_LAUNCHES = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
-                     "nearest_vertices[per_chain]": 1, "chol_solve": 1}
+                     "nearest_vertices[per_chain]": 1, "chol_solve": 1, "shortlist_topk": 0}
 ICP_ITER_LAUNCHES_BLOCKED = dict(ICP_ITER_LAUNCHES, chol_solve=0, chol_solve_blocked=1)
-# run_deterministic_icp(verbose=True) outside its iterations: the reconstruction
-# metrics' three K5 queries (average distance one, Hausdorff two)
-ICP_RUN_LAUNCHES = {"surface_distances[shared]": 3}
+# run_deterministic_icp(verbose=True) outside its iterations: the target's
+# context (K9) and the reconstruction metrics' three K5 queries (average
+# distance one, Hausdorff two)
+ICP_RUN_LAUNCHES = {"surface_distances[shared]": 3, **CONTEXT_LAUNCHES}
 ICP_CHECK_INITS, ICP_CHECK_ITERATIONS = 4, 3
 EXP_INITS, EXP_SAMPLES = 100, 1000
 # the harness's MH batches at r = 201.  Euclidean: the ICP's 402 model ids
@@ -274,33 +291,34 @@ RI_RND_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
 # then the replay CLI's two sub-commands at the JAX CLI's defaults.  A run
 # of runfitting(verbose=False) launches outside its steps the initial
 # carry's unfused queries (evaluator and model-direction ICP: K3 shared + K4
-# each; target-direction ICP: K3 per chain) and its two K1 factors.
+# each; target-direction ICP: K3 per chain), its two K1 factors and the
+# target's context (K9).
 PIPE_SAMPLES = 1200
 PIPE_RUN_LAUNCHES = {"nearest_vertices[shared]": 2, "refine_shortlist": 2,
-                     "nearest_vertices[per_chain]": 1, "chol_solve": 2}
+                     "nearest_vertices[per_chain]": 1, "chol_solve": 2, **CONTEXT_LAUNCHES}
 REPLAY_STRIDE, REPLAY_SNAPSHOTS = 10, 50  # JAX CLI: replay --stride, --max-snapshots
 POST_BURN_IN, POST_TAKE_EVERY = 200, 50  # JAX CLI: posterior --burn-in, --take-every
 # Face: prepare_bfm_dataset on binary-PLY scans of the face stand-in
 # (×1,000, moved rigidly), create_gp_model face at the reference's defaults
 # on the open patch of subdivision FACE_REF_SUBDIV, load_bfm_data, then
 # run_bfm_fitting(partial=True, verbose=False): outside its steps the
-# initial carry (collective evaluator: K5 shared and per chain; model-
-# direction ICP: K3 + K4, one K6)
+# partial target's context (K9) and the initial carry (collective
+# evaluator: K5 shared and per chain; model-direction ICP: K3 + K4, one K6)
 FACE_REF_SUBDIV = 5
 FACE_DECIMATE_TO, FACE_RANK = 2000, 200  # create_gp_model face's defaults
 FACE_SCANS = 2
 FACE_FIT_RUN_LAUNCHES = {"surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
                          "nearest_vertices[shared]": 1, "refine_shortlist": 1,
-                         "chol_solve_blocked": 1}
+                         "chol_solve_blocked": 1, **CONTEXT_LAUNCHES}
 # the configured run: build_from_config(RunConfig()) observes the
 # reference's seeded ICP subsets, the evaluator's seeded subset's first
 # 2·rank ids, so one index pass still serves both (mh._fusion_plan): the
 # flagship step's launches
 CONFIG_STEP_LAUNCHES = FEMUR_STEP_LAUNCHES
 # The pod run: apps/pod_chains at its defaults (the stand-in GPMM-100,
-# flagship, records kept), one process; its initial carry launches what
-# runfitting's does (PIPE_RUN_LAUNCHES), then the flagship step's launches a
-# step.  The bare step (store_params=False) and the runner are then timed
+# flagship, records kept), one process; its context and initial carry
+# launch what runfitting's do (PIPE_RUN_LAUNCHES), then the flagship step's
+# launches a step.  The bare step (store_params=False) and the runner are then timed
 # in turns at the same chains.
 POD_CHAINS, POD_STEPS = 1024, 1000
 POD_RUN_LAUNCHES = PIPE_RUN_LAUNCHES
@@ -326,22 +344,24 @@ EV_ARGS = {
                          "--burn", "100", "--chains", "64"],
 }
 _EV_FEMUR = ("chol_solve", "tri_solve_lt", "nearest_vertices[shared]",
-             "nearest_vertices[per_chain]", "refine_shortlist", "surface_distances[shared]")
-EV_KERNELS = {
+             "nearest_vertices[per_chain]", "refine_shortlist", "surface_distances[shared]",
+             "shortlist_topk")
+EV_KERNELS = {  # every tool that builds a shortlist index launches K9
     "validate_index": ("nearest_vertices[shared]", "refine_shortlist",
-                       "surface_distances[shared]"),
+                       "surface_distances[shared]", "shortlist_topk"),
     "validate_index[dot]": ("coarse_nearest_dot", "refine_shortlist",
-                            "surface_distances[shared]"),
+                            "surface_distances[shared]", "shortlist_topk"),
     "mixing_sweep": _EV_FEMUR,
     "posterior_parity": _EV_FEMUR,
     "quality_run": _EV_FEMUR,
     # rank 24: K1/K2, the partial face's collective evaluator K5 both ways
     "quality_bfm": ("chol_solve", "tri_solve_lt", "nearest_vertices[shared]",
                     "refine_shortlist", "surface_distances[shared]",
-                    "surface_distances[per_chain]"),
-    "converged_run": ("nearest_vertices[shared]", "refine_shortlist"),  # the random walk
-    # parity mode without the index: K5 for the evaluator and the model
-    # direction, K3 per chain for the target direction
+                    "surface_distances[per_chain]", "shortlist_topk"),
+    "converged_run": ("nearest_vertices[shared]", "refine_shortlist",  # the random walk
+                      "shortlist_topk"),
+    # parity mode without the index (so no K9): K5 for the evaluator and the
+    # model direction, K3 per chain for the target direction
     "crossimpl_parity": ("chol_solve", "tri_solve_lt", "nearest_vertices[per_chain]",
                          "surface_distances[shared]"),
 }
@@ -362,6 +382,9 @@ SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     "tri_solve_lt_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:293"),
     "coarse_nearest_dot": ("csrc/closest_point.cu",
                            "icp_proposal_tpu/ops/closest_point_pallas.py:465"),
+    # host C++ kernels of the JAX package, not Pallas kernels
+    "shortlist_topk": ("csrc/point_tri.cu", "icp_proposal_tpu/native/point_tri.cpp:114"),
+    "point_tri_d2": ("csrc/point_tri.cu", "icp_proposal_tpu/native/point_tri.cpp:100"),
 }
 VALUE_TOL = {"chol_solve", "tri_solve_lt", "chol_solve_blocked", "tri_solve_lt_blocked"}
 
@@ -398,10 +421,11 @@ def _paired_times(torch, kernel, plain, reps=KERNEL_REPS, plain_reps=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _bound(n_bytes, n_flops):
-    """The least time the card could take: bytes over HBM bandwidth or FP32
-    operations over the FP32 peak, whichever is larger → (ms, bound_by)."""
-    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, n_flops / PEAK_FP32_FLOPS
+def _bound(n_bytes, n_flops, peak=PEAK_FP32_FLOPS):
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over their type's peak (FP32 unless ``peak`` says FP64),
+    whichever is larger → (ms, bound_by)."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, n_flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -416,9 +440,9 @@ def _id_errors(ids, ids_p):
 
 
 def _record(torch, err, mism, kernel, plain, n_bytes, n_flops, library=None,
-            reps=KERNEL_REPS, plain_reps=None):
+            reps=KERNEL_REPS, plain_reps=None, peak=PEAK_FP32_FLOPS):
     k_ms, p_ms = _paired_times(torch, kernel, plain, reps, plain_reps)
-    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    bound_ms, bound_by = _bound(n_bytes, n_flops, peak)
     lib_ms = _time_ms(torch, library, reps) if library is not None else None
     return dict(max_abs_err=err, id_mismatches=mism, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
@@ -757,6 +781,112 @@ def phase_kernels_harness(torch, dev, data):
     return records
 
 
+def _index_record(torch, label, q, tri, k, n_ops):
+    """K9 on (q, tri) at ``k`` against its twin on the card, ids and d²
+    bitwise, else raise; timed in turns with the twin; the bound over this
+    input's cascade operations (``n_ops``) at the FP64 peak → record."""
+    from icp_proposal_tpu_torch import native
+
+    idx, d2 = native.shortlist_topk(q, tri, k)
+    idx_p, d2_p = native.shortlist_topk_plain(q, tri, k)
+    _sync(torch)
+    err, mism = _id_errors(idx, idx_p)
+    if mism or not torch.equal(d2.view(torch.int64), d2_p.view(torch.int64)):
+        raise AssertionError(f"[kernels:index] K9 {label} K={k}: {mism} ids or the d² "
+                             "differ from the twin's bitwise")
+    rec = _record(torch, max(err, float((d2 - d2_p).abs().max())), mism,
+                  lambda: native.shortlist_topk(q, tri, k),
+                  lambda: native.shortlist_topk_plain(q, tri, k),
+                  _nbytes(q, tri, idx, d2), n_ops, plain_reps=3, peak=PEAK_FP64_FLOPS)
+    rec.update(queries=q.shape[0], faces=tri.shape[0], k=idx.shape[1])
+    _print_index_record(f"shortlist_topk[{label}, K={k}]", rec)
+    return rec
+
+
+def _print_index_record(name, rec, held="ids and d²"):
+    lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+    print(f"[kernels:index] {name}: {rec['queries']} queries x {rec['faces']} faces; {held} "
+          f"bitwise the twin's; kernel {rec['ms']:.4f} ms, twin on the card "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}, "
+          f"FP64 at {PEAK_FP64_FLOPS / 1e12:g} TFLOP/s, HBM at {PEAK_HBM_BYTES / 1e12:g} "
+          f"TB/s), library {lib}")
+
+
+def phase_kernels_index(torch, dev, data, ctx, face, partial_ctx):
+    """``[kernels:index]``: K9 and K10 against their twins on the card, d²
+    and ids bitwise, on the inputs the index build gives them (a context's
+    float32 points and Morton-ordered corners, in float64): the femur
+    stand-in's target at K = 16, 32, 64, 128, the face target and the
+    partial face at K = 64, K10 at the femur shape, and the open patch of
+    subdivision 5 (F spanning many tiles) at K = 64 and K = MAX_K; then
+    whole ``build_target_context`` calls on the card at the femur and face
+    shapes, timed, each launching K9 once → records by kernel."""
+    from icp_proposal_tpu_torch import native
+    from icp_proposal_tpu_torch.models.synthetic import make_open_patch
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+
+    def inputs(index):
+        return index.points.double(), index.tri.reshape(-1, 9).double()
+
+    face_ctx = build_target_context(face.target, face.target_boundary_mask, device=dev)
+    records = {}
+    meshes = {"femur": (inputs(ctx.index), EV_KS),  # the index sweep's widths
+              "face": (inputs(face_ctx.index), (64,)),
+              "partial-face": (inputs(partial_ctx.index), (64,))}
+    points, cells = make_open_patch(subdivisions=FACE_REF_SUBDIV, radius=0.1, z_cut=0.55)
+    patch = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    tri = patch[torch.as_tensor(cells, dtype=torch.int64, device=dev)]
+    q = patch[::8].double().contiguous()
+    meshes["tiles"] = ((q, tri.reshape(-1, 9).double()), (64, native.MAX_K))
+    for label, ((q, tri), ks) in meshes.items():
+        n_ops = native.cascade_ops(q, tri)
+        for k in ks:
+            records[f"{label} K={k}"] = _index_record(torch, label, q, tri, k, n_ops)
+
+    def tiles(f, k):
+        return -(-f // (native.TOPK_SORT - k))
+
+    print(f"[kernels:index] faces in tiles of TOPK_SORT - K: the open patch "
+          f"{tiles(meshes['tiles'][0][1].shape[0], 64)} tiles at K = 64 and "
+          f"{tiles(meshes['tiles'][0][1].shape[0], native.MAX_K)} at K = {native.MAX_K}; "
+          f"the femur target {tiles(meshes['femur'][0][1].shape[0], 64)} at K = 64")
+
+    # K10: the full d² matrix at the femur shape
+    q, tri = meshes["femur"][0]
+    full, full_p = native.point_tri_d2(q, tri), native.point_tri_d2_plain(q, tri)
+    _sync(torch)
+    if not torch.equal(full.view(torch.int64), full_p.view(torch.int64)):
+        raise AssertionError(f"[kernels:index] K10: {int((full != full_p).sum())} d² differ "
+                             "from the twin's bitwise")
+    k10 = _record(torch, float((full - full_p).abs().max()), 0,
+                  lambda: native.point_tri_d2(q, tri), lambda: native.point_tri_d2_plain(q, tri),
+                  _nbytes(q, tri, full), native.cascade_ops(q, tri), plain_reps=3,
+                  peak=PEAK_FP64_FLOPS)
+    k10.update(queries=q.shape[0], faces=tri.shape[0])
+    _print_index_record("point_tri_d2[femur]", k10, held="d²")
+    del full, full_p
+
+    # whole contexts on the card: the points go up once, K9 builds the index
+    for label, (target, mask) in {"femur": (data.target, data.target_boundary_mask),
+                                  "face": (face.target, face.target_boundary_mask)}.items():
+        secs = []
+        for _ in range(3):
+            _reset_counts()
+            t = time.perf_counter()
+            built = build_target_context(target, mask, device=dev)
+            _sync(torch)
+            secs.append(time.perf_counter() - t)
+            _check_launches(f"[kernels:index] build_target_context[{label}]", _read_counts(),
+                            CONTEXT_LAUNCHES, 1)
+        print(f"[kernels:index] build_target_context on the card, {label} target "
+              f"({len(target.points)} vertices, {len(target.cells)} faces, K="
+              f"{built.index.k}): {', '.join(f'{s:.4f}' for s in secs)} s (3 calls; K9 "
+              "launched once each)")
+    rec = records.pop("femur K=64")
+    rec["at"] = records
+    return {"shortlist_topk": rec, "point_tri_d2": k10}
+
+
 def _print_records(tag, records, chains=CMP_CHAINS):
     for name, rec in records.items():
         for n, r in ((chains, rec), (N_CHAINS, rec.get("at_2048_chains"))):
@@ -790,12 +920,14 @@ def _print_record(tag, name, rec, chains):
 
 
 def _wrappers():
+    from icp_proposal_tpu_torch import native
     from icp_proposal_tpu_torch.ops import chol_cuda, closest_point_cuda
 
     return (chol_cuda.chol_solve, chol_cuda.tri_solve_lt, chol_cuda.chol_solve_blocked,
             chol_cuda.tri_solve_lt_blocked, closest_point_cuda.nearest_vertices,
             closest_point_cuda.refine_shortlist, closest_point_cuda.surface_distances,
-            closest_point_cuda.coarse_nearest_dot)
+            closest_point_cuda.coarse_nearest_dot, native.shortlist_topk,
+            native.point_tri_d2)
 
 
 def _reset_counts():
@@ -1306,6 +1438,7 @@ def phase_experiments(torch, dev, data):
     print(f"[{tag}] run_std_icp_vs_chain_comparison on the stand-in GPMM-200 (rank "
           f"{model.rank}), one target, {EXP_INITS} inits x {EXP_SAMPLES} samples, Dice on: "
           f"{dt:.3f} s; launches {launches}")
+    _check_launches(tag, launches, CONTEXT_LAUNCHES, 1)  # the one target's context
     metrics = [r for r in stages if r["stage"] == "metrics"]
     by_stage = [r for r in stages if r["stage"] != "metrics"] + [dict(
         stage="metrics", seconds=sum(r["seconds"] for r in metrics),
@@ -1389,7 +1522,8 @@ def phase_random_init(torch, dev, data):
           f"{launches}")
     want = _scaled(RI_ICP_STEP, RI_ICP_SAMPLES, RI_ICP_INIT)
     for name, n in _scaled(RI_RND_STEP, n_rnd + 1,
-                           {"surface_distances[shared]": 3 * 2 * RI_INITS}).items():
+                           {"surface_distances[shared]": 3 * 2 * RI_INITS,
+                            **CONTEXT_LAUNCHES}).items():
         want[name] = want.get(name, 0) + n
     _check_counts(tag, launches, want)
     inits = fe._batched_init_states(model, RI_INITS, fe._fold_in(1024, 0))
@@ -2370,6 +2504,10 @@ def main() -> int:
     bfm_records = phase_kernels_bfm(torch, dev, face, bfm_evaluator)
     _print_records("kernels:bfm", bfm_records)
     records.update(bfm_records)
+    _sync(torch)
+
+    # 9b. K9 and K10 (the index build) against their twins; whole contexts
+    records.update(phase_kernels_index(torch, dev, data, ctx, face, bfm_setup[0]))
     _sync(torch)
 
     # 10. main path: BFM partial

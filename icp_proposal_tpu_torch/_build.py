@@ -48,6 +48,8 @@ _SIGNATURES = {
                               _P],
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],
+    "icp_shortlist_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "icp_point_tri_d2": [_P, _P, _P, _I, _I, _P],
     # (r, warps): no stream, not a launch
     "icp_chol_tiled_smem_bytes": [_I, _I],
     "icp_chol_tiled_ctas_per_sm": [_I, _I],

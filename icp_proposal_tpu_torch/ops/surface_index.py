@@ -10,9 +10,13 @@ dot form argminᵥ ‖v‖² − 2q·v over ``points_aug`` (K8; the reference's
 ``ICP_TPU_COARSE_MXU=1``), whose anchors may swap on near ties.  The refine
 is exact either way.
 
-The index is built on the host with numpy: the reference's chunked-numpy
-path, exact float64 distances plus top-K.  The reference's native OpenMP
-builder is not loaded; its library is compiled for another host's CPU.
+The index is built where its tensors live, by ``native.shortlist_topk``:
+exact float64 point→triangle distances from every vertex to every face and
+the K nearest faces of each, ascending by (d², face id).  On the card that
+is kernel K9; on the CPU its plain twin.  Either way the shortlist is the
+one the reference builds by default, with its native OpenMP builder
+(``icp_proposal_tpu/native/point_tri.cpp``): ids and order equal, ties
+included, where that builder rounds each operation on its own.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from icp_proposal_tpu_torch import native
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.ops.closest_point import (
     closest_point_on_triangle,
@@ -36,7 +41,6 @@ from icp_proposal_tpu_torch.ops.closest_point_cuda import (
 
 INDEX_K = 64  # the reference's shortlist width (context.build_target_context)
 COARSE_MODES = ("exact", "dot")  # K3, K8
-_CHUNK = 256  # query vertices per block of the host build
 
 
 @dataclass(frozen=True)
@@ -83,7 +87,8 @@ def pack_points_aug(points: torch.Tensor) -> torch.Tensor:
 
 def _np_point_tri_dist2(p: np.ndarray, tri: np.ndarray) -> np.ndarray:
     """Exact point→triangle squared distances: p [N, 3], tri [F, 3, 3] →
-    [N, F] (the Ericson cascade in numpy)."""
+    [N, F] (the Ericson cascade in numpy, branch-free: the reference's
+    numpy fallback formula, an independent check of ``native``)."""
     a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
     ab, ac = b - a, c - a
     p = p[:, None, :]
@@ -138,41 +143,40 @@ def _np_point_tri_dist2(p: np.ndarray, tri: np.ndarray) -> np.ndarray:
     return np.sum(diff * diff, axis=-1)
 
 
+def _shortlist(points_t: torch.Tensor, cells_t: torch.Tensor, k: int):
+    """(tri [F, 3, 3], cand [V, K] int32) of float32 points [V, 3] and cells
+    [F, 3] on one device: corners gathered there, then float64, as the
+    reference casts its float32 points for the native builder."""
+    tri = points_t[cells_t]
+    cand, _ = native.shortlist_topk(points_t.double(), tri.reshape(-1, 9).double(), k)
+    return tri, cand
+
+
 def build_shortlist(points, cells, k: int = INDEX_K):
-    """Host build: O(V·F) exact distances + top-K, each shortlist sorted by
-    distance → cand [V, K] int32."""
-    points = np.asarray(points, np.float32)
-    cells = np.asarray(cells, np.int32)
-    tri = points[cells]  # [F, 3, 3]
-    v, f = points.shape[0], tri.shape[0]
-    k = min(k, f)
-    cand = np.empty((v, k), np.int32)
-    for lo in range(0, v, _CHUNK):
-        hi = min(lo + _CHUNK, v)
-        d2 = _np_point_tri_dist2(points[lo:hi].astype(np.float64),
-                                 tri.astype(np.float64))
-        part = np.argpartition(d2, k - 1, axis=1)[:, :k]
-        order = np.argsort(np.take_along_axis(d2, part, axis=1), axis=1)
-        cand[lo:hi] = np.take_along_axis(part, order, axis=1).astype(np.int32)
-    return cand
+    """The K nearest faces of every vertex, each shortlist ascending by
+    (d², face id), built on the CPU (``native``'s twin) → cand [V, K] int32
+    numpy."""
+    points_t = torch.as_tensor(np.asarray(points, np.float32))
+    cells_t = torch.as_tensor(np.asarray(cells), dtype=torch.int64)
+    return _shortlist(points_t, cells_t, k)[1].numpy()
 
 
 def build_surface_index(points, cells, k: int = INDEX_K, coarse: str = "exact",
                         device=DEFAULT_DEVICE) -> SurfaceIndex:
-    """Build the shortlist index on the host and place it on ``device`` (the
-    card unless ``device="cpu"``); ``coarse`` picks the coarse pass."""
+    """Build the shortlist index on ``device`` (the card unless
+    ``device="cpu"``): the points go there once as float32, and the
+    shortlist is built there (K9 on the card); ``coarse`` picks the coarse
+    pass.  ``points`` may already be a float32 tensor on ``device``, which
+    the index then shares."""
     check_coarse(coarse)
     device = resolve_device(device)
-    cand = build_shortlist(points, cells, k)
-    points_t = torch.as_tensor(np.asarray(points, np.float32), device=device)
-    return SurfaceIndex(
-        points=points_t,
-        tri=points_t[torch.as_tensor(np.asarray(cells), dtype=torch.int64,
-                                     device=device)],
-        cand=torch.as_tensor(cand, device=device),
-        points_aug=pack_points_aug(points_t),
-        coarse=coarse,
-    )
+    if not isinstance(points, torch.Tensor):
+        points = np.array(points, np.float32)  # a writable copy
+    points_t = torch.as_tensor(points, dtype=torch.float32, device=device)
+    cells_t = torch.as_tensor(cells, dtype=torch.int64, device=device)
+    tri, cand = _shortlist(points_t, cells_t, k)
+    return SurfaceIndex(points=points_t, tri=tri, cand=cand,
+                        points_aug=pack_points_aug(points_t), coarse=coarse)
 
 
 def index_closest(index: SurfaceIndex, queries: torch.Tensor):

@@ -48,13 +48,15 @@ def build_target_context(target: TriangleMesh, boundary_mask=None,
         boundary_mask = boundary_vertex_mask(cells, len(points))
     if morton_faces:
         cells = cells[morton_sort_faces(points, cells)]
-    cells = np.asarray(cells, np.int32)
-    index = (build_surface_index(points, cells, k=index_k, coarse=coarse, device=device)
+    # the points go to the device once; the index shares them and its tri
+    points_t = torch.as_tensor(points, device=device)
+    cells_t = torch.as_tensor(cells, dtype=torch.int64, device=device)
+    index = (build_surface_index(points_t, cells_t, k=index_k, coarse=coarse, device=device)
              if build_index else None)
     return TargetContext(
-        points=torch.as_tensor(points, device=device),
-        cells=torch.as_tensor(cells, dtype=torch.int64, device=device),
-        tri=torch.as_tensor(points[cells], device=device),
+        points=points_t,
+        cells=cells_t,
+        tri=index.tri if index is not None else points_t[cells_t],
         boundary=torch.as_tensor(np.asarray(boundary_mask, bool), device=device),
         index=index,
     )

@@ -1,6 +1,6 @@
 """Time K2, K3, K4 and K8 of one checkout of the port on one NVIDIA GPU.
 
-    python3 kernel_turns.py [--root DIR] [--sass] [--probe]
+    python3 kernel_turns.py [--root DIR] [--sass] [--probe] [--contexts]
 
 Times K2 (``tri_solve_lt``, r = 101, beside ``torch.linalg.solve_triangular``),
 K3 (``nearest_vertices``: the shared set, P = 404 against the stand-in
@@ -33,6 +33,13 @@ femur shapes with L = 1, 2, 4, 8, 16 and 32 lanes a query and K8 with
 Q = 1 ... 8 queries a lane, at 256 and 2,048 chains, through each
 library's C entry points, after checking each against the plain twin.
 
+``--contexts`` times whole ``build_target_context`` calls instead of the
+kernels: the stand-in femur's target, the face stand-in's target and its
+partial target (rank 200, subdivision 4), ``TURNS`` calls each, each ended
+by a synchronize, after the setups have built contexts once.  The
+checkout builds its shortlist index its own way (on the host with numpy
+before K9; with K9 on the card since).
+
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 ``{"root": ..., "times": {...}, "sass": {...}, "probe": {...}}`` (ms per
 call, the mean of ``REPS`` calls, each timing repeated ``TURNS`` times).
@@ -43,6 +50,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -197,11 +205,31 @@ def _probe(torch, dev, libs, q, nv, index, va):
     return out
 
 
+def _context_times(torch, dev, data, face):
+    """Seconds of ``TURNS`` whole ``build_target_context`` calls per target."""
+    from icp_proposal_tpu_torch.sampling.context import build_target_context
+
+    targets = {"femur": (data.target, data.target_boundary_mask),
+               "face": (face.target, face.target_boundary_mask),
+               "partial-face": (face.target_partial, face.partial_boundary_mask)}
+    out = {}
+    for name, (target, mask) in targets.items():
+        out[name] = []
+        for _ in range(TURNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            build_target_context(target, mask, device=dev)
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--contexts", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -235,6 +263,10 @@ def main() -> int:
     va = make_icp_proposal_setup(data, coarse="dot")[0].index.points_aug
     face = load_synthetic_face_data(rank=200, subdiv=4, device=dev)
     bindex = make_bfm_fitting_setup(face, partial=True)[0].index
+    if args.contexts:
+        print(json.dumps({"root": str(root), "device": smi.splitlines()[0],
+                          "contexts": _context_times(torch, dev, data, face)}))
+        return 0
     # the refine's table: the face table, or an older checkout's per-vertex one
     table = index.faces if hasattr(index, "faces") else index.cand_tri
     btable = bindex.faces if hasattr(bindex, "faces") else bindex.cand_tri

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_native import use_native_index
 from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch import convert
@@ -29,10 +30,9 @@ N_CHAINS, N_STEPS = 4, 5
 def kernels_forced(monkeypatch):
     monkeypatch.setenv("ICP_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
-    monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
-    # the JAX package caches its native library once any test loads it;
-    # drop that cache too, so the numpy index build runs in every order
-    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)
+    # JAX builds its shortlist index with its native builder, its default,
+    # which the port's index equals
+    use_native_index(monkeypatch)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from jax_native import child_env, inject_from_env
 from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -190,8 +191,9 @@ def _jax_references(out_path):
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
+    # the child builds JAX's index with its native builder, its default
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
-               ICP_TPU_NO_NATIVE="1", PYTHONPATH=str(REPO))
+               PYTHONPATH=str(REPO), **child_env())
     proc = subprocess.run([sys.executable, __file__, str(out)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -587,6 +589,7 @@ def test_cuda_closest_point_kernels_match_plain(cuda):
 
 
 if __name__ == "__main__":
+    inject_from_env()
     _jax_references(sys.argv[1])
 
 

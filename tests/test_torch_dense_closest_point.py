@@ -74,6 +74,8 @@ def _jax_references(out_path):
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_dense_ref") / "ref.npz"
+    # ICP_TPU_NO_NATIVE=1 only keeps the child from rebuilding the tracked
+    # native library: the child builds no index
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
                ICP_TPU_NO_NATIVE="1", PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, __file__, str(out)], cwd=REPO, env=env,

@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from jax_native import child_env, inject_from_env
 from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -232,8 +233,9 @@ def test_validate_index_matches_jax(tmp_path):
     queries = {name: vi.perturbed_queries(data, gen, n_states=2, **kw)
                for name, kw in vi.REGIMES.items()}
     np.savez(tmp_path / "q.npz", **queries)
+    # the child builds JAX's index with its native builder, its default
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
-               ICP_TPU_NO_NATIVE="1", PYTHONPATH=str(REPO))
+               PYTHONPATH=str(REPO), **child_env())
     proc = subprocess.run([sys.executable, __file__, str(tmp_path / "q.npz"),
                            str(tmp_path / "jax.json")], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -408,4 +410,5 @@ def test_crossimpl_refuses_a_cache_under_artifacts():
 
 
 if __name__ == "__main__":
+    inject_from_env()
     _jax_validate(sys.argv[1], sys.argv[2])

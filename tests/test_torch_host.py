@@ -11,6 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from jax_native import use_native_index
 from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu import mesh as jmesh
@@ -87,14 +88,16 @@ def test_standin_gpmm_identical(meshes):
 
 
 def test_index_build_agrees(meshes, monkeypatch):
-    """Per-vertex sorted shortlist distances agree to 1e-6 relative."""
-    monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")  # never rebuild a tracked library
-    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)  # nor use a loaded one
+    """The port's shortlist is the one the JAX package builds by default (its
+    native builder), id for id; its sorted distances agree to 1e-6 relative
+    with the JAX fallback's numpy formula, an independent check."""
+    use_native_index(monkeypatch)
     points, cells = meshes["map"]
     cells = cells[jmorton.morton_sort_faces(points, cells)]
     ref = jindex.build_surface_index(points, cells, k=64)
     cand = pindex.build_shortlist(points, cells, k=64)
     assert cand.shape == (1622, 64) and cand.dtype == np.int32
+    np.testing.assert_array_equal(cand, ref.cand)
     tri = points[cells].astype(np.float64)
     rows = np.arange(0, len(points), 7)
     p64 = points[rows].astype(np.float64)

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from jax_native import use_native_index
 
 REPO = Path(__file__).resolve().parents[1]
 STANDIN = REPO / "artifacts" / "posterior"
@@ -129,6 +130,8 @@ def _jax_references(out_path):
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_icp") / "ref.npz"
+    # ICP_TPU_NO_NATIVE=1 only keeps the child from rebuilding the tracked
+    # native library: the port takes the child's cand as it is
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
                ICP_TPU_NO_NATIVE="1", PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, __file__, str(out)], cwd=REPO, env=env,
@@ -422,8 +425,7 @@ def test_forty_iteration_fit_matches_jax(monkeypatch):
     from icp_proposal_tpu_torch.registration.icp_fitting import icp_surface_fitting
     from icp_proposal_tpu_torch.sampling.context import build_target_context as pctx
 
-    monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
-    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)
+    use_native_index(monkeypatch)  # JAX's default index build, the port's
     mp, mc = read_stl(STANDIN / "mean.stl")
     tp, tc = read_stl(STANDIN / "map.stl")
     jm = build_femur_gpmm(mp, mc, 50)

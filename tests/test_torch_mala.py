@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_native import use_native_index
 from torch_threads import one_torch_thread  # noqa: F401
 
 from test_torch_mh import N_CHAINS, N_STEPS, STANDIN, _step_parity
@@ -43,12 +44,12 @@ def _sphere():
 
 def _standin_target(monkeypatch):
     """The stand-in femur target (``artifacts/posterior/map.stl``), with the
-    JAX package's index build on its numpy path, as the port's."""
+    JAX package's index built by its native builder, its default, which the
+    port's index equals."""
     from icp_proposal_tpu_torch.io.stl import read_stl
     from icp_proposal_tpu_torch.mesh import make_mesh
 
-    monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
-    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)
+    use_native_index(monkeypatch)
     return make_mesh(*read_stl(STANDIN / "map.stl"))
 
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_native import use_native_index
 from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch import convert
@@ -35,10 +36,9 @@ def _jax_standin(monkeypatch, setup="flagship", coarse="exact", **setup_kw):
     coarse kernel."""
     monkeypatch.setenv("ICP_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
-    monkeypatch.setenv("ICP_TPU_NO_NATIVE", "1")
-    # the JAX package caches its native library once any test loads it;
-    # drop that cache too, so the numpy index build runs in every order
-    monkeypatch.setattr("icp_proposal_tpu.native._lib", None)
+    # JAX builds its shortlist index with its native builder, its default,
+    # which the port's index equals
+    use_native_index(monkeypatch)
     monkeypatch.setenv("ICP_TPU_COARSE_MXU", "1" if coarse == "dot" else "0")
     from icp_proposal_tpu.apps import femur as jfemur
     from icp_proposal_tpu.io.stl import read_stl
