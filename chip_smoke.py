@@ -42,10 +42,14 @@ Phases (each prints one line or a short block, and ends in
                  matrix) against their twins on the card, ids and d²
                  bitwise, on the inputs the index build gives them: the
                  femur target at K = 16, 32, 64, 128, the face target and
-                 the partial face at K = 64, K10 at the femur shape, and an
-                 open patch whose faces span many tiles; then whole
-                 build_target_context calls on the card (femur and face),
-                 timed, each launching K9 once.  Every context built with
+                 the partial face at K = 64, K10 at the femur shape, and
+                 the open patches of subdivision 5 and 6 (every 8th vertex
+                 against 15,690 and 63,114 faces) at K = 64 and 1,024, with
+                 each bound over the cascade's FP64 instructions at the
+                 FP64 issue rate; one whole build_surface_index over the
+                 31,715 vertices of the subdivision-6 patch, timed; then
+                 whole build_target_context calls on the card (femur and
+                 face), timed, each launching K9 once.  Every context built with
                  an index launches K9 once: the main phases' launch tables
                  count it;
 10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
@@ -182,6 +186,12 @@ BUILD = Path(__file__).resolve().parent / "build"
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
+# the FP64 rate counts an FMA as two operations; under the build's
+# -fmad=false every float64 product and sum is its own instruction, so K9's
+# and K10's exact results take at least their FP64 instructions (each IEEE
+# division expanded as in SASS, native.cascade_ops(expand_divisions=True))
+# over half that rate
+PEAK_FP64_ISSUE = PEAK_FP64_FLOPS / 2
 # arithmetic operations the point→triangle cascade (_tile_dist2) executes for
 # every pair whatever the region: 15 edge/offset differences, 30 for the six
 # dot products, 9 for va/vb/vc, 3 for the denominator, 2 for v/w, 3 for the
@@ -305,6 +315,7 @@ POST_BURN_IN, POST_TAKE_EVERY = 200, 50  # JAX CLI: posterior --burn-in, --take-
 # partial target's context (K9) and the initial carry (collective
 # evaluator: K5 shared and per chain; model-direction ICP: K3 + K4, one K6)
 FACE_REF_SUBDIV = 5
+INDEX_PATCH_SUBDIV = 6  # [kernels:index]: 31,715 vertices, 63,114 faces
 FACE_DECIMATE_TO, FACE_RANK = 2000, 200  # create_gp_model face's defaults
 FACE_SCANS = 2
 FACE_FIT_RUN_LAUNCHES = {"surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
@@ -781,10 +792,11 @@ def phase_kernels_harness(torch, dev, data):
     return records
 
 
-def _index_record(torch, label, q, tri, k, n_ops):
+def _index_record(torch, label, q, tri, k, n_ops, plain_reps=3):
     """K9 on (q, tri) at ``k`` against its twin on the card, ids and d²
     bitwise, else raise; timed in turns with the twin; the bound over this
-    input's cascade operations (``n_ops``) at the FP64 peak → record."""
+    input's cascade instructions (``n_ops``) at the FP64 issue rate →
+    record."""
     from icp_proposal_tpu_torch import native
 
     idx, d2 = native.shortlist_topk(q, tri, k)
@@ -797,8 +809,9 @@ def _index_record(torch, label, q, tri, k, n_ops):
     rec = _record(torch, max(err, float((d2 - d2_p).abs().max())), mism,
                   lambda: native.shortlist_topk(q, tri, k),
                   lambda: native.shortlist_topk_plain(q, tri, k),
-                  _nbytes(q, tri, idx, d2), n_ops, plain_reps=3, peak=PEAK_FP64_FLOPS)
-    rec.update(queries=q.shape[0], faces=tri.shape[0], k=idx.shape[1])
+                  _nbytes(q, tri, idx, d2), n_ops, plain_reps=plain_reps, peak=PEAK_FP64_ISSUE)
+    rec.update(queries=q.shape[0], faces=tri.shape[0], k=idx.shape[1],
+               fp64_instructions=n_ops)
     _print_index_record(f"shortlist_topk[{label}, K={k}]", rec)
     return rec
 
@@ -807,9 +820,10 @@ def _print_index_record(name, rec, held="ids and d²"):
     lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
     print(f"[kernels:index] {name}: {rec['queries']} queries x {rec['faces']} faces; {held} "
           f"bitwise the twin's; kernel {rec['ms']:.4f} ms, twin on the card "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}, "
-          f"FP64 at {PEAK_FP64_FLOPS / 1e12:g} TFLOP/s, HBM at {PEAK_HBM_BYTES / 1e12:g} "
-          f"TB/s), library {lib}")
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
+          f"{rec['fp64_instructions']} FP64 instructions at {PEAK_FP64_ISSUE / 1e12:g} T/s, "
+          f"HBM at {PEAK_HBM_BYTES / 1e12:g} TB/s; kernel at "
+          f"{rec['bound_ms'] / rec['ms']:.3f} of it), library {lib}")
 
 
 def phase_kernels_index(torch, dev, data, ctx, face, partial_ctx):
@@ -817,12 +831,17 @@ def phase_kernels_index(torch, dev, data, ctx, face, partial_ctx):
     and ids bitwise, on the inputs the index build gives them (a context's
     float32 points and Morton-ordered corners, in float64): the femur
     stand-in's target at K = 16, 32, 64, 128, the face target and the
-    partial face at K = 64, K10 at the femur shape, and the open patch of
-    subdivision 5 (F spanning many tiles) at K = 64 and K = MAX_K; then
-    whole ``build_target_context`` calls on the card at the femur and face
-    shapes, timed, each launching K9 once → records by kernel."""
+    partial face at K = 64, K10 at the femur shape, and the open patches
+    of subdivision 5 and 6 (every 8th vertex against every face: F spans
+    many staged tiles) at K = 64 and K = MAX_K; one whole
+    ``build_surface_index`` over every vertex of the subdivision-6 patch at
+    K = 64, timed; then whole ``build_target_context`` calls on the card at
+    the femur and face shapes, timed, each launching K9 once → records by
+    kernel.  Bounds: the cascade's FP64 instructions (divisions expanded)
+    over the FP64 issue rate, or the bytes over HBM bandwidth."""
     from icp_proposal_tpu_torch import native
     from icp_proposal_tpu_torch.models.synthetic import make_open_patch
+    from icp_proposal_tpu_torch.ops.surface_index import build_surface_index
     from icp_proposal_tpu_torch.sampling.context import build_target_context
 
     def inputs(index):
@@ -833,23 +852,35 @@ def phase_kernels_index(torch, dev, data, ctx, face, partial_ctx):
     meshes = {"femur": (inputs(ctx.index), EV_KS),  # the index sweep's widths
               "face": (inputs(face_ctx.index), (64,)),
               "partial-face": (inputs(partial_ctx.index), (64,))}
-    points, cells = make_open_patch(subdivisions=FACE_REF_SUBDIV, radius=0.1, z_cut=0.55)
-    patch = torch.as_tensor(points, dtype=torch.float32, device=dev)
-    tri = patch[torch.as_tensor(cells, dtype=torch.int64, device=dev)]
-    q = patch[::8].double().contiguous()
-    meshes["tiles"] = ((q, tri.reshape(-1, 9).double()), (64, native.MAX_K))
+    patches = {}
+    for label, subdiv in (("tiles", FACE_REF_SUBDIV), ("patch6", INDEX_PATCH_SUBDIV)):
+        points, cells = patches[label] = make_open_patch(subdivisions=subdiv, radius=0.1,
+                                                         z_cut=0.55)
+        patch = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        tri = patch[torch.as_tensor(cells, dtype=torch.int64, device=dev)]
+        q = patch[::8].double().contiguous()
+        meshes[label] = ((q, tri.reshape(-1, 9).double()), (64, native.MAX_K))
     for label, ((q, tri), ks) in meshes.items():
-        n_ops = native.cascade_ops(q, tri)
+        n_ops = native.cascade_ops(q, tri, expand_divisions=True)
         for k in ks:
-            records[f"{label} K={k}"] = _index_record(torch, label, q, tri, k, n_ops)
+            records[f"{label} K={k}"] = _index_record(
+                torch, label, q, tri, k, n_ops, plain_reps=1 if label == "patch6" else 3)
 
-    def tiles(f, k):
-        return -(-f // (native.TOPK_SORT - k))
-
-    print(f"[kernels:index] faces in tiles of TOPK_SORT - K: the open patch "
-          f"{tiles(meshes['tiles'][0][1].shape[0], 64)} tiles at K = 64 and "
-          f"{tiles(meshes['tiles'][0][1].shape[0], native.MAX_K)} at K = {native.MAX_K}; "
-          f"the femur target {tiles(meshes['femur'][0][1].shape[0], 64)} at K = 64")
+    # one whole index build at the subdivision-6 patch (host clock)
+    points, cells = patches["patch6"]
+    build_surface_index(points, cells, k=64, device=dev)
+    secs = []
+    for _ in range(3):
+        _sync(torch)
+        t = time.perf_counter()
+        built = build_surface_index(points, cells, k=64, device=dev)
+        _sync(torch)
+        secs.append(time.perf_counter() - t)
+    records["patch6 K=64"]["build_surface_index_s"] = secs
+    print(f"[kernels:index] build_surface_index on the card, subdivision-6 patch "
+          f"({len(points)} vertices, {len(cells)} faces, K={built.cand.shape[1]}): "
+          f"{', '.join(f'{x:.4f}' for x in secs)} s (3 calls)")
+    del built
 
     # K10: the full d² matrix at the femur shape
     q, tri = meshes["femur"][0]
@@ -858,11 +889,11 @@ def phase_kernels_index(torch, dev, data, ctx, face, partial_ctx):
     if not torch.equal(full.view(torch.int64), full_p.view(torch.int64)):
         raise AssertionError(f"[kernels:index] K10: {int((full != full_p).sum())} d² differ "
                              "from the twin's bitwise")
+    n_ops = native.cascade_ops(q, tri, expand_divisions=True)
     k10 = _record(torch, float((full - full_p).abs().max()), 0,
                   lambda: native.point_tri_d2(q, tri), lambda: native.point_tri_d2_plain(q, tri),
-                  _nbytes(q, tri, full), native.cascade_ops(q, tri), plain_reps=3,
-                  peak=PEAK_FP64_FLOPS)
-    k10.update(queries=q.shape[0], faces=tri.shape[0])
+                  _nbytes(q, tri, full), n_ops, plain_reps=3, peak=PEAK_FP64_ISSUE)
+    k10.update(queries=q.shape[0], faces=tri.shape[0], fp64_instructions=n_ops)
     _print_index_record("point_tri_d2[femur]", k10, held="d²")
     del full, full_p
 

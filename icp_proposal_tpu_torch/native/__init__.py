@@ -21,14 +21,21 @@ import torch
 from icp_proposal_tpu_torch._build import check_tensor, kernel_device, launch
 
 MAX_K = 1024  # K9's largest K (kTopkMaxK in csrc/point_tri.cu)
-TOPK_SORT = 2048  # K9's shared (d², id) buffer (kTopkSort): a tile holds TOPK_SORT − K faces
 _PAIRS = 1 << 18  # (query, face) pairs a block of the twin holds
 
 # float64 operations of the cascade by the region that ends it, in the
 # order it tests them: vertex A, vertex B, edge AB, vertex C, edge AC, edge
-# BC, the face interior (comparisons not counted)
+# BC, the face interior (comparisons not counted; a division counted once)
 REGIONS = ("A", "B", "AB", "C", "AC", "BC", "interior")
 REGION_OPS = (24, 37, 48, 53, 64, 72, 78)
+# of those, IEEE divisions a / b (the edges) and reciprocals 1 / x (the interior)
+REGION_DIVS = (0, 0, 1, 0, 1, 1, 0)
+REGION_RCPS = (0, 0, 0, 0, 0, 0, 1)
+# FP64 instructions (DFMA, DMUL, DADD) a division and a reciprocal take on
+# their fast path in the build's SASS for sm_90a (``kernel_turns.py --sass``
+# compiles one of each with the build's flags and counts them)
+DIV_FP64_INSTRUCTIONS = 8
+RCP_FP64_INSTRUCTIONS = 5
 
 
 def _sub(a, b):
@@ -122,10 +129,18 @@ def shortlist_topk_plain(queries, tri, k):
     return idx, d2
 
 
-def cascade_ops(queries, tri) -> int:
+def cascade_ops(queries, tri, expand_divisions=False) -> int:
     """The float64 operations the cascade executes on these inputs: each
-    pair's region cost (``REGION_OPS``), summed.  The kernels' bound."""
-    ops = torch.as_tensor(REGION_OPS, dtype=torch.int64, device=queries.device)
+    pair's region cost (``REGION_OPS``), summed.  With
+    ``expand_divisions`` each division and reciprocal counts as the FP64
+    instructions it takes in SASS (``DIV_FP64_INSTRUCTIONS``,
+    ``RCP_FP64_INSTRUCTIONS``): the instructions the kernels issue under
+    ``-fmad=false``, the count their bound divides by the FP64 issue rate."""
+    cost = torch.as_tensor(REGION_OPS, dtype=torch.int64)
+    if expand_divisions:
+        cost = (cost + (DIV_FP64_INSTRUCTIONS - 1) * torch.as_tensor(REGION_DIVS)
+                + (RCP_FP64_INSTRUCTIONS - 1) * torch.as_tensor(REGION_RCPS))
+    ops = cost.to(queries.device)
     total = 0
     for lo, hi in _blocks(queries, tri):
         total += int(ops[_cascade(queries[lo:hi], tri, regions=True)[1]].sum())
@@ -157,10 +172,13 @@ def shortlist_topk(queries: torch.Tensor, tri: torch.Tensor, k: int):
 
     Kernel K9 (``csrc/point_tri.cu``) replaces ``icp_shortlist_topk`` in
     ``icp_proposal_tpu/native/point_tri.cpp`` (host C++, not a Pallas
-    kernel).  Bound by the cascade's float64 operations over the FP64
-    rate: one block a query streams the faces through shared memory in
-    tiles, and a bitonic sort of the running top-K with each tile keeps the
-    best K."""
+    kernel).  Bound by the cascade's float64 instructions over the FP64
+    issue rate: a warp a query, faces staged through a shared ring for the
+    block's warps from the part nearest its queries; a ballot keeps the
+    faces below the warp's K-th entry so far, a
+    selection of the K-th key (a walk down the keys' binary trie) tightens
+    it whenever the candidates fill their buffer, and the K winners are
+    sorted once at the end."""
     dev = _check_inputs(queries, tri)
     if dev.type == "cpu":
         return shortlist_topk_plain(queries, tri, k)
@@ -182,8 +200,9 @@ def point_tri_d2(queries: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     tri [F, 9] float64 contiguous → [N, F] float64.
 
     Kernel K10 (``csrc/point_tri.cu``) replaces ``icp_point_tri_d2`` in
-    ``icp_proposal_tpu/native/point_tri.cpp``: one thread a pair, bound by
-    the [N, F] store over HBM bandwidth or the cascade's FP64 operations."""
+    ``icp_proposal_tpu/native/point_tri.cpp``: a thread holds a face and
+    loops over the queries a block stages, bound by the [N, F] store over
+    HBM bandwidth or the cascade's FP64 instructions."""
     dev = _check_inputs(queries, tri)
     if dev.type == "cpu":
         return point_tri_d2_plain(queries, tri)

@@ -1,4 +1,4 @@
-"""Time K2, K3, K4 and K8 of one checkout of the port on one NVIDIA GPU.
+"""Time K2, K3, K4 and K8 (or K9, K10) of one checkout of the port on one NVIDIA GPU.
 
     python3 kernel_turns.py [--root DIR] [--sass] [--probe] [--contexts]
 
@@ -33,12 +33,26 @@ femur shapes with L = 1, 2, 4, 8, 16 and 32 lanes a query and K8 with
 Q = 1 ... 8 queries a lane, at 256 and 2,048 chains, through each
 library's C entry points, after checking each against the plain twin.
 
+``--sass`` also counts K9's and K10's FP64 instructions (DADD, DMUL, DFMA,
+DSETP, DMNMX) per pair in the loop that holds the cascade (pairs counted by
+its four divisions' ``MUFU.RCP64H``, so an unrolled loop counts right; every
+region's code, as the static body holds it), and compiles two probe kernels
+with the build's flags, one IEEE division a / b and one reciprocal 1 / x,
+whose fast paths give the FP64 instructions a division and a reciprocal
+take (``native.DIV_FP64_INSTRUCTIONS``, ``RCP_FP64_INSTRUCTIONS``).
+
 ``--contexts`` times whole ``build_target_context`` calls instead of the
 kernels: the stand-in femur's target, the face stand-in's target and its
 partial target (rank 200, subdivision 4), ``TURNS`` calls each, each ended
 by a synchronize, after the setups have built contexts once.  The
 checkout builds its shortlist index its own way (on the host with numpy
-before K9; with K9 on the card since).
+before K9; with K9 on the card since).  With K9 in the checkout it also
+times K9 (``shortlist_topk``) at the femur target (K = 64), at the open
+patches of subdivision 5 (every 8th vertex, K = 64 and 1,024) and 6 (every
+8th vertex, K = 64), and K10 (``point_tri_d2``) at the femur shape, each
+held to its plain twin first at the femur shape, then one whole
+``build_surface_index`` over the 31,715 vertices and 63,114 faces of the
+subdivision-6 patch at K = 64 (host clock, ended by a synchronize).
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 ``{"root": ..., "times": {...}, "sass": {...}, "probe": {...}}`` (ms per
@@ -50,6 +64,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -134,6 +149,63 @@ def _refine_sass(funcs):
             return None
         body, pairs = max(loops, key=lambda x: (x[1], -x[0]))[:2]
         return body / pairs, pairs
+    return None
+
+
+_FP64 = re.compile(r"^(@!?U?P\w+\s+)?D(ADD|MUL|FMA|SETP|MNMX)\b")
+# one IEEE division and one reciprocal, compiled with the build's flags
+_DIV_PROBE = r"""
+extern "C" __global__ void div_probe(const double* a, const double* b, double* o) {
+  o[threadIdx.x] = a[threadIdx.x] / b[threadIdx.x];
+}
+extern "C" __global__ void rcp_probe(const double* a, double* o) {
+  o[threadIdx.x] = 1.0 / a[threadIdx.x];
+}
+"""
+
+
+def _fp64_count(body):
+    return sum(bool(_FP64.match(t.strip())) for t in body)
+
+
+def _division_sass(nvcc, work):
+    """FP64 instructions on the fast path (up to the first EXIT) of the
+    probe division and reciprocal → {"div": n, "rcp": n}, or None."""
+    from icp_proposal_tpu_torch import _build
+
+    src, cubin = Path(work) / "div_probe.cu", Path(work) / "div_probe.cubin"
+    src.write_text(_DIV_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(src)], check=True,
+                   capture_output=True, timeout=300)
+    funcs = _sass_functions(cubin, nvcc)
+    if not funcs:
+        return None
+    out = {}
+    for name, key in (("div_probe", "div"), ("rcp_probe", "rcp")):
+        ins = [t for f, body in funcs.items() if f == name for _, t in body]
+        fast = ins[:next((i for i, t in enumerate(ins) if t.strip().startswith("EXIT")),
+                         len(ins))]
+        out[key] = _fp64_count(fast)
+        out[f"{key}_mufu"] = sum("MUFU.RCP64H" in t for t in fast)
+    return out
+
+
+def _cascade_sass(funcs, kernel):
+    """The innermost loop of ``kernel`` that holds the cascade (its four
+    divisions' ``MUFU.RCP64H``): FP64 instructions per pair, pairs in the
+    body; None if not found."""
+    for name, ins in funcs.items():
+        if kernel not in name:
+            continue
+        loops = _loops(ins, lambda body: sum("MUFU.RCP64H" in t for t in body) // 4)
+        if not loops:
+            return None
+        lo, hi = min(loops)[2:]
+        body = [t for a, t in ins if lo <= a <= hi]
+        pairs = sum("MUFU.RCP64H" in t for t in body) // 4
+        return {"fp64_per_pair": _fp64_count(body) / pairs, "pairs_in_body": pairs,
+                "instructions_per_pair": len(body) / pairs}
     return None
 
 
@@ -224,6 +296,62 @@ def _context_times(torch, dev, data, face):
     return out
 
 
+def _index_shapes(torch, dev, index):
+    """{name: (queries, tri)} float64 on the card: the femur target's index,
+    every 8th vertex of the open patches of subdivision 5 and 6 against all
+    their faces, and all the subdivision-6 patch's vertices; and the
+    subdivision-6 patch's (points, cells)."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.models.synthetic import make_open_patch
+
+    shapes = {"femur": (index.points.double(), index.tri.reshape(-1, 9).double())}
+    patch6 = None
+    for s in (5, 6):
+        points, cells = make_open_patch(s, 0.1, 0.55)
+        pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
+        ptri = pts[torch.as_tensor(np.asarray(cells), dtype=torch.int64, device=dev)]
+        shapes[f"patch{s}"] = (pts[::8].double().contiguous(), ptri.reshape(-1, 9).double())
+        patch6 = (points, cells)
+    return shapes, patch6
+
+
+# (shape, K) of K9 in the index timings
+INDEX_CASES = (("femur", 64), ("patch5", 64), ("patch5", 1024), ("patch6", 64))
+
+
+def _index_times(torch, dev, shapes, patch6):
+    """K9 and K10 at the index build's shapes (each held to its twin at the
+    femur shape first), and whole subdivision-6 index builds → {name:
+    [ms, ...]} (the builds in host-clock ms)."""
+    from icp_proposal_tpu_torch import native
+    from icp_proposal_tpu_torch.ops.surface_index import build_surface_index
+
+    q, tri = shapes["femur"]
+    for got, want in zip(native.shortlist_topk(q, tri, 64),
+                         native.shortlist_topk_plain(q, tri, 64)):
+        if not torch.equal(got, want):
+            raise AssertionError("K9 differs from the plain twin at the femur target")
+    if not torch.equal(native.point_tri_d2(q, tri), native.point_tri_d2_plain(q, tri)):
+        raise AssertionError("K10 differs from the plain twin at the femur shape")
+    fns = {f"shortlist_topk[{name}, K={k}]":
+           (lambda name=name, k=k: native.shortlist_topk(*shapes[name], k))
+           for name, k in INDEX_CASES}
+    fns["point_tri_d2[femur]"] = lambda: native.point_tri_d2(q, tri)
+    out = {name: [_time_ms(torch, fn, REPS) for _ in range(TURNS)] for name, fn in fns.items()}
+    points, cells = patch6
+    build_surface_index(points, cells, k=64, device=dev)
+    builds = []
+    for _ in range(TURNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        build_surface_index(points, cells, k=64, device=dev)
+        torch.cuda.synchronize()
+        builds.append(1e3 * (time.perf_counter() - t))
+    out["build_surface_index[patch6, K=64]"] = builds
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
@@ -264,8 +392,14 @@ def main() -> int:
     face = load_synthetic_face_data(rank=200, subdiv=4, device=dev)
     bindex = make_bfm_fitting_setup(face, partial=True)[0].index
     if args.contexts:
+        from icp_proposal_tpu_torch import native
+
+        index_ms = {}
+        if hasattr(native, "shortlist_topk"):
+            index_ms = _index_times(torch, dev, *_index_shapes(torch, dev, index))
         print(json.dumps({"root": str(root), "device": smi.splitlines()[0],
-                          "contexts": _context_times(torch, dev, data, face)}))
+                          "contexts": _context_times(torch, dev, data, face),
+                          "index_ms": index_ms}))
         return 0
     # the refine's table: the face table, or an older checkout's per-vertex one
     table = index.faces if hasattr(index, "faces") else index.cand_tri
@@ -339,6 +473,10 @@ def main() -> int:
         got = _refine_sass(funcs)
         sass["refine_shortlist"] = None if got is None else {
             "lanes": lanes, "per_pair": got[0], "pairs_in_body": got[1]}
+        sass["shortlist_topk"] = _cascade_sass(funcs, "shortlist_topk_kernel")
+        sass["point_tri_d2"] = _cascade_sass(funcs, "point_tri_d2_kernel")
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
+            sass["division"] = _division_sass(_build.find_nvcc(), work)
     print(json.dumps({"root": str(root), "device": smi.splitlines()[0], "times": times,
                       "sass": sass, "probe": probe}))
     return 0

@@ -19,6 +19,7 @@ every context sorts them.  The twin runs once per mesh at the largest K
 held as its prefix: a top-K of a total order is the K-prefix of any larger
 top-K.  The kernels themselves run only on the card (marker ``cuda``).
 """
+import itertools
 import re
 from pathlib import Path
 
@@ -34,6 +35,10 @@ from icp_proposal_tpu_torch import native
 from icp_proposal_tpu_torch.ops.morton import morton_sort_faces
 
 REPO = Path(__file__).resolve().parents[1]
+# K9's compile-time constants, as csrc/point_tri.cu defines them
+K9 = {name: int(value) for name, value in re.findall(
+    r"constexpr int (k\w+) = (\d+);",
+    (REPO / "icp_proposal_tpu_torch" / "csrc" / "point_tri.cu").read_text())}
 FEMUR_KS = (16, 32, 64, 128)
 KS = {"femur": FEMUR_KS, "face": (64,), "partial": (64,)}
 
@@ -185,12 +190,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_max_k_is_the_kernels():
-    """The wrapper's cap is K9's ``kTopkMaxK`` and ``TOPK_SORT`` its
-    ``kTopkSort``; a tile then still holds faces (``kTopkSort`` − K > 0)."""
-    src = (REPO / "icp_proposal_tpu_torch" / "csrc" / "point_tri.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert int(consts["kTopkMaxK"]) == native.MAX_K
-    assert int(consts["kTopkSort"]) == native.TOPK_SORT > native.MAX_K
+    """The wrapper's cap is K9's ``kTopkMaxK``, and K9's buffer room beyond
+    K (K, at least ``kTopkMoreMin``, at most ``kTopkMoreMax``) holds a round
+    of 32 after a selection and, with K, K padded to a power of two (the
+    final sort) at every K up to that cap."""
+    assert K9["kTopkMaxK"] == native.MAX_K
+    assert K9["kTopkMoreMin"] >= 32 and 2 * K9["kTopkMoreMax"] >= K9["kTopkMaxK"]
 
 
 def test_cascade_ops_counts_each_region():
@@ -202,6 +207,211 @@ def test_cascade_ops_counts_each_region():
     regions = native._cascade(q, tri, regions=True)[1][:, 0].tolist()
     assert regions == list(range(7))
     assert native.cascade_ops(q, tri) == sum(native.REGION_OPS)
+
+
+def test_cascade_ops_expands_divisions():
+    """With ``expand_divisions`` each edge's division and the interior's
+    reciprocal count as their SASS instructions, the other regions as
+    before."""
+    tri = torch.tensor([[0.0, 0, 0, 1, 0, 0, 0, 1, 0]], dtype=torch.float64)
+    q = torch.tensor([[-1.0, -1, 1], [2, -0.5, 0], [0.5, -1, 0], [-0.5, 2, 0],
+                      [-1, 0.5, 0], [1, 1, 0], [0.2, 0.2, 1]], dtype=torch.float64)
+    extra = [(native.DIV_FP64_INSTRUCTIONS - 1) * d + (native.RCP_FP64_INSTRUCTIONS - 1) * r
+             for d, r in zip(native.REGION_DIVS, native.REGION_RCPS)]
+    assert extra[:2] == [0, 0] and extra[3] == 0 and min(extra[2:3] + extra[4:]) > 0
+    for i in range(7):
+        assert native.cascade_ops(q[i:i + 1], tri, expand_divisions=True) == (
+            native.REGION_OPS[i] + extra[i])
+
+
+def _grid(m=12):
+    """A planar m × m grid of unit squares, two triangles each (interior
+    vertices of valence 6): (points [m², 3], tri [2(m − 1)², 9]) float64,
+    integer coordinates, so d² ties exactly at 0 and beyond."""
+    xs, ys = np.meshgrid(np.arange(m, dtype=np.float64), np.arange(m, dtype=np.float64))
+    points = np.stack([xs.ravel(), ys.ravel(), np.zeros(m * m)], 1)
+    a = (np.arange(m - 1)[:, None] * m + np.arange(m - 1)[None, :]).ravel()
+    cells = np.concatenate([np.stack([a, a + 1, a + m + 1], 1), np.stack([a, a + m + 1, a + m], 1)])
+    return points, points[cells].reshape(-1, 9)
+
+
+def _documented_order(d2, k):
+    """The twin's documented order, written independently: numbers by (d²,
+    face id), then every NaN by face id → ids [n, k]."""
+    ids = np.broadcast_to(np.arange(d2.shape[1]), d2.shape)
+    nan = np.isnan(d2)
+    return np.stack([np.lexsort((i, np.where(n, 0.0, d), n))[:k]
+                     for i, d, n in zip(ids, d2, nan)])
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_shortlist_topk_ties_straddle_kth_slot(libs, k):
+    """On a regular grid every interior vertex is at d² = 0 from its six
+    faces, so at K below the valence the K-th slot falls among exact ties
+    (and rows tie again beyond 0): the twin keeps the lowest face ids there,
+    bitwise native's (built without contraction)."""
+    points, tri = _grid()
+    idx, d2 = (x.numpy() for x in native.shortlist_topk(torch.as_tensor(points),
+                                                         torch.as_tensor(tri), k + 1))
+    straddle = d2[:, k - 1] == d2[:, k]
+    assert straddle.mean() > 0.5  # not vacuous
+    want_idx, want_d2 = native_topk(bind(libs["a"]), points, tri, k)
+    np.testing.assert_array_equal(idx[:, :k], want_idx)
+    np.testing.assert_array_equal(_bits(d2[:, :k]), _bits(want_d2))
+
+
+@pytest.mark.parametrize("case", ["grid-K1", "soup-K1", "grid-KF", "soup-KF"])
+def test_shortlist_topk_k_one_and_k_f(libs, case):
+    """K = 1 (the lowest id among the faces at the least d²) and K = F (every
+    face, in native's order) on the tie-heavy grid and a random soup."""
+    mesh, which = case.split("-")
+    if mesh == "grid":
+        q, tri = _grid()
+    else:
+        rng = np.random.RandomState(11)
+        q, tri = rng.randn(40, 3) * 12, rng.randn(300, 9) * 10
+    k = 1 if which == "K1" else len(tri)
+    idx, d2 = native.shortlist_topk(torch.as_tensor(q), torch.as_tensor(tri), k)
+    want_idx, want_d2 = native_topk(bind(libs["a"]), q, tri, k)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_array_equal(_bits(d2.numpy()), _bits(want_d2))
+
+
+def _nan_cases():
+    """(queries, tri): all-NaN queries and queries with one NaN coordinate
+    (every d² NaN), and ordinary queries against a grid with NaN corners
+    (rows partly NaN, with ties at 0 among the numbers)."""
+    points, tri = _grid(8)
+    tri = tri.copy()
+    tri[[3, 40, 41], 4] = np.nan
+    q = points[::5].copy()
+    bad = np.full((4, 3), 2.5)
+    bad[0] = np.nan
+    for i in range(3):
+        bad[i + 1, i] = np.nan
+    return np.concatenate([q, bad]), tri
+
+
+@pytest.mark.parametrize("k", [1, 6, 60, 98])
+def test_shortlist_topk_nan_queries_follow_documented_order(k):
+    """Native's order is undefined once a d² is NaN, so the twin is held to
+    its own documented order: numbers by (d², id), then NaN by id.  A query
+    with any NaN coordinate has only NaN d²: faces 0, 1, 2, ..."""
+    q, tri = _nan_cases()
+    full = native.point_tri_d2(torch.as_tensor(q), torch.as_tensor(tri)).numpy()
+    assert np.isnan(full[-4:]).all() and np.isnan(full[:-4]).any(1).all()
+    assert not np.isnan(full[:-4]).all(1).any()
+    idx, d2 = (x.numpy() for x in native.shortlist_topk(torch.as_tensor(q),
+                                                         torch.as_tensor(tri), k))
+    want = _documented_order(full, k)
+    np.testing.assert_array_equal(idx, want)
+    np.testing.assert_array_equal(_bits(d2), _bits(np.take_along_axis(full, want, 1)))
+    np.testing.assert_array_equal(idx[-4:], np.tile(np.arange(k), (4, 1)))
+
+
+# K9's selection, replayed in numpy on one query's row of d² as the kernel
+# does it (csrc/point_tri.cu): the faces in parts of kTopkStep from a start
+# part, wrapping around, in rounds of 32; the ballot against (tau, cut); a
+# buffer of cap entries; the trie walk, the ties' lowest ids, the
+# compaction; the sort of the K winners
+
+_NAN_KEY = np.uint64(0x7FF0000000000001)
+_ALL = (1 << 64) - 1
+
+
+def _order_keys(d2):
+    a = np.ascontiguousarray(d2, np.float64).view(np.uint64) & np.uint64(0x7FFFFFFFFFFFFFFF)
+    return np.minimum(a, _NAN_KEY)
+
+
+def _replay_walk(vals, k):
+    """The 32-bit trie walk: the k-th smallest of vals (uint32) → (V, its
+    rank among the values equal to V)."""
+    vals = vals.astype(np.int64)
+    a, o, r = np.bitwise_and.reduce(vals), np.bitwise_or.reduce(vals), k
+    while a != o:
+        bit = 1 << (int(a ^ o).bit_length() - 1)
+        rng = vals[((vals ^ a) & ~(bit | (bit - 1)) & 0xFFFFFFFF) == 0]
+        lo, hi = rng[(rng & bit) == 0], rng[(rng & bit) != 0]
+        if r <= len(lo):
+            a, o = np.bitwise_and.reduce(lo), np.bitwise_or.reduce(lo)
+        else:
+            r -= len(lo)
+            a, o = np.bitwise_and.reduce(hi), np.bitwise_or.reduce(hi)
+    return int(a), r
+
+
+def _replay_select(keys, k):
+    """The K-th key by a walk over the high words, then over the low words
+    of those tied there → (T, r)."""
+    hi, r = _replay_walk(keys >> np.uint64(32), k)
+    tied = keys[(keys >> np.uint64(32)) == np.uint64(hi)]
+    lo, r = _replay_walk(tied & np.uint64(0xFFFFFFFF), r)
+    return hi << 32 | lo, r
+
+
+def _replay_row(d2, k, cap, start=0):
+    """One warp's K9 on one row with a buffer of ``cap`` (at least K + 32),
+    from part ``start`` → (ids [k], d2 [k], selections made)."""
+    keys, f, step = _order_keys(d2), len(d2), K9["kTopkStep"]
+    parts = -(-f // step)
+    bk, bi, tau, cut, selections = keys[:0], np.zeros(0, np.int64), _ALL, 2 ** 31 - 1, 0
+
+    def reduce(bk, bi):
+        t, r = _replay_select(bk, k)
+        tied = bk == np.uint64(t)
+        cut = bi[tied].max() if tied.sum() == r else np.sort(bi[tied])[r - 1]
+        keep = (bk < np.uint64(t)) | (tied & (bi <= cut))
+        return bk[keep], bi[keep], t, cut
+
+    for t in range(parts):
+        part = (start + t) % parts * step
+        for base in range(part, min(f, part + step), 32):
+            ks, ids = keys[base:base + 32], np.arange(base, min(base + 32, f))
+            enter = (ks < np.uint64(tau)) | ((ks == np.uint64(tau)) & (ids < cut))
+            if not enter.any():
+                continue
+            if len(bk) + int(enter.sum()) > cap:
+                bk, bi, tau, cut = reduce(bk, bi)
+                selections += 1
+                enter = (ks < np.uint64(tau)) | ((ks == np.uint64(tau)) & (ids < cut))
+            bk, bi = np.concatenate([bk, ks[enter]]), np.concatenate([bi, ids[enter]])
+    if len(bk) > k:
+        bk, bi, _, _ = reduce(bk, bi)
+        selections += 1
+    order = np.lexsort((bi, bk))
+    return bi[order], d2[bi[order]], selections
+
+
+def test_kernel_selection_replayed_matches_twin(meshes):
+    """K9's algorithm, replayed, gives the twin's ids and d² bitwise from
+    the first part and from a middle one (the kernel starts at the part
+    nearest the block's queries and wraps around), with the least buffer
+    the selection takes (K + 32) and a roomy one (K + 512): on femur rows
+    (K = 16, 64, 1,024 beyond the rounds of one buffer), on the grid's ties
+    (K = 3), on NaN rows, and on faces in decreasing distance, where every
+    face enters and the buffer fills again and again."""
+    q, tri = meshes["femur"]
+    cases = [(np.ascontiguousarray(q[::160]), tri, (16, 64, 1024)), (*_grid(), (3, 7)),
+             (*_nan_cases(), (6, 60))]
+    rng = np.random.RandomState(2)
+    soup = rng.randn(2000, 9) * 10
+    far = soup[np.argsort(-np.linalg.norm(soup.reshape(-1, 3, 3).mean(1), axis=1))]
+    cases.append((np.zeros((2, 3)), far, (1, 64, 1000)))
+    many = 0
+    for cq, ctri, ks in cases:
+        full = native.point_tri_d2(torch.as_tensor(cq), torch.as_tensor(ctri)).numpy()
+        parts = -(-len(ctri) // K9["kTopkStep"])
+        for k in ks:
+            t_idx, t_d2 = (x.numpy() for x in native.shortlist_topk(
+                torch.as_tensor(cq), torch.as_tensor(ctri), k))
+            for row, cap, start in itertools.product(range(len(cq)), (k + 32, k + 512),
+                                                     (0, parts // 2)):
+                ids, d2, selections = _replay_row(full[row], k, cap, start)
+                np.testing.assert_array_equal(ids, t_idx[row])
+                np.testing.assert_array_equal(_bits(d2), _bits(t_d2[row]))
+                many = max(many, selections)
+    assert many >= 5  # the buffer refilled again and again in the decreasing order
 
 
 def test_build_surface_index_on_cpu_is_the_twin(meshes, twin, monkeypatch):
@@ -250,8 +460,9 @@ def test_cuda_kernels_match_twin(cuda, meshes, twin, name):
 
 @pytest.mark.cuda
 def test_cuda_shortlist_topk_many_tiles_and_nan(cuda):
-    """K9 where F spans several tiles (4,000 faces of a larger soup; K =
-    1,024 leaves 1,024 faces a tile), with a NaN vertex and a NaN query."""
+    """K9 where F spans many ring slots (4,000 faces of a larger soup: 32
+    parts of 128, the last partial) and the buffer fills more than once
+    (K = 1,024), with a NaN vertex and a NaN query."""
     rng = np.random.RandomState(3)
     tri = rng.randn(4000, 9) * 10
     tri[7, 3:6] = np.nan
@@ -276,3 +487,40 @@ def test_cuda_build_surface_index_launches_k9(cuda):
     assert index.cand.device.type == "cuda" and index.cand.dtype == torch.int32
     want = surface_index.build_shortlist(points, cells, k=64)
     np.testing.assert_array_equal(index.cand.cpu().numpy(), want)
+
+
+def _cuda_against_twin(dev, q, tri, k):
+    got = native.shortlist_topk(torch.as_tensor(q, device=dev), torch.as_tensor(tri, device=dev), k)
+    want = native.shortlist_topk(torch.as_tensor(q), torch.as_tensor(tri), k)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    np.testing.assert_array_equal(_bits(got[1].cpu().numpy()), _bits(want[1].numpy()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 64, 242])
+def test_cuda_shortlist_topk_ties_and_edge_ks(cuda, k):
+    """K9 against the twin on the grid's exact ties: K = 1, K below the
+    valence (ties straddle the K-th slot), K = 64 and K = F."""
+    _cuda_against_twin(cuda, *_grid(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 6, 60, 98])
+def test_cuda_shortlist_topk_nan_queries(cuda, k):
+    """K9 against the twin on all-NaN and partly-NaN queries and NaN faces."""
+    _cuda_against_twin(cuda, *_nan_cases(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 700, native.MAX_K])
+def test_cuda_shortlist_topk_ragged_tiles_and_refills(cuda, k):
+    """F = 13 parts + 37 faces (not a multiple of a ring slot's part),
+    queries in a ragged last block (one warp with a query beside idle warps
+    that still refill the ring), and the same faces in decreasing distance
+    from the origin, where the buffer refills again and again."""
+    rng = np.random.RandomState(4)
+    tri = rng.randn(13 * K9["kTopkStep"] + 37, 9) * 10
+    q = rng.randn(3 * K9["kTopkWarps"] + 5, 3) * 12
+    _cuda_against_twin(cuda, q, tri, k)
+    far = tri[np.argsort(-np.linalg.norm(tri.reshape(-1, 3, 3).mean(1), axis=1))]
+    _cuda_against_twin(cuda, np.zeros((K9["kTopkWarps"] + 1, 3)), far, k)
