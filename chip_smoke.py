@@ -122,6 +122,15 @@ Phases (each prints one line or a short block, and ends in
                  states and the variability maps timed; check:replay: the
                  replayed and posterior points and maps on the card against
                  the CPU from the same log;
+25b. main:statismo  the committed statismo fixtures (``tests/data/statismo``,
+                 written by h5py chunked, compressed, big-endian, with
+                 ``libver="latest"`` or a user block) read by the port's
+                 numpy HDF5 reader and held to ``MANIFEST.json``'s sha256;
+                 the full-width GPMM-50 fixture's read beside its contiguous
+                 copy's, in seconds; ``load_femur_data(50, data_dir=…)`` with
+                 the fixture as the model, and the flagship step from it at
+                 2,048 chains (launches); a corrupted fletcher32 chunk must
+                 raise; check:statismo: as 5, from the same model;
 26. main:pod     ``apps.pod_chains`` at its defaults in this process: 1,024
                  chains x 1,000 steps of the stand-in GPMM-100 flagship with
                  records, pooled acceptance, R-hat and ESS (one process, no
@@ -307,6 +316,17 @@ PIPE_SAMPLES = 1200
 PIPE_RUN_LAUNCHES = {"nearest_vertices[shared]": 2, "refine_shortlist": 2,
                      "nearest_vertices[per_chain]": 1, "chol_solve": 2, **CONTEXT_LAUNCHES}
 REPLAY_STRIDE, REPLAY_SNAPSHOTS = 10, 50  # JAX CLI: replay --stride, --max-snapshots
+# the statismo files committed for the reader (written by h5py in layouts
+# other than its default by tests/make_statismo_fixtures.py): each held to
+# MANIFEST.json; the full-width GPMM-50 (chunked, shuffle + gzip +
+# fletcher32, libver "latest", a dense group) read in turns with a
+# contiguous copy, then loaded as the femur model and stepped
+STATISMO_DIR = Path(__file__).resolve().parent / "tests" / "data" / "statismo"
+STATISMO_MODEL = "femur_gp_model_50-components.h5"
+STATISMO_DATASETS = ("representer/points", "representer/cells", "model/mean",
+                     "model/pcaBasis", "model/pcaVariance", "model/noiseVariance")
+STATISMO_READS = 3  # turns of fixture and contiguous copy
+STATISMO_TIMED_STEPS = 10
 POST_BURN_IN, POST_TAKE_EVERY = 200, 50  # JAX CLI: posterior --burn-in, --take-every
 # Face: prepare_bfm_dataset on binary-PLY scans of the face stand-in
 # (×1,000, moved rigidly), create_gp_model face at the reference's defaults
@@ -1777,6 +1797,140 @@ def phase_femur_pipeline(torch, dev, data, smi):
     return launches, model, records
 
 
+def _statismo_digest(value):
+    """sha256, dtype and shape of one of ``read_statismo_arrays``' values,
+    as ``tests/make_statismo_fixtures.py`` records them."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.array(value, dtype=np.float64 if isinstance(value, float) else None, order="C")
+    return {"sha256": hashlib.sha256(a.tobytes()).hexdigest(), "dtype": a.dtype.str,
+            "shape": list(a.shape)}
+
+
+def phase_statismo(torch, dev, data, smi):
+    """The committed statismo fixtures through the port's numpy HDF5 reader:
+    every array held to ``MANIFEST.json``'s sha256; the full-width GPMM-50
+    fixture's read timed in turns with a contiguous copy written by the
+    port's own writer; a femur asset directory under a temporary folder
+    with the fixture as the model and the stand-in target moved rigidly
+    (files written by the port's writers); ``load_femur_data(50,
+    data_dir=…)`` on the card; the flagship step from that model at
+    ``N_CHAINS`` chains, launches asserted; one byte flipped in a
+    fletcher32-protected chunk of ``model/pcaBasis`` (its offset from the
+    reader's chunk index) must raise ``ValueError`` → (launches, the
+    workload, its setup)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from icp_proposal_tpu_torch.apps.femur import load_femur_data, make_icp_proposal_setup
+    from icp_proposal_tpu_torch.io import hdf5
+    from icp_proposal_tpu_torch.io.landmarks import write_landmarks
+    from icp_proposal_tpu_torch.io.statismo import read_statismo_arrays
+    from icp_proposal_tpu_torch.io.stl import write_stl
+
+    tag = "main:statismo"
+    manifest = json.loads((STATISMO_DIR / "MANIFEST.json").read_text())
+    names = sorted(p.name for p in STATISMO_DIR.glob("*.h5"))
+    if names != sorted(manifest["files"]):
+        raise AssertionError(f"{tag}: fixtures {names}, manifest {sorted(manifest['files'])}")
+    for name in names:
+        got = {k: _statismo_digest(v)
+               for k, v in read_statismo_arrays(STATISMO_DIR / name).items()}
+        want = manifest["files"][name]["arrays"]
+        if got != want:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"{tag}: {name}: {bad} differ from MANIFEST.json")
+    print(f"[{tag}] {len(names)} fixtures written by h5py {manifest['h5py']} (HDF5 "
+          f"{manifest['hdf5']}) read by the port's reader, every array's sha256 as in "
+          "MANIFEST.json: " + "; ".join(
+              f"{n} {manifest['files'][n]['bytes']} bytes, file {manifest['files'][n]['file']}"
+              for n in names))
+
+    fixture = STATISMO_DIR / STATISMO_MODEL
+    tpoints, tcells = data.target
+    lm_ids = _landmark_ids(tpoints)
+    r, t = _rigid(-0.3, (0.5, 1.0, -1.5), (-20.0, 8.0, 15.5))
+    moved = (tpoints.astype(np.float64) @ r.T + t).astype(np.float32)
+    reads = {"fixture": [], "contiguous copy": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        copy = tmp / "contiguous.h5"
+        hdf5.write_datasets(copy, hdf5.read_datasets(fixture, STATISMO_DATASETS))
+        copy_bytes = copy.stat().st_size
+        for _ in range(STATISMO_READS):
+            for key, path in (("fixture", fixture), ("contiguous copy", copy)):
+                t0 = time.perf_counter()
+                arrays = read_statismo_arrays(path)
+                reads[key].append(time.perf_counter() - t0)
+        flat = read_statismo_arrays(fixture)
+        for k, v in flat.items():
+            if not np.array_equal(arrays[k], v):
+                raise AssertionError(f"{tag}: the contiguous copy differs in {k}")
+
+        femur = tmp / "femur"
+        femur.mkdir()
+        shutil.copyfile(fixture, femur / STATISMO_MODEL)
+        write_stl(femur / "femur_target.stl", moved, tcells)
+        write_landmarks(femur / "femur_target.json",
+                        {n: moved[i].astype(np.float64) for n, i in lm_ids.items()})
+        # the stand-in's target sits in the model frame: its landmarks there
+        # are the model's
+        write_landmarks(femur / "femur_reference.json",
+                        {n: tpoints[i].astype(np.float64) for n, i in lm_ids.items()})
+        _sync(torch)
+        t0 = time.perf_counter()
+        fdata = load_femur_data(50, data_dir=str(femur), device=dev)
+        _sync(torch)
+        load_s = time.perf_counter() - t0
+
+        chunks = hdf5.dataset_chunks(fixture, "model/pcaBasis")
+        start, addr, size, mask = chunks[len(chunks) // 2]
+        if mask:
+            raise AssertionError(f"{tag}: the chunk at {start} skips filters (mask {mask})")
+        raw = bytearray(fixture.read_bytes())
+        raw[addr + size // 2] ^= 0xFF
+        corrupt = tmp / "corrupt.h5"
+        corrupt.write_bytes(bytes(raw))
+        try:
+            read_statismo_arrays(corrupt)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"{tag}: a corrupted fletcher32 chunk read back")
+        if "fletcher32" not in refused:
+            raise AssertionError(f"{tag}: the corrupted chunk raised {refused!r}")
+
+    model = fdata.model
+    if (model.rank, model.num_points, model.cells.shape[0]) != (51, 1622, 3240):
+        raise AssertionError(f"{tag}: the GPMM-50 read back has the wrong width")
+    for name, key in (("ref_points", "points"), ("variance", "variance")):
+        if not np.array_equal(getattr(model, name).cpu().numpy(), flat[key]):
+            raise AssertionError(f"{tag}: the model's {name} differ from the fixture's")
+    shift = _within(tag, "the aligned target", fdata.target.points, tpoints, rtol=0,
+                    rel_atol=1e-6)
+    print(f"[{tag}] read of the full-width GPMM-50 fixture ({fixture.stat().st_size} bytes; "
+          f"{len(chunks)} chunks of model/pcaBasis) " + ", ".join(
+              f"{s:.4f}" for s in reads["fixture"]) + " s, of its contiguous copy "
+          f"({copy_bytes} bytes) " + ", ".join(
+              f"{s:.4f}" for s in reads["contiguous copy"]) + " s (in turns, on the host); "
+          f"load_femur_data(50) on the card {load_s:.3f} s: rank {model.rank}, "
+          f"{model.num_points} vertices, aligned target within {shift:.3g} mm; one byte "
+          f"flipped in the chunk at {start} ({size} bytes at offset {addr}): "
+          f"{refused}; nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    setup = make_icp_proposal_setup(fdata)
+    _sync(torch)
+    print(f"[{tag}] flagship setup from the fixture's model {time.perf_counter() - t0:.3f} s")
+    _, mixture, evaluator = setup
+    launches = phase_main(torch, dev, tag, model, mixture, evaluator, WARMUP_STEPS,
+                          STATISMO_TIMED_STEPS, FEMUR_STEP_LAUNCHES)
+    return launches, fdata, setup
+
+
 def phase_check_replay(torch, dev, model, records):
     """``replay_meshes`` and ``posterior_analysis`` from the same log on the
     card and on the CPU: the same number of states; points and maps within
@@ -2664,6 +2818,20 @@ def main() -> int:
     phase_check_replay(torch, dev, pipe_model, pipe_records)
     _sync(torch)
     del pipe_model, pipe_records
+
+    # 25b. main path: the femur flagship from a committed statismo file
+    # (chunked, compressed, new-format) read by the port's HDF5 reader; its
+    # step against the CPU twins
+    t = time.perf_counter()
+    launches["statismo"], st_data, st_setup = phase_statismo(torch, dev, data, smi)
+    phase_check(torch, dev, "check:statismo", st_data.model, st_setup,
+                lambda m: make_icp_proposal_setup(FemurData(
+                    m, st_data.target, st_data.target_boundary_mask,
+                    st_data.model_boundary_mask)))
+    _sync(torch)
+    print(f"[main:statismo] the phase and its check took {time.perf_counter() - t:.3f} s; "
+          f"nvidia-smi: {smi}")
+    del st_data, st_setup
 
     # 26. main path: the pod run (apps.pod_chains at its defaults), then the
     # bare step at its chains

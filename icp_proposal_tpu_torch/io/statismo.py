@@ -12,11 +12,15 @@ Layout:
     model/noiseVariance  [1]    f32
 
 The GP is over displacement fields: mean displacement = mean − points.
-The files go through ``io/hdf5.py`` (numpy), which reads what ``h5py``
-writes and writes what it reads; the H100 host has no ``h5py``.  Only the
-six datasets above are read; if one of them is chunked, compressed or
-behind a version 2 object header, the reader raises ``ValueError`` and the
-file must be rewritten with contiguous datasets.
+The files go through ``io/hdf5.py`` (numpy), since the H100 host has no
+``h5py``.  Only the six datasets above are read (groups off their paths are
+not opened), in any layout the HDF5 library writes: contiguous, compact or
+chunked (deflate, shuffle, fletcher32), any library version bounds, either
+byte order, dense groups and soft links.  A dataset behind another filter
+(szip, nbit, scale-offset, lzf, a plugin), of another datatype class or
+behind an external link raises ``ValueError``, as does a chunk whose
+fletcher32 checksum fails.  The writer stores the ``h5py`` default layout,
+as the JAX package's writer does.
 """
 from __future__ import annotations
 

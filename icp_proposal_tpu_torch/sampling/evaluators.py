@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List
+from typing import List, Union
 
 import numpy as np
 import torch
@@ -89,6 +89,9 @@ class AcceptAllSpec:
     """Constant 0 log-density (reference ``AcceptAllEvaluator.scala``)."""
 
     name: str = "acceptall"
+
+
+LikelihoodSpec = Union[IndependentPointsSpec, HausdorffSpec, CollectiveAvgMaxSpec, AcceptAllSpec]
 
 
 class EvaluatorProgram:

@@ -117,7 +117,9 @@ def test_hdf5_interoperates_with_h5py(tmp_path):
     it reads back alike (float32/64, signed and unsigned integers, scalars,
     fixed-length strings, nested groups, a group of 200 members that spans
     many symbol-table nodes); the statismo files of both writers hold the
-    same arrays; a format it does not cover raises ``ValueError``."""
+    same arrays; ``libver="latest"`` and chunked files read as ``h5py``
+    reads them; a format it does not cover (the lzf filter) raises
+    ``ValueError``."""
     import h5py
 
     from icp_proposal_tpu.io import statismo as jst
@@ -162,22 +164,31 @@ def test_hdf5_interoperates_with_h5py(tmp_path):
         assert g["representer"].attrs["datasetType"] == f["representer"].attrs["datasetType"]
 
     with h5py.File(tmp_path / "latest.h5", "w", libver="latest") as f:
-        f.create_dataset("x", data=np.zeros(3))
+        f.create_dataset("x", data=rng.randn(3))
     with h5py.File(tmp_path / "chunked.h5", "w") as f:
-        f.create_dataset("x", data=np.zeros((8, 8)), chunks=(4, 4))
+        f.create_dataset("x", data=rng.randn(8, 8), chunks=(4, 4))
     for name in ("latest.h5", "chunked.h5"):
-        with pytest.raises(ValueError, match="HDF5"):
-            hdf5.read_datasets(tmp_path / name)
+        with h5py.File(tmp_path / name, "r") as f:
+            want = f["x"][()]
+        got = hdf5.read_datasets(tmp_path / name)
+        assert list(got) == ["x"] and got["x"].dtype == want.dtype
+        np.testing.assert_array_equal(got["x"], want)
+    with h5py.File(tmp_path / "lzf.h5", "w") as f:
+        f.create_dataset("x", data=np.zeros((8, 8)), chunks=(4, 4), compression="lzf")
+    with pytest.raises(ValueError, match="HDF5"):
+        hdf5.read_datasets(tmp_path / "lzf.h5")
 
 
 def test_statismo_read_skips_unrelated_datasets(tmp_path):
     """A statismo file written by the JAX package (``h5py``) and then given
-    objects that ``io/hdf5.py`` cannot decode beside the model (a chunked,
-    gzip-compressed dataset and a variable-length string under
-    ``modelinfo/``, a group stored as link messages) reads back as before:
-    the reader opens only the six statismo datasets.  Asking for a missing
-    dataset raises ``KeyError``, and a model dataset that is itself chunked
-    raises ``ValueError``."""
+    objects beside the model (a chunked, gzip-compressed dataset and a
+    variable-length string under ``modelinfo/``, a group stored as link
+    messages, an external link) reads back as before: the reader opens only
+    the six statismo datasets.  Listing every dataset gives what ``h5py``
+    gives, less the variable-length string (a type the reader does not
+    decode).  Asking for a missing dataset raises ``KeyError``, one behind
+    the external link ``ValueError``; a model dataset that is itself
+    chunked reads as ``h5py`` reads it."""
     import h5py
 
     from icp_proposal_tpu.io import statismo as jst
@@ -196,21 +207,31 @@ def test_statismo_read_skips_unrelated_datasets(tmp_path):
                          dtype=h5py.string_dtype())
         f.create_group("modelinfo/tracked", track_order=True).create_dataset(
             "x", data=np.zeros(2))
+        f["modelinfo/elsewhere"] = h5py.ExternalLink("other.h5", "/model")
     back = pst.read_statismo_arrays(path)
     assert sorted(back) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
-    with pytest.raises(ValueError, match="HDF5"):
-        hdf5.read_datasets(path)
+    listed = hdf5.read_datasets(path)
+    with h5py.File(path, "r") as f:
+        names = []
+        f.visit(lambda n: names.append(n) if isinstance(f[n], h5py.Dataset) else None)
+        assert sorted(listed) == sorted(set(names) - {"modelinfo/build-time"})
+        for name in listed:
+            np.testing.assert_array_equal(listed[name], f[name][()], err_msg=name)
     with pytest.raises(KeyError, match="model/absent"):
         hdf5.read_datasets(path, ["model/mean", "model/absent"])
+    with pytest.raises(ValueError, match="external link"):
+        hdf5.read_datasets(path, ["modelinfo/elsewhere/mean"])
 
     with h5py.File(path, "a") as f:
         basis = f["model/pcaBasis"][()]
         del f["model/pcaBasis"]
         f.create_dataset("model/pcaBasis", data=basis, chunks=True)
-    with pytest.raises(ValueError, match="HDF5"):
-        pst.read_statismo_arrays(path)
+    chunked = pst.read_statismo_arrays(path)
+    for k, v in jst.read_statismo_arrays(path).items():
+        np.testing.assert_array_equal(chunked[k], v, err_msg=k)
+    np.testing.assert_array_equal(chunked["basis"], want["basis"])
 
 
 def test_rigid_alignment_matches_jax():

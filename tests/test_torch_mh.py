@@ -377,6 +377,20 @@ def test_fused_step_matches_unfused():
     assert torch.equal(cf.log_post, cu.log_post)
 
 
+def test_likelihood_spec_matches_the_reference():
+    """``sampling.evaluators.LikelihoodSpec`` is the union of the port's
+    spec classes, named as the reference's and in its order."""
+    import typing
+
+    from icp_proposal_tpu.sampling import evaluators as jev
+    from icp_proposal_tpu_torch.sampling import evaluators as pev
+
+    port = typing.get_args(pev.LikelihoodSpec)
+    assert [c.__name__ for c in port] == [c.__name__ for c in typing.get_args(
+        jev.LikelihoodSpec)]
+    assert all(getattr(pev, c.__name__) is c for c in port)
+
+
 def test_port_runs_without_jax(tmp_path):
     """With any import of jax or of the JAX package blocked: importing every
     module of the port (loggers, diagnostics, metrics, winding numbers,
