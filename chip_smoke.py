@@ -55,6 +55,17 @@ Phases (each prints one line or a short block, and ends in
 10. main:bfm-partial  the BFM partial-face step at 2,048 chains: warm-up,
                  timed steps, launch counts;
 11. check:bfm    as 5, for the BFM partial setup;
+11b. check:stationary  the samplers held to their stationary law: 2,048
+                 chains from exact N(0, I) draws of a seeded generator on
+                 the card, pose zero, under the prior-only evaluator, for
+                 STAT_STEPS steps: (a) the flagship mixture with exact
+                 densities, (b) the same mixture with parity=True (the
+                 reference's density), (c) the BFM partial-face mixture at
+                 rank 200; at T/4, T/2, 3T/4 and T the largest |z| of the
+                 coefficient means, the variances' range and z_u (the mean
+                 projection on the direction toward the target), each
+                 component's acceptance and the launches a step (asserted);
+                 (a) and (c) must keep N(0, I), (b) must leave it;
 12. main:hybrid, main:mala, main:rw-adapt  the stand-in femur's adaptive
                  setups (ICP + MALA + random walk; MALA alone; the random
                  walk), scale adaptation on, at 2,048 chains: warm-up, timed
@@ -236,6 +247,19 @@ MALA_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{
     "nearest_vertices[per_chain]": 0, "refine_shortlist": 2})
 RW_STEP_LAUNCHES = dict(MALA_STEP_LAUNCHES, **{"nearest_vertices[shared]": 1,
                                                "refine_shortlist": 1})
+# [check:stationary]: chains started from exact N(0, I) draws under the
+# prior-only evaluator keep N(0, I) at every step when the MH kernel is right.
+# Statistics at T/4, T/2, 3T/4 and T; a set passes when, at each of them,
+# max_k |z_k| < STAT_Z (z_k = m_k·√B), every |v_k − 1| < STAT_V_SDS·√(2/B)
+# and |z_u| < STAT_ZU (the mean projection on the unit direction u toward
+# the target, times √B)
+STAT_CHAINS = 2048
+STAT_STEPS = 400
+STAT_Z, STAT_V_SDS, STAT_ZU = 4.5, 5.0, 4.0
+STAT_SEED = 17
+# without likelihood terms the BFM step launches no K5
+STAT_BFM_STEP_LAUNCHES = dict(BFM_STEP_LAUNCHES, **{"surface_distances[shared]": 0,
+                                                    "surface_distances[per_chain]": 0})
 BFM_FIT_STEPS = 5
 # launches of the timed run_bfm_fitting(partial=True, verbose=True) outside
 # its steps: the partial target's context (K9), the initial carry
@@ -1218,6 +1242,159 @@ def _check_gradient(tag, got, want):
         raise AssertionError(f"{tag}: MALA's gradient on the card differs from the CPU's")
 
 
+def stationary_stats(x, u):
+    """Statistics of chains x [B, r] that should hold N(0, I), against the
+    unit direction u [r]: the largest |z_k| of the coefficient means (z_k =
+    m_k·√B), the variances' range and largest |v_k − 1|, and z_u, the mean
+    projection on u times √B."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    root_b = np.sqrt(x.shape[0])
+    v = x.var(axis=0, ddof=1)
+    return {"z_max": float(np.abs(x.mean(axis=0)).max() * root_b),
+            "v_min": float(v.min()), "v_max": float(v.max()),
+            "v_dev": float(np.abs(v - 1.0).max()),
+            "z_u": float((x @ np.asarray(u, np.float64)).mean() * root_b)}
+
+
+def stationary_failures(stats, n_chains):
+    """The pass criteria that ``stats`` (``stationary_stats`` of
+    ``n_chains`` chains) breaks; empty when it meets them all."""
+    v_lim = STAT_V_SDS * (2.0 / n_chains) ** 0.5
+    out = []
+    if not stats["z_max"] < STAT_Z:
+        out.append(f"max|z| {stats['z_max']:.3f} >= {STAT_Z}")
+    if not stats["v_dev"] < v_lim:
+        out.append(f"max|v - 1| {stats['v_dev']:.4f} >= {v_lim:.4f}")
+    if not abs(stats["z_u"]) < STAT_ZU:
+        out.append(f"|z_u| {abs(stats['z_u']):.3f} >= {STAT_ZU}")
+    return out
+
+
+def stationary_steps(steps):
+    """The recorded steps of a run of ``steps``: T/4, T/2, 3T/4, T."""
+    return [steps * k // 4 for k in (1, 2, 3, 4)]
+
+
+def _model_direction_alpha_hat(model, mixture):
+    """α̂ of the mixture's model-direction ICP factors at α = 0, zero pose."""
+    from icp_proposal_tpu_torch.sampling import mh
+    from icp_proposal_tpu_torch.sampling.state import init_state, transformed_points
+
+    (comp,) = [c for c in mixture.icp_components.values()
+               if getattr(c.spec, "direction", None) == "model"]
+    s0 = init_state(model, 1)
+    pts = transformed_points(model, s0)
+    return comp.factors(s0, pts, mh._normals_of(model, mixture)(pts)).alpha_hat[0]
+
+
+def _stationary_run(torch, dev, tag, model, mixture, per_step, u):
+    """``STAT_CHAINS`` chains from exact N(0, I) draws of a seeded generator
+    on the card, pose zero, under the prior-only evaluator, for
+    ``STAT_STEPS`` steps; launches asserted against ``per_step`` → (stats
+    by recorded step, final carry)."""
+    from icp_proposal_tpu_torch.sampling import mh
+    from icp_proposal_tpu_torch.sampling.evaluators import build_evaluator
+    from icp_proposal_tpu_torch.sampling.state import init_state
+
+    evaluator = build_evaluator(model, mixture.ctx, [], include_prior=True)
+    gen = torch.Generator(device=dev).manual_seed(STAT_SEED)
+    coeffs = torch.randn((STAT_CHAINS, model.rank), generator=gen, device=dev)
+    state = init_state(model, STAT_CHAINS)._replace(coeffs=coeffs)
+    step = mh.make_mh_step(model, mixture, evaluator)
+    carry = mh.init_carry(model, evaluator, state, mixture)
+    accepted = torch.zeros(mixture.num_components, device=dev)
+    proposed = torch.zeros(mixture.num_components, device=dev)
+    recorded = dict.fromkeys(stationary_steps(STAT_STEPS))
+    _sync(torch)
+    _reset_counts()
+    t = time.perf_counter()
+    for i in range(1, STAT_STEPS + 1):
+        carry, rec = step(carry, generator=gen)
+        idx = rec.proposal_idx.long()
+        accepted.scatter_add_(0, idx, rec.accepted.float())
+        proposed.scatter_add_(0, idx, torch.ones_like(rec.log_product))
+        if i in recorded:
+            recorded[i] = carry.state.coeffs.clone()
+    _sync(torch)
+    dt = time.perf_counter() - t
+    launches = _read_counts()
+    _check_launches(tag, launches, per_step, STAT_STEPS)
+    u = (u / torch.linalg.norm(u)).cpu().numpy()
+    stats = {i: stationary_stats(x.cpu().numpy(), u) for i, x in recorded.items()}
+    print(f"[{tag}] r={model.rank}, {STAT_CHAINS} chains x {STAT_STEPS} steps in {dt:.3f} "
+          f"s ({1e3 * dt / STAT_STEPS:.2f} ms/step); launches per step "
+          f"{ {n: c // STAT_STEPS for n, c in launches.items() if c} }")
+    for i, s in stats.items():
+        print(f"[{tag}] step {i}: max|z| {s['z_max']:.3f}, v {s['v_min']:.4f}-"
+              f"{s['v_max']:.4f} (max|v - 1| {s['v_dev']:.4f}), z_u {s['z_u']:.3f}")
+    print(f"[{tag}] acceptance: " + ", ".join(
+        f"{name} {a:.4f}" for name, a in zip(mixture.names, (accepted / proposed).tolist())))
+    return stats, carry
+
+
+def phase_stationary(torch, dev, data, setup, face, bfm_setup):
+    """The samplers held to their stationary law at full width: chains
+    started from exact prior draws under the prior-only evaluator must keep
+    N(0, I) at every step (the JAX package's prior-preservation property,
+    ``tests/test_mh.py``), through K1-K4 (a) and K3, K4, K6, K7 (c); the
+    reference's own ICP density must fail the same criteria (b)."""
+    from icp_proposal_tpu_torch.sampling.proposals import MixtureProgram
+
+    ctx, mixture, _ = setup
+    model = data.model
+    v_lim = STAT_V_SDS * (2.0 / STAT_CHAINS) ** 0.5
+    print(f"[check:stationary] pass at steps {stationary_steps(STAT_STEPS)}: max|z| < "
+          f"{STAT_Z}, every |v - 1| < {v_lim:.4f}, |z_u| < {STAT_ZU}")
+    # u for the femur: where the flagship's model-direction ICP pulls at α = 0
+    alpha_hat = _model_direction_alpha_hat(model, mixture)
+    print(f"[check:stationary] flagship: |alpha_hat(0)| {float(alpha_hat.norm()):.4f}")
+    (model_ids,) = {tuple(c.model_ids) for c in mixture.icp_components.values()}
+    parity = MixtureProgram(list(zip(mixture.weights, mixture.specs)), model, ctx,
+                            data.model_boundary_mask, parity=True,
+                            icp_model_ids=list(model_ids))
+    # the face: every correspondence of the mean shape falls on the partial
+    # target's boundary, so α̂ at α = 0 is 0; u is then the complete target's
+    # own coefficients (it shares the model's vertices), by least squares
+    bfm_model, bfm_mixture = face.model, bfm_setup[1]
+    bfm_u = _model_direction_alpha_hat(bfm_model, bfm_mixture)
+    print(f"[check:stationary] partial face: |alpha_hat(0)| {float(bfm_u.norm()):.4f}")
+    if not float(bfm_u.norm()) > 0:
+        sb = bfm_model.sbasis.reshape(-1, bfm_model.rank).double()
+        disp = (torch.as_tensor(face.target.points, device=dev) - bfm_model.ref_points
+                - bfm_model.mean_disp).reshape(-1, 1).double()
+        bfm_u = torch.linalg.lstsq(sb, disp).solution[:, 0].float()
+        print("[check:stationary] partial face: u is the target's coefficients")
+    _sync(torch)
+
+    sets = [("a", "flagship, exact densities", model, mixture, FEMUR_STEP_LAUNCHES,
+             alpha_hat, True),
+            ("b", "flagship, parity=True (the reference's density)", model, parity,
+             FEMUR_STEP_LAUNCHES, alpha_hat, False),
+            ("c", "BFM partial face, exact densities", bfm_model, bfm_mixture,
+             STAT_BFM_STEP_LAUNCHES, bfm_u, True)]
+    for key, what, m, mix, per_step, u, must_pass in sets:
+        tag = f"check:stationary:{key}"
+        print(f"[{tag}] {what}")
+        stats, carry = _stationary_run(torch, dev, tag, m, mix, per_step, u)
+        broken = {i: stationary_failures(s, STAT_CHAINS) for i, s in stats.items()}
+        broken = {i: b for i, b in broken.items() if b}
+        if key == "c":
+            print(f"[{tag}] pose at step {STAT_STEPS}: max|rot| "
+                  f"{float(carry.state.rot.abs().max()):.4f} rad, max|trans| "
+                  f"{float(carry.state.trans.abs().max()):.4f}")
+        if must_pass and broken:
+            raise AssertionError(f"{tag}: the chains left N(0, I): {broken}")
+        if not must_pass and not broken:
+            raise AssertionError(f"{tag}: the reference's density passed the check; it "
+                                 f"has no power at T = {STAT_STEPS}")
+        print(f"[{tag}] " + ("passes at every recorded step" if not broken else
+                             "fails, as it must: " + "; ".join(
+                                 f"step {i}: {', '.join(b)}" for i, b in broken.items())))
+        _sync(torch)
+
+
 def phase_bfm_fitting(torch, dev, face):
     """``run_bfm_fitting(partial=True)`` at ``N_CHAINS`` chains on the face:
     a warm-up run, then a timed run of ``BFM_FIT_STEPS`` steps (one segment)
@@ -1771,7 +1948,7 @@ def phase_femur_pipeline(torch, dev, data, smi):
           f"states; posterior files {artifacts}")
 
     # the decode of the replayed states and the maps, on the card, timed
-    thinned = [loggers.sample_to_state(rec, dev) for rec in loggers.samples_from_log(
+    thinned = [loggers.sample_to_state(rec, device=dev) for rec in loggers.samples_from_log(
         records, take_every_n=POST_TAKE_EVERY, burn_in=POST_BURN_IN)]
     batch, post = stack_states(states), stack_states(thinned)
     _sync(torch)
@@ -2705,6 +2882,13 @@ def main() -> int:
                 lambda m: make_bfm_fitting_setup(dataclasses.replace(face, model=m),
                                                  partial=True))
     _sync(torch)
+
+    # 11b. the samplers held to their stationary law: exact prior draws under
+    # the prior-only evaluator must keep N(0, I); the reference's density must not
+    t = time.perf_counter()
+    phase_stationary(torch, dev, data, setup, face, bfm_setup)
+    print(f"[check:stationary] the phase took {time.perf_counter() - t:.3f} s; "
+          f"nvidia-smi: {smi}")
 
     # 12. main paths: the adaptive femur setups
     adaptive = {"hybrid": (make_hybrid_setup, HYBRID_STEP_LAUNCHES),

@@ -32,7 +32,7 @@ def replay_states(json_records: List[dict], stride: int = 10,
         while j > 0 and not json_records[j]["status"]:
             j -= 1
         if json_records[j]["status"]:
-            states.append(loggers.sample_to_state(json_records[j], device))
+            states.append(loggers.sample_to_state(json_records[j], device=device))
     return states
 
 
@@ -73,8 +73,9 @@ def posterior_analysis(
     if not thinned:
         raise ValueError("no accepted samples after burn-in/thinning")
     dev = gpmm.device
-    sample_points = _decode(gpmm, [loggers.sample_to_state(r, dev) for r in thinned])
-    map_state = loggers.sample_to_state(loggers.best_fitting_record(json_records), dev)
+    sample_points = _decode(gpmm, [loggers.sample_to_state(r, device=dev) for r in thinned])
+    map_state = loggers.sample_to_state(loggers.best_fitting_record(json_records),
+                                        device=dev)
     map_points = transformed_points(gpmm, map_state)[0]
 
     result = {

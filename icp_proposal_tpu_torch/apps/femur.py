@@ -269,8 +269,8 @@ def recommended_setup() -> str:
     return RECOMMENDED_SETUP
 
 
-def run_icp_proposal_registration(num_samples: int = 10000, n_chains: int = 1,
-                                  json_path=None, seed: int = 1024, verbose: bool = True,
+def run_icp_proposal_registration(num_samples: int = 10000, model_components: int = 50,
+                                  n_chains: int = 1, json_path=None, seed: int = 1024, verbose: bool = True,
                                   resume_log=None, resume_mode: str = "best",
                                   setup: str | None = None, coarse: str = "exact",
                                   data: FemurData | None = None,
@@ -279,9 +279,10 @@ def run_icp_proposal_registration(num_samples: int = 10000, n_chains: int = 1,
     """End-to-end registration run (reference ``IcpProposalRegistration.main``)
     → (FittingResult, data).
 
-    data: the femur workload; None builds the stand-in
-    (``load_standin_femur_data``) on ``device`` (the card unless
-    ``device="cpu"``), because the real assets are absent.  setup: a
+    data: the femur workload; None builds the stand-in of
+    ``model_components`` components (``load_standin_femur_data``) on
+    ``device`` (the card unless ``device="cpu"``), because the real assets
+    are absent.  setup: a
     ``SETUPS`` key, default ``RECOMMENDED_SETUP``; coarse: the shortlist's
     coarse pass ("exact" K3, "dot" K8).  Segments of
     min(num_samples, accept_info_interval) steps; json_path gets chain 0's
@@ -294,7 +295,7 @@ def run_icp_proposal_registration(num_samples: int = 10000, n_chains: int = 1,
     from icp_proposal_tpu_torch.sampling.state import transformed_mesh
 
     if data is None:
-        data = load_standin_femur_data(device=device)
+        data = load_standin_femur_data(device=device, model_components=model_components)
     _, mixture, evaluator = SETUPS[setup or RECOMMENDED_SETUP](data, coarse=coarse)
     reg = SamplingRegistration(data.model, data.target, mixture, evaluator,
                                accept_info_interval=accept_info_interval, verbose=verbose)

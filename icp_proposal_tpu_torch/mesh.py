@@ -20,6 +20,22 @@ class TriangleMesh(NamedTuple):
     points: np.ndarray
     cells: np.ndarray
 
+    @property
+    def num_points(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def num_cells(self) -> int:
+        return self.cells.shape[0]
+
+    def with_points(self, points) -> "TriangleMesh":
+        return TriangleMesh(points=points, cells=self.cells)
+
+    def triangles(self):
+        """[F, 3, 3] triangle corner positions."""
+        cells = self.cells.long() if isinstance(self.cells, torch.Tensor) else self.cells
+        return self.points[cells]
+
 
 def make_mesh(points, cells) -> TriangleMesh:
     return TriangleMesh(points=np.asarray(points, np.float32),
@@ -72,9 +88,13 @@ def _face_cross(points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
                               tri[..., 2, :] - tri[..., 0, :], dim=-1)
 
 
-def face_normals(points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
-    """points [..., V, 3], cells [F, 3] → [..., F, 3] unit face normals."""
+def face_normals(points: torch.Tensor, cells: torch.Tensor,
+                 normalize: bool = True) -> torch.Tensor:
+    """points [..., V, 3], cells [F, 3] → [..., F, 3] face normals, unit if
+    ``normalize`` (else the edge cross products, twice the areas long)."""
     n = _face_cross(points, cells)
+    if not normalize:
+        return n
     return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True),
                            min=1e-20)
 

@@ -53,6 +53,12 @@ class Gpmm:
     def device(self) -> torch.device:
         return self.ref_points.device
 
+    def reference_mesh(self) -> TriangleMesh:
+        return TriangleMesh(points=self.ref_points, cells=self.cells)
+
+    def mean_mesh(self) -> TriangleMesh:
+        return TriangleMesh(points=self.ref_points + self.mean_disp, cells=self.cells)
+
 
 def make_gpmm(ref_points, cells, mean_disp, basis, variance, noise_variance=0.0,
               device=DEFAULT_DEVICE) -> Gpmm:

@@ -57,10 +57,12 @@ def load_log(path) -> List[dict]:
         return json.load(f)
 
 
-def sample_to_state(record: dict, device=DEFAULT_DEVICE) -> FitState:
+def sample_to_state(record: dict, center_default=None, device=DEFAULT_DEVICE) -> FitState:
     """An accepted record → a one-chain ``FitState`` (B = 1) on ``device``
     (the card unless ``device="cpu"``), scale 1 (reference
-    ``sampleToModelParameters``)."""
+    ``sampleToModelParameters``).  The record carries the rotation center;
+    ``center_default`` is accepted for the reference's signature and, as
+    there, never read."""
     device = resolve_device(device)
     r = np.asarray(record["rigid"], np.float32)
 
@@ -86,12 +88,12 @@ def state_from_log(json_records: List[dict], mode: str = "best",
     MAP-under-product accepted record, "last" the last accepted record,
     which is the chain's state at the end of the log."""
     if mode == "best":
-        return sample_to_state(best_fitting_record(json_records), device)
+        return sample_to_state(best_fitting_record(json_records), device=device)
     if mode == "last":
         accepted = [r for r in json_records if r["status"]]
         if not accepted:
             raise ValueError("no accepted samples in log")
-        return sample_to_state(accepted[-1], device)
+        return sample_to_state(accepted[-1], device=device)
     raise ValueError(f"unknown resume mode {mode!r} (want 'best' or 'last')")
 
 
