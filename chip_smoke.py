@@ -18,6 +18,12 @@ Phases (each prints one line or a short block, and ends in
                  shared memory, CTAs per SM) and of K4 (lanes a query,
                  blocks, registers, CTAs per SM, face table); K8's anchors
                  against K3's under a rounding bound;
+3b. kernels:rank  K6 and K7 past the tiled and row kernels' ranks (the
+                 streamed factor for r > 320, the streamed solve for r >
+                 512) against their twins at r = 321, 401, 600, 1,024, 1,224
+                 and 2,048 on 256 chains, and at 401 and 600 on 2,048 chains
+                 (the two paths below), a non-SPD chain NaN; K6 in turns
+                 with cholesky_ex, K7 beside solve_triangular;
 4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
                  MH step at 2,048 chains through the kernels: warm-up, then
                  timed steps, with each kernel's launch count;
@@ -66,6 +72,13 @@ Phases (each prints one line or a short block, and ends in
                  projection on the direction toward the target), each
                  component's acceptance and the launches a step (asserted);
                  (a) and (c) must keep N(0, I), (b) must leave it;
+11c. main:gpmm400, check:gpmm400  the flagship on the stand-in GPMM-400
+                 (rank 401, the widest round femur model the stand-in mesh
+                 takes) at 2,048 chains: samples/s, ms/step, peak memory,
+                 launches (the streamed K6, K7's row kernel); then as 5;
+11d. main:bfm600, check:bfm600  the BFM partial face on the face stand-in
+                 at rank 600 (host build timed) at 2,048 chains: the same,
+                 with the streamed K6 and K7; then as 5;
 12. main:hybrid, main:mala, main:rw-adapt  the stand-in femur's adaptive
                  setups (ICP + MALA + random walk; MALA alone; the random
                  walk), scale adaptation on, at 2,048 chains: warm-up, timed
@@ -231,12 +244,29 @@ FEMUR_STEP_LAUNCHES = {"chol_solve": 2, "tri_solve_lt": 2, "nearest_vertices[sha
                        "surface_distances[shared]": 0,
                        "surface_distances[per_chain]": 0, "chol_solve_blocked": 0,
                        "tri_solve_lt_blocked": 0, "coarse_nearest_dot": 0,
-                       "shortlist_topk": 0, "point_tri_d2": 0}
+                       "shortlist_topk": 0, "point_tri_d2": 0, "chol_solve_streamed": 0,
+                       "tri_solve_lt_streamed": 0}
 BFM_STEP_LAUNCHES = {"chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 1,
                      "nearest_vertices[per_chain]": 0, "refine_shortlist": 1,
                      "surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
                      "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1,
-                     "coarse_nearest_dot": 0, "shortlist_topk": 0, "point_tri_d2": 0}
+                     "coarse_nearest_dot": 0, "shortlist_topk": 0, "point_tri_d2": 0,
+                     "chol_solve_streamed": 0, "tri_solve_lt_streamed": 0}
+# K6 and K7 past the tiled kernel's r = 320 and the row kernel's 512
+# ([kernels:rank]): 256 chains at each rank, 2,048 more at the ranks of the
+# two paths below; fewer turns where a call takes a second or so
+RANK_RANKS = (321, 401, 600, 1024, 1224, 2048)
+RANK_PATHS = (401, 600)
+RANK_REPS = {1024: 3, 1224: 3, 2048: 2}
+RANK_REPS_2048_CHAINS = 5
+# the flagship on the stand-in GPMM-400 (rank 401: the streamed K6, K7's row
+# kernel) and the BFM partial face at rank 600 (the streamed K6 and K7)
+GPMM400_COMPONENTS, GPMM400_TIMED_STEPS = 400, 10
+GPMM400_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, chol_solve=0, tri_solve_lt=0,
+                             chol_solve_streamed=2, tri_solve_lt_blocked=2)
+BFM600_RANK = 600
+BFM600_STEP_LAUNCHES = dict(BFM_STEP_LAUNCHES, chol_solve_blocked=0, tri_solve_lt_blocked=0,
+                            chol_solve_streamed=1, tri_solve_lt_streamed=1)
 # the adaptive femur setups: MALA's gradient runs the evaluator once more,
 # with its own index pass (K3 shared + K4; the backward pass launches no
 # kernel); hybrid keeps the flagship's fused pass and ICP factors
@@ -435,13 +465,16 @@ SOURCES = {  # record → (source in the port, TPU kernel it replaces)
                                      "icp_proposal_tpu/ops/closest_point_pallas.py:122"),
     "chol_solve_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:145"),
     "tri_solve_lt_blocked": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:293"),
+    "chol_solve_streamed": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:145"),
+    "tri_solve_lt_streamed": ("csrc/chol.cu", "icp_proposal_tpu/ops/chol_pallas.py:293"),
     "coarse_nearest_dot": ("csrc/closest_point.cu",
                            "icp_proposal_tpu/ops/closest_point_pallas.py:465"),
     # host C++ kernels of the JAX package, not Pallas kernels
     "shortlist_topk": ("csrc/point_tri.cu", "icp_proposal_tpu/native/point_tri.cpp:114"),
     "point_tri_d2": ("csrc/point_tri.cu", "icp_proposal_tpu/native/point_tri.cpp:100"),
 }
-VALUE_TOL = {"chol_solve", "tri_solve_lt", "chol_solve_blocked", "tri_solve_lt_blocked"}
+VALUE_TOL = {"chol_solve", "tri_solve_lt", "chol_solve_blocked", "tri_solve_lt_blocked",
+             "chol_solve_streamed", "tri_solve_lt_streamed"}
 
 
 def _sync(torch):
@@ -513,18 +546,34 @@ def _spd(torch, dev, rng, b, r, bad):
     return m, torch.as_tensor(rng.randn(b, r).astype(np.float32), device=dev)
 
 
-def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
-    """A Cholesky kernel and its triangular solve against the plain twins.
+def _spd_card(torch, dev, seed, b, r, bad):
+    """As ``_spd``, drawn on the card from a seeded generator in slices
+    of 64 chains (the host's draws of A take minutes past r = 1,000)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.empty(b, r, r, device=dev)
+    for lo in range(0, b, 64):
+        a = torch.randn(min(64, b - lo), r, 3 * r, generator=gen, device=dev) * 0.1
+        m[lo:lo + 64] = a @ a.transpose(1, 2)
+        del a
+    m += torch.eye(r, device=dev)
+    m[bad, r // 2, r // 2] = -1.0
+    return m, torch.randn(b, r, generator=gen, device=dev)
+
+
+def _chol_records(torch, dev, rng, b, r, factor, solve, prefix="", system=None,
+                  reps=KERNEL_REPS):
+    """A Cholesky kernel and its triangular solve against the plain twins,
+    on ``system`` (M, rhs) with chain b // 2 not SPD, else on ``_spd``'s.
     No single PyTorch call computes the factor, the solve and log det, so
     the factor's library column is None; ``torch.linalg.cholesky_ex`` (the
     factor only) is timed in turns with the kernel (cholesky_ex, kernel,
     kernel, cholesky_ex) as ``factor_only_ms`` beside the kernel's
-    ``ms_vs_factor_only``."""
+    ``ms_vs_factor_only``; ``reps`` calls a turn."""
     import numpy as np
 
     from icp_proposal_tpu_torch.ops import chol_cuda as cc
 
-    m, rhs = _spd(torch, dev, rng, b, r, bad=b // 2)
+    m, rhs = _spd(torch, dev, rng, b, r, bad=b // 2) if system is None else system
     l, x, ld = factor(m, rhs)
     l_p, x_p, ld_p = cc.chol_solve_plain(m, rhs)
     _sync(torch)
@@ -539,9 +588,9 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
     chol_bytes = b * r * (r + 1) // 2 * m.element_size() + _nbytes(rhs, l, x, ld)
     chol_flops = b * (r ** 3 / 3 + 2 * r * r)  # factor + two substitutions
     rec_f = _record(torch, err, 0, lambda: factor(m, rhs),
-                    lambda: cc.chol_solve_plain(m, rhs), chol_bytes, chol_flops)
+                    lambda: cc.chol_solve_plain(m, rhs), chol_bytes, chol_flops, reps=reps)
     rec_f["ms_vs_factor_only"], rec_f["factor_only_ms"] = _paired_times(
-        torch, lambda: factor(m, rhs), lambda: torch.linalg.cholesky_ex(m))
+        torch, lambda: factor(m, rhs), lambda: torch.linalg.cholesky_ex(m), reps)
 
     lg = l[good].contiguous()
     z = torch.as_tensor(rng.randn(b - 1, r).astype(np.float32), device=dev)
@@ -553,7 +602,7 @@ def _chol_records(torch, dev, rng, b, r, factor, solve, prefix=""):
     rec_s = _record(torch, float((xt - xt_p).abs().max()), 0, lambda: solve(lg, z),
                     lambda: cc.tri_solve_lt_plain(lg, z), tri_bytes, (b - 1) * r * r,
                     library=lambda: torch.linalg.solve_triangular(
-                        lg.transpose(-1, -2), z[..., None], upper=True))
+                        lg.transpose(-1, -2), z[..., None], upper=True), reps=reps)
     return rec_f, rec_s, (m, rhs)
 
 
@@ -782,6 +831,54 @@ def _k5_records(torch, dev, rng, b, model, evaluator):
     return records
 
 
+def phase_kernels_rank(torch, dev):
+    """K6 and K7 past the tiled kernel's r = 320 and the row kernel's 512
+    against the plain twins at ``RANK_RANKS`` on ``CMP_CHAINS`` chains, and
+    at ``RANK_PATHS`` on ``N_CHAINS`` (``at_2048_chains``): ``chol_solve``
+    routes r > 320 to the streamed factor, ``tri_solve_lt`` r ≤ 512 to the
+    row kernel and r > 512 to the streamed solve; the launch counts of each
+    call are asserted.  → {kernel: {"at_rank": {"r=…": record}}}, each
+    streamed kernel's own record beside it: the one at the first rank of
+    ``RANK_PATHS`` it serves (the row kernel's own is ``[kernels]``')."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    rng = np.random.RandomState(3)
+    streamed = ("chol_solve_streamed", "tri_solve_lt_streamed")
+    at = {name: {} for name in (*streamed, "tri_solve_lt_blocked")}
+    for r in RANK_RANKS:
+        tri = "tri_solve_lt_streamed" if r > cc.ROWS_MAX_RANK else "tri_solve_lt_blocked"
+        for b in (CMP_CHAINS, N_CHAINS) if r in RANK_PATHS else (CMP_CHAINS,):
+            reps = RANK_REPS_2048_CHAINS if b == N_CHAINS else RANK_REPS.get(r, KERNEL_REPS)
+            system = _spd_card(torch, dev, r + b, b, r, bad=b // 2)
+            _reset_counts()
+            cc.chol_solve(*system)
+            cc.tri_solve_lt(torch.linalg.cholesky(system[0][:1]).contiguous(), system[1][:1])
+            _sync(torch)
+            _check_counts(f"[kernels:rank] r={r}", _read_counts(),
+                          {"chol_solve_streamed": 1, tri: 1})
+            rec_f, rec_s, _ = _chol_records(torch, dev, rng, b, r, cc.chol_solve,
+                                            cc.tri_solve_lt, f"K6 r={r}", system=system,
+                                            reps=reps)
+            del system
+            for name, rec in (("chol_solve_streamed", rec_f), (tri, rec_s)):
+                _print_record("kernels:rank", f"{name}[r={r}]", rec, b)
+                if b == CMP_CHAINS:
+                    at[name][f"r={r}"] = dict(rec, rank=r)
+                else:
+                    at[name][f"r={r}"]["at_2048_chains"] = rec
+            torch.cuda.empty_cache()
+    out = {name: {"at_rank": by_rank} for name, by_rank in at.items()}
+    for name in streamed:
+        out[name].update(at[name].pop(next(f"r={r}" for r in RANK_PATHS
+                                           if f"r={r}" in at[name])))
+    print(f"[kernels:rank] K6 (streamed past r = {cc.MAX_RANK}) and K7 (streamed past r = "
+          f"{cc.ROWS_MAX_RANK}) agree with their twins at r = "
+          f"{', '.join(map(str, RANK_RANKS))}; the non-SPD chain is NaN")
+    return out
+
+
 def phase_kernels_bfm(torch, dev, data, evaluator):
     """K5 (both modes), K6 and K7 against the plain twins at the BFM path's
     shapes on ``CMP_CHAINS`` and on ``N_CHAINS`` chains (the larger as
@@ -970,7 +1067,7 @@ def _print_records(tag, records, chains=CMP_CHAINS):
 
 
 def _print_record(tag, name, rec, chains):
-    tol = TOL if name in VALUE_TOL else 0
+    tol = TOL if name.split("[r=")[0] in VALUE_TOL else 0  # "name[r=…]": at a rank
     held = f"rtol {TOL:g} + atol {TOL:g}" if tol else "exact"
     lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
     print(f"[{tag}] {name}: max_abs_err {rec['max_abs_err']:.3g} (held {held}), "
@@ -999,7 +1096,8 @@ def _wrappers():
     from icp_proposal_tpu_torch.ops import chol_cuda, closest_point_cuda
 
     return (chol_cuda.chol_solve, chol_cuda.tri_solve_lt, chol_cuda.chol_solve_blocked,
-            chol_cuda.tri_solve_lt_blocked, closest_point_cuda.nearest_vertices,
+            chol_cuda.tri_solve_lt_blocked, chol_cuda.chol_solve_streamed,
+            chol_cuda.tri_solve_lt_streamed, closest_point_cuda.nearest_vertices,
             closest_point_cuda.refine_shortlist, closest_point_cuda.surface_distances,
             closest_point_cuda.coarse_nearest_dot, native.shortlist_topk,
             native.point_tri_d2)
@@ -1024,14 +1122,18 @@ def _read_counts():
     return counts
 
 
-def phase_main(torch, dev, tag, model, mixture, evaluator, warmup, timed, per_step):
+def phase_main(torch, dev, tag, model, mixture, evaluator, warmup, timed, per_step,
+               memory=False):
     """``timed`` steps of ``N_CHAINS`` chains after ``warmup``; launch
-    counts asserted against ``per_step`` → counts."""
+    counts asserted against ``per_step``; with ``memory`` the peak device
+    memory of the steps → counts."""
     from icp_proposal_tpu_torch.sampling import mh
     from icp_proposal_tpu_torch.sampling.state import init_state
 
     step = mh.make_mh_step(model, mixture, evaluator)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if memory:
+        torch.cuda.reset_peak_memory_stats(dev)
     carry = mh.init_carry(model, evaluator, init_state(model, N_CHAINS), mixture)
     carry, _ = mh.run_chains(step, carry, warmup, gen)
     _sync(torch)
@@ -1049,6 +1151,10 @@ def phase_main(torch, dev, tag, model, mixture, evaluator, warmup, timed, per_st
     if not torch.isfinite(carry.log_post).all():
         raise AssertionError(f"{tag}: non-finite log_post after the main path")
     print(f"[{tag}] log_post finite; mean {float(carry.log_post.mean()):.3f}")
+    if memory:
+        print(f"[{tag}] peak device memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB (the setup's tensors "
+              f"included) of {torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.1f}")
     if mixture.adapt is not None:
         scales = torch.exp(carry.adapt_log_scales)
         print(f"[{tag}] adaptive scale factors after {warmup + timed} steps, by "
@@ -1393,6 +1499,29 @@ def phase_stationary(torch, dev, data, setup, face, bfm_setup):
                              "fails, as it must: " + "; ".join(
                                  f"step {i}: {', '.join(b)}" for i, b in broken.items())))
         _sync(torch)
+
+
+def phase_rank_path(torch, dev, smi, tag, label, build, make_setup, warmup, timed, per_step):
+    """The setup ``make_setup(data)`` on ``build()``'s data, whose model's
+    rank takes K6 or K7 past the tiled or row kernel (host build timed), at
+    ``N_CHAINS`` chains: peak memory printed, launches asserted against
+    ``per_step``; then its step against the plain twins on the CPU →
+    counts."""
+    t = time.perf_counter()
+    data = build()
+    t_build = time.perf_counter() - t
+    setup = make_setup(data)
+    _sync(torch)
+    print(f"[setup:{tag}] {label}: rank {data.model.rank}, {data.model.num_points} vertices; "
+          f"host model build {t_build:.1f} s, setup {time.perf_counter() - t - t_build:.1f} s")
+    launches = phase_main(torch, dev, f"main:{tag}", data.model, *setup[1:], warmup, timed,
+                          per_step, memory=True)
+    phase_check(torch, dev, f"check:{tag}", data.model, setup,
+                lambda m: make_setup(dataclasses.replace(data, model=m)))
+    _sync(torch)
+    print(f"[main:{tag}] the phase and its check took {time.perf_counter() - t:.3f} s; "
+          f"nvidia-smi: {smi}")
+    return launches
 
 
 def phase_bfm_fitting(torch, dev, face):
@@ -2828,6 +2957,12 @@ def main() -> int:
     _print_records("kernels", records)
     _sync(torch)
 
+    # 3b. K6 and K7 past the tiled and row kernels' ranks against their twins
+    t = time.perf_counter()
+    rank_records = phase_kernels_rank(torch, dev)
+    _sync(torch)
+    print(f"[kernels:rank] the phase took {time.perf_counter() - t:.3f} s; nvidia-smi: {smi}")
+
     # 4. main path: femur
     launches = {"femur": phase_main(torch, dev, "main", data.model, mixture, evaluator,
                                     WARMUP_STEPS, TIMED_STEPS, FEMUR_STEP_LAUNCHES)}
@@ -2889,6 +3024,19 @@ def main() -> int:
     phase_stationary(torch, dev, data, setup, face, bfm_setup)
     print(f"[check:stationary] the phase took {time.perf_counter() - t:.3f} s; "
           f"nvidia-smi: {smi}")
+
+    # 11c, 11d. main paths past the tiled and row kernels' ranks: the flagship
+    # on the stand-in GPMM-400 and the BFM partial face at rank 600, each
+    # against the plain twins on the CPU
+    launches["gpmm400"] = phase_rank_path(
+        torch, dev, smi, "gpmm400", f"stand-in femur GPMM-{GPMM400_COMPONENTS}",
+        lambda: load_standin_femur_data(device=dev, model_components=GPMM400_COMPONENTS),
+        make_icp_proposal_setup, WARMUP_STEPS, GPMM400_TIMED_STEPS, GPMM400_STEP_LAUNCHES)
+    launches["bfm600"] = phase_rank_path(
+        torch, dev, smi, "bfm600", "face stand-in",
+        lambda: load_synthetic_face_data(rank=BFM600_RANK, subdiv=BFM_SUBDIV, device=dev),
+        lambda face: make_bfm_fitting_setup(face, partial=True), BFM_WARMUP_STEPS,
+        BFM_TIMED_STEPS, BFM600_STEP_LAUNCHES)
 
     # 12. main paths: the adaptive femur setups
     adaptive = {"hybrid": (make_hybrid_setup, HYBRID_STEP_LAUNCHES),
@@ -3037,6 +3185,8 @@ def main() -> int:
         torch, dev, ev_indices, ev_queries)
     _sync(torch)
 
+    for name, rec in rank_records.items():  # K6 and K7 past the tiled and row kernels
+        records.setdefault(name, {}).update(rec)
     kernels = []
     for name, rec in records.items():
         by_path = {path: counts[name] for path, counts in launches.items()}

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "icp_surface_distances": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "icp_chol_solve_streamed": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "icp_tri_solve_lt_streamed": [_P, _P, _P, _I, _I, _P],
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],
     "icp_shortlist_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
     "icp_point_tri_d2": [_P, _P, _P, _I, _I, _P],

@@ -78,6 +78,47 @@
 //   the step is a compile-time index too.  The sums run in another order
 //   than the twin's: values agree to the tolerance, not bitwise.
 //
+// K6 and K7 past the tiled and row kernels' ranks (r > 320 and r > 512;
+// the reference serves every rank, its blocked kernels to 1,224 and XLA's
+// cholesky and solve_triangular above).  Same contracts as above.
+//   What bounds them: M and L no longer fit a block, so they stay in device
+//   memory.  The streamed factor is left-looking and reads the finished
+//   columns L[i, :j0] again for every panel; each float it stages feeds the
+//   panel's 32 columns, so that is r³/192 floats a chain (1.3 MB at r = 401,
+//   twice M's 0.64 MB).  Neither those bytes nor the r³/3 flops bound it at
+//   the main paths' ranks (7 % of the FP32 bound at r = 401 on 2,048
+//   chains); most likely the panels' order does (not measured): each waits
+//   on its 32×32 diagonal block, which one warp factors.  The solve reads
+//   L's lower triangle once: the bytes bound it.
+//   Design of K6 streamed, chol_solve_streamed_kernel: one block of 8 warps
+//   per chain, left-looking by column panels of kPanel = 32 columns, as the
+//   reference's blocked kernel streams [rp, NB, BL] panels through VMEM.
+//   The right-hand side is the matrix's row r, so the panels' own update
+//   and solve compute y = L⁻¹·rhs (kept in x until the back substitution).
+//   A panel's rows i = j0…r go through in chunks of 256, a thread a row:
+//     (1) the row's M[i, j0:j0+32] (lower triangle only) is staged through
+//         shared memory, coalesced, into the thread's 32 registers;
+//     (2) the update −L[i, :j0]·L[j0:j0+32, :j0]ᵀ, 32 columns k at a time:
+//         the chunk's L[i, k0:k0+32] and the panel's L[j0:j0+32, k0:k0+32]ᵀ
+//         are staged in shared memory (rows of 36 floats: 16-byte reads
+//         without bank conflicts), each thread reads its row as float4 and
+//         the panel's entries as broadcasts, 32 fmaf per k;
+//     (3) chunk 0: warp 0 factors the 32×32 diagonal block in shared
+//         memory (identity past the matrix, log dⱼ summed in pivot order);
+//     (4) the rows below solve X·L_ddᵀ = A in registers, 1/√dⱼ from (3);
+//     (5) the rows go out through the staging tile, coalesced, with zeros
+//         above the diagonal in the panel's columns.
+//   Then Lᵀx = y from device memory in the blocked dot form (below).
+//   Design of K7 streamed, tri_solve_lt_streamed_kernel: one block of 4
+//   warps per chain, the vector of r floats in shared memory (64 KB at the
+//   limit kStreamMaxRank) and the blocked dot form, which K6 streamed ends
+//   with: for the 32 columns c0…c0+31 from the last block up, each lane sums
+//   L[j, c0 + lane]·xⱼ over its warp's share of the rows j below the block
+//   (a row's 32 entries are one coalesced load; no step waits on another),
+//   warp 0 adds the warps' sums in order and solves the block's triangle by
+//   shuffles, its 32 rows loaded before the first step.  So only the r
+//   triangle steps are serial, and none of them waits on device memory.
+//
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
 
@@ -96,6 +137,13 @@ constexpr int kK1Warps = 4;                // K1: warps per chain (more chains p
 constexpr int kK6Warps = 8;                // K6: warps per chain
 constexpr int kTriRowWarps = 2;  // K2/K7: chains (warps) per block
 constexpr int kRowsAhead = 4;    // K2/K7: rows of L loaded ahead of their step; divides 32
+constexpr int kRowsMaxRank = 512;  // K2/K7 row kernel: 16 residual entries a lane
+constexpr int kPanel = 32;         // K6 streamed: columns a panel, a lane each
+constexpr int kStreamWarps = 8;    // K6 streamed: warps per chain
+constexpr int kChunkRows = kStreamWarps * 32;  // K6 streamed: rows a chunk, a thread each
+constexpr int kPanelLd = 36;       // K6 streamed: floats a staged row (16-byte aligned)
+constexpr int kTriStreamWarps = 4;   // K7 streamed: warps per chain
+constexpr int kStreamMaxRank = 16384;  // K6/K7 streamed: r floats of vector in shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan32() { return __int_as_float(0x7fc00000); }
@@ -495,6 +543,248 @@ __global__ void __launch_bounds__(kTriRowWarps * 32)
   }
 }
 
+// K6/K7 streamed: Lᵀv = (v on entry) in place for v [r] in shared memory,
+// L [r, r] lower in device memory, all kWarps warps of the block taking
+// part.  kGuard divides by max(Lⱼⱼ, 1e-30) with NaN kept (K7's contract);
+// K6 divides by Lⱼⱼ.  part: kWarps·32 floats of scratch.
+template <int kWarps, bool kGuard>
+__device__ __forceinline__ void solve_lt_streamed(const float* lb, float* vec, float* part,
+                                                  int r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 32 * ((r - 1) / 32); c0 >= 0; c0 -= 32) {
+    const int ws = min(32, r - c0);  // columns in this block
+    const int col = c0 + lane;
+    // Σ_{j ≥ c0+32} L[j][col]·xⱼ over this warp's rows j
+    float acc = 0.0f;
+    if (lane < ws) {
+#pragma unroll 4
+      for (int j = c0 + 32 + warp; j < r; j += kWarps)
+        acc = fmaf(__ldcg(lb + (size_t)j * r + col), vec[j], acc);
+    }
+    if (kWarps > 1) {
+      part[warp * 32 + lane] = acc;
+      __syncthreads();
+    }
+    if (warp == 0) {
+      for (int w = 1; w < kWarps; ++w) acc += part[w * 32 + lane];
+      float res = lane < ws ? vec[col] - acc : 0.0f;
+      float lrow[32];  // lrow[jj] = L[c0 + jj][col], on and below the diagonal
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj)
+        lrow[jj] = jj < ws && lane <= jj ? __ldcg(lb + (size_t)(c0 + jj) * r + col) : 0.0f;
+#pragma unroll
+      for (int jj = 31; jj >= 0; --jj) {
+        if (jj >= ws) continue;  // (uniform) past the matrix
+        float d = lrow[jj];      // Lⱼⱼ on the owner lane jj
+        if (kGuard) d = isnan(d) ? d : fmaxf(d, 1e-30f);
+        const float xj = __shfl_sync(kFull, res / d, jj);
+        res = lane < jj ? fmaf(-lrow[jj], xj, res) : (lane == jj ? xj : res);
+      }
+      if (lane < ws) vec[col] = res;
+    }
+    __syncthreads();
+  }
+}
+
+// K6 streamed (1), (2): rows t = warp, warp + kStreamWarps, … of a staging
+// tile [kChunkRows][kPanelLd] from val(t, lane), eight loads in flight
+template <typename F>
+__device__ __forceinline__ void stage_rows(float* tile, int warp, int lane, F val) {
+#pragma unroll
+  for (int t0 = 0; t0 < kChunkRows; t0 += 8 * kStreamWarps) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = val(t0 + u * kStreamWarps + warp, lane);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) tile[(t0 + u * kStreamWarps + warp) * kPanelLd + lane] = v[u];
+  }
+}
+
+// K6 streamed (3): factor the diagonal block ldd [32][33] in place in one
+// warp, lane = row: L on and below the diagonal, 1/√dⱼ into ild; lane 0
+// adds log dⱼ for the block's w real pivots to logsum in pivot order
+__device__ __forceinline__ void factor_block32(float* ldd, float* ild, int lane, int w,
+                                               float& logsum) {
+  constexpr int ld = kPanel + 1;
+  for (int j = 0; j < kPanel; ++j) {
+    float d = ldd[j * ld + j];
+    if (!(d > 0.0f)) d = nan32();  // non-SPD pivot → NaN
+    const float s = sqrtf(d);
+    const float inv = 1.0f / s;
+    if (lane == 0 && j < w) logsum += logf(d);
+    const float lij = ldd[lane * ld + j] * inv;  // L[lane][j] for lane > j
+    __syncwarp();
+    if (lane > j) ldd[lane * ld + j] = lij;
+    if (lane == j) {
+      ldd[j * ld + j] = s;
+      ild[j] = inv;
+    }
+    __syncwarp();
+    if (lane > j)
+      for (int k = j + 1; k <= lane; ++k)
+        ldd[lane * ld + k] = fmaf(-lij, ldd[k * ld + j], ldd[lane * ld + k]);
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kChunkRows, 2)
+    chol_solve_streamed_kernel(const float* __restrict__ m, const float* __restrict__ rhs,
+                               float* l, float* x, float* __restrict__ logdet, int r) {
+  extern __shared__ float4 smem4[];
+  constexpr int ld = kPanel + 1;
+  float* tile = reinterpret_cast<float*>(smem4);  // [kChunkRows][kPanelLd] staging
+  float* bt = tile + kChunkRows * kPanelLd;       // [kPanel][kPanelLd]: L[j0 + c][k0 + k] at k, c
+  float* ldd = bt + kPanel * kPanelLd;            // [kPanel][ld] the diagonal block
+  float* ild = ldd + kPanel * ld;                 // [kPanel] 1/√dⱼ
+  float* part = ild + kPanel;                     // [kStreamWarps][32]
+  float* vec = part + kStreamWarps * 32;          // [r] y, then x
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* mb = m + (size_t)blockIdx.x * r * r;
+  const float* rb = rhs + (size_t)blockIdx.x * r;
+  float* lb = l + (size_t)blockIdx.x * r * r;
+  float* xb = x + (size_t)blockIdx.x * r;  // y = L⁻¹·rhs, the matrix's row r
+  float logsum = 0.0f;                     // thread 0: Σ log dⱼ in pivot order
+
+  for (int j0 = 0; j0 < r; j0 += kPanel) {
+    const int w = min(kPanel, r - j0);  // columns in this panel
+    const int n_rows = r - j0 + 1;      // rows j0…r−1 and the right-hand side's
+    for (int c0 = 0; c0 < n_rows; c0 += kChunkRows) {
+      const int i0 = j0 + c0;  // the chunk's first row; thread tid has row i0 + tid
+      // (1) M[i, j0:j0+w], lower triangle only
+      stage_rows(tile, warp, lane, [&](int t, int c) {
+        const int i = i0 + t;
+        if (c >= w) return 0.0f;
+        if (i < r) return j0 + c <= i ? mb[(size_t)i * r + j0 + c] : 0.0f;
+        return i == r ? rb[j0 + c] : 0.0f;
+      });
+      __syncthreads();
+      float acc[kPanel];
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(tile + tid * kPanelLd)[q];
+        acc[4 * q] = v.x, acc[4 * q + 1] = v.y, acc[4 * q + 2] = v.z, acc[4 * q + 3] = v.w;
+      }
+      __syncthreads();
+      // (2) acc −= L[i, k0:k0+32]·L[j0:j0+32, k0:k0+32]ᵀ over the finished columns
+      for (int k0 = 0; k0 < j0; k0 += kPanel) {
+        stage_rows(tile, warp, lane, [&](int t, int k) {
+          const int i = i0 + t;
+          if (i < r) return __ldcg(lb + (size_t)i * r + k0 + k);
+          return i == r ? __ldcg(xb + k0 + k) : 0.0f;
+        });
+        for (int c = warp; c < kPanel; c += kStreamWarps)
+          bt[lane * kPanelLd + c] = c < w ? __ldcg(lb + (size_t)(j0 + c) * r + k0 + lane) : 0.0f;
+        __syncthreads();
+#pragma unroll
+        for (int kq = 0; kq < kPanel / 4; ++kq) {
+          const float4 a4 = reinterpret_cast<const float4*>(tile + tid * kPanelLd)[kq];
+          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4* bk = reinterpret_cast<const float4*>(bt + (4 * kq + kk) * kPanelLd);
+#pragma unroll
+            for (int q = 0; q < kPanel / 4; ++q) {
+              const float4 b4 = bk[q];
+              acc[4 * q] = fmaf(-a[kk], b4.x, acc[4 * q]);
+              acc[4 * q + 1] = fmaf(-a[kk], b4.y, acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(-a[kk], b4.z, acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(-a[kk], b4.w, acc[4 * q + 3]);
+            }
+          }
+        }
+        __syncthreads();
+      }
+      const int t_me = c0 + tid;  // this thread's row in the panel, i = j0 + t_me
+      if (c0 == 0) {
+        // (3) the diagonal block, rows t < w; identity past the matrix
+        if (tid < kPanel) {
+#pragma unroll
+          for (int c = 0; c < kPanel; ++c)
+            ldd[tid * ld + c] = tid < w ? (c <= tid ? acc[c] : 0.0f) : (c == tid ? 1.0f : 0.0f);
+        }
+        __syncthreads();
+        if (warp == 0) factor_block32(ldd, ild, lane, w, logsum);
+        __syncthreads();
+      }
+      if (t_me < w) {
+        // a row of the diagonal block: its factored row, zeros above
+#pragma unroll
+        for (int c = 0; c < kPanel; ++c) acc[c] = c <= t_me ? ldd[t_me * ld + c] : 0.0f;
+      } else {
+        // (4) a row below: X·L_ddᵀ = A
+#pragma unroll
+        for (int c = 0; c < kPanel; ++c) {
+          acc[c] *= ild[c];
+#pragma unroll
+          for (int c2 = c + 1; c2 < kPanel; ++c2) acc[c2] = fmaf(-acc[c], ldd[c2 * ld + c], acc[c2]);
+        }
+      }
+      // (5) out through the staging tile, a row per warp at a time
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q)
+        reinterpret_cast<float4*>(tile + tid * kPanelLd)[q] =
+            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      __syncthreads();
+      if (lane < w) {
+        for (int t = warp; t < kChunkRows; t += kStreamWarps) {
+          const int i = i0 + t;
+          if (i < r) {
+            lb[(size_t)i * r + j0 + lane] = tile[t * kPanelLd + lane];
+          } else if (i == r) {
+            xb[j0 + lane] = tile[t * kPanelLd + lane];
+          }
+        }
+        if (c0 == 0)  // zeros above the diagonal: rows above the panel
+          for (int i = warp; i < j0; i += kStreamWarps) lb[(size_t)i * r + j0 + lane] = 0.0f;
+      }
+      __syncthreads();
+    }
+  }
+  // Lᵀx = y
+  for (int i = tid; i < r; i += kChunkRows) vec[i] = __ldcg(xb + i);
+  __syncthreads();
+  solve_lt_streamed<kStreamWarps, false>(lb, vec, part, r);
+  for (int i = tid; i < r; i += kChunkRows) xb[i] = vec[i];
+  if (tid == 0) logdet[blockIdx.x] = logsum;
+}
+
+// K7 streamed: a block per chain, r > kRowsMaxRank
+__global__ void __launch_bounds__(kTriStreamWarps * 32)
+    tri_solve_lt_streamed_kernel(const float* __restrict__ l, const float* __restrict__ z,
+                                 float* __restrict__ x, int r) {
+  extern __shared__ float4 smem4[];
+  float* part = reinterpret_cast<float*>(smem4);  // [kTriStreamWarps][32]
+  float* vec = part + kTriStreamWarps * 32;       // [r] z, then x
+  const size_t row = (size_t)blockIdx.x * r;
+  for (int i = threadIdx.x; i < r; i += kTriStreamWarps * 32) vec[i] = z[row + i];
+  __syncthreads();
+  solve_lt_streamed<kTriStreamWarps, true>(l + row * r, vec, part, r);
+  for (int i = threadIdx.x; i < r; i += kTriStreamWarps * 32) x[row + i] = vec[i];
+}
+
+// K6/K7 streamed: dynamic shared memory a block takes at rank r
+int chol_streamed_smem_bytes(int r) {
+  return (int)(((size_t)kChunkRows * kPanelLd + kPanel * kPanelLd + kPanel * (kPanel + 1) +
+                kPanel + kStreamWarps * 32 + (size_t)r) *
+               sizeof(float));
+}
+int tri_streamed_smem_bytes(int r) {
+  return (int)((kTriStreamWarps * 32 + (size_t)r) * sizeof(float));
+}
+
+// raise `kernel`'s dynamic shared-memory ceiling to `bytes`, once per device
+// (bit d of `done`), not on every launch
+cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
 // K1/K6: the packed lower tiles, one scratch tile a warp, 1/√dⱼ and log dⱼ
 int tiled_smem_bytes(int r, int warps) {
   const int nt = (r + kTile - 1) / kTile;
@@ -502,21 +792,12 @@ int tiled_smem_bytes(int r, int warps) {
                sizeof(float));
 }
 
-// K1/K6: raise the kernel's dynamic shared-memory ceiling to what
-// r = kMaxRank needs, once per device (bit d of `done`), not on every launch
+// K1/K6: the kernel's dynamic shared-memory ceiling, what r = kMaxRank needs
 template <int kWarps>
 cudaError_t allow_tiled_smem() {
   static std::atomic<unsigned> done{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute((const void*)chol_solve_tiled_kernel<kWarps>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           tiled_smem_bytes(kMaxRank, kWarps));
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return e;
+  return allow_smem((const void*)chol_solve_tiled_kernel<kWarps>,
+                    tiled_smem_bytes(kMaxRank, kWarps), done);
 }
 
 template <int kWarps>
@@ -567,6 +848,34 @@ int icp_chol_tiled_ctas_per_sm(int r, int warps) {
   return n;
 }
 
+// K6 streamed: any 1 ≤ r ≤ kStreamMaxRank (the wrapper takes it for r > kMaxRank)
+int icp_chol_solve_streamed(const float* m, const float* rhs, float* l, float* x,
+                            float* logdet, int batch, int r, void* stream) {
+  if (batch == 0) return cudaSuccess;
+  if (r > kStreamMaxRank) return cudaErrorInvalidValue;  // the wrapper refuses it first
+  static std::atomic<unsigned> done{0};
+  cudaError_t e = allow_smem((const void*)chol_solve_streamed_kernel,
+                             chol_streamed_smem_bytes(kStreamMaxRank), done);
+  if (e != cudaSuccess) return e;
+  chol_solve_streamed_kernel<<<batch, kChunkRows, chol_streamed_smem_bytes(r),
+                               (cudaStream_t)stream>>>(m, rhs, l, x, logdet, r);
+  return cudaGetLastError();
+}
+
+// K7 streamed: any 1 ≤ r ≤ kStreamMaxRank (the wrapper takes it for r > kRowsMaxRank)
+int icp_tri_solve_lt_streamed(const float* l, const float* z, float* x, int batch, int r,
+                              void* stream) {
+  if (batch == 0) return cudaSuccess;
+  if (r > kStreamMaxRank) return cudaErrorInvalidValue;  // the wrapper refuses it first
+  static std::atomic<unsigned> done{0};
+  cudaError_t e = allow_smem((const void*)tri_solve_lt_streamed_kernel,
+                             tri_streamed_smem_bytes(kStreamMaxRank), done);
+  if (e != cudaSuccess) return e;
+  tri_solve_lt_streamed_kernel<<<batch, kTriStreamWarps * 32, tri_streamed_smem_bytes(r),
+                                 (cudaStream_t)stream>>>(l, z, x, r);
+  return cudaGetLastError();
+}
+
 // K2/K7: the row-streaming solve with the fewest residual entries a lane
 // that r needs (KMAX = 4 covers the monolithic ranks r ≤ 104)
 int icp_tri_solve_lt_rows(const float* l, const float* z, float* x, int batch, int r,
@@ -578,10 +887,10 @@ int icp_tri_solve_lt_rows(const float* l, const float* z, float* x, int batch, i
     tri_solve_lt_rows_kernel<4><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
   } else if (r <= 256) {
     tri_solve_lt_rows_kernel<8><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
-  } else if (r <= 512) {
+  } else if (r <= kRowsMaxRank) {
     tri_solve_lt_rows_kernel<16><<<blocks, kTriRowWarps * 32, 0, st>>>(l, z, x, batch, r);
   } else {
-    return cudaErrorInvalidValue;  // the wrappers refuse r > 512 first
+    return cudaErrorInvalidValue;  // the wrappers take K7 streamed for r > 512
   }
   return cudaGetLastError();
 }

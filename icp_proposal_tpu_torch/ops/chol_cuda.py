@@ -11,7 +11,11 @@ CUDA device launches a kernel or raises.  On the card ``chol_solve`` and
 ``tri_solve_lt`` route by the reference's own rule (``uses_blocked``): the
 monolithic K1/K2 up to rank 104, the blocked K6/K7 from rank 105 on.  K1
 and K6 launch one tiled kernel, K2 and K7 one row-streaming kernel; the
-routing keeps each entry point's launch count.
+routing keeps each entry point's launch count.  Past what those hold, K6
+goes to the streamed factor (``chol_solve_streamed``, r > 320) and K7 to
+the streamed solve (``tri_solve_lt_streamed``, r > 512), each with its own
+launch count, up to ``STREAM_MAX_RANK``; the reference serves those ranks
+with its blocked kernels up to 1,224 and with XLA above.
 ``<wrapper>.launches`` counts that wrapper's kernel launches (the plain
 twin does not count).
 """
@@ -25,6 +29,10 @@ MAX_SMEM_BYTES = 227 * 1024  # a block's shared-memory ceiling on sm_90
 TILE = 16  # K1/K6 tile edge (kTile in csrc/chol.cu)
 MAX_RANK = 320  # K1/K6: the largest r whose packed lower tiles fit a block (kMaxRank)
 K1_WARPS, K6_WARPS = 4, 8  # warps per chain of K1 and K6 (kK1Warps, kK6Warps)
+ROWS_MAX_RANK = 512  # K2/K7 row kernel: 16 residual entries a lane (kRowsMaxRank)
+# K6/K7 streamed: the vector of r floats they keep in shared memory (kStreamMaxRank)
+STREAM_MAX_RANK = 16384
+PANEL = 32  # K6 streamed: columns a panel (kPanel)
 
 
 def _pick_bl(r: int) -> int | None:
@@ -80,17 +88,21 @@ def tiled_ctas_per_sm(r: int, warps: int) -> int:
     return n
 
 
-def _launch_tiled(name: str, m: torch.Tensor, rhs: torch.Tensor, bsz: int, r: int, dev):
-    if r > MAX_RANK:
-        raise ValueError(
-            f"{name} takes r ≤ {MAX_RANK} (the packed lower tiles of a larger M "
-            f"overflow the {MAX_SMEM_BYTES} B of shared memory a block holds), got r={r}")
+def _check_rank(name: str, r: int, limit: int, why: str) -> None:
+    if r > limit:
+        raise ValueError(f"{name} takes r ≤ {limit} ({why}), got r={r}")
+
+
+def _launch_factor(name: str, m: torch.Tensor, rhs: torch.Tensor, bsz: int, r: int, dev):
     l = torch.empty_like(m)
     x = torch.empty_like(rhs)
     logdet = torch.empty(bsz, dtype=torch.float32, device=dev)
     launch(f"icp_{name}", dev, m.data_ptr(), rhs.data_ptr(), l.data_ptr(), x.data_ptr(),
            logdet.data_ptr(), bsz, r)
     return l, x, logdet
+
+
+_STREAM_LIMIT = "the vector of r floats the kernel keeps in shared memory"
 
 
 def chol_solve_plain(m: torch.Tensor, rhs: torch.Tensor):
@@ -112,7 +124,8 @@ def chol_solve(m: torch.Tensor, rhs: torch.Tensor, blocked: bool | None = None):
     log det M [B]).  Only M's lower triangle is read.  On CUDA a pivot ≤ 0
     makes that chain's factor NaN from the pivot's column on (and x, log det
     NaN).  ``blocked`` None routes by ``uses_blocked(r)``; True or False
-    forces K6 or K1.  On CUDA r ≤ ``MAX_RANK``.
+    forces K6 or K1.  On CUDA K1 takes r ≤ ``MAX_RANK``, K6
+    r ≤ ``STREAM_MAX_RANK``.
 
     Kernel K1 (``csrc/chol.cu``) replaces ``_chol_kernel`` in
     ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by latency (r dependent
@@ -125,7 +138,9 @@ def chol_solve(m: torch.Tensor, rhs: torch.Tensor, blocked: bool | None = None):
         return chol_solve_plain(m, rhs)
     if uses_blocked(r) if blocked is None else blocked:
         return chol_solve_blocked(m, rhs)
-    out = _launch_tiled("chol_solve", m, rhs, bsz, r, dev)
+    _check_rank("chol_solve", r, MAX_RANK, f"the packed lower tiles of a larger M overflow "
+                f"the {MAX_SMEM_BYTES} B of shared memory a block holds")
+    out = _launch_factor("chol_solve", m, rhs, bsz, r, dev)
     chol_solve.launches += 1
     return out
 
@@ -139,16 +154,45 @@ def chol_solve_blocked(m: torch.Tensor, rhs: torch.Tensor):
     Kernel K6 (``csrc/chol.cu``) replaces ``_chol_blocked_kernel`` in
     ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by the r dependent pivot
     steps, as K1, whose tiled kernel it launches with 8 warps per chain (93 KB
-    of tiles at r = 200: two chains per SM).  On CUDA r ≤ ``MAX_RANK``."""
+    of tiles at r = 200: two chains per SM), up to r = ``MAX_RANK``; larger
+    r goes to ``chol_solve_streamed``, which counts its own launches."""
     bsz, r, dev = _chol_args(m, rhs)
     if dev.type == "cpu":
         return chol_solve_plain(m, rhs)
-    out = _launch_tiled("chol_solve_blocked", m, rhs, bsz, r, dev)
+    if r > MAX_RANK:
+        return chol_solve_streamed(m, rhs)
+    out = _launch_factor("chol_solve_blocked", m, rhs, bsz, r, dev)
     chol_solve_blocked.launches += 1
     return out
 
 
 chol_solve_blocked.launches = 0
+
+
+def chol_solve_streamed(m: torch.Tensor, rhs: torch.Tensor):
+    """``chol_solve`` with M and L in device memory, same contract; K6 for
+    r > ``MAX_RANK``.  On CUDA r ≤ ``STREAM_MAX_RANK``.
+
+    Kernel K6 streamed (``csrc/chol.cu``) replaces ``_chol_blocked_kernel``
+    in ``icp_proposal_tpu/ops/chol_pallas.py`` where the tiled kernel's
+    packed M no longer fits a block (and, past 1,224, XLA's cholesky and
+    cho_solve, which the reference takes there).  Bound by neither its bytes
+    nor its flops at the main paths' ranks; most likely by the panels'
+    order, each waiting on its diagonal block, factored in one warp.  One
+    block of 8 warps per chain, left-looking by panels of 32 columns, 256
+    rows a chunk with a row per thread; the right-hand side rides along as
+    the matrix's row r, then Lᵀx = y from device memory in the blocked dot
+    form."""
+    bsz, r, dev = _chol_args(m, rhs)
+    if dev.type == "cpu":
+        return chol_solve_plain(m, rhs)
+    _check_rank("chol_solve_streamed", r, STREAM_MAX_RANK, _STREAM_LIMIT)
+    out = _launch_factor("chol_solve_streamed", m, rhs, bsz, r, dev)
+    chol_solve_streamed.launches += 1
+    return out
+
+
+chol_solve_streamed.launches = 0
 
 
 def tri_solve_lt_plain(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -188,7 +232,8 @@ tri_solve_lt.launches = 0
 
 
 def tri_solve_lt_blocked(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``tri_solve_lt`` through the blocked kernel, same contract; r ≤ 512.
+    """``tri_solve_lt`` through the blocked kernel, same contract; r > 512
+    goes to ``tri_solve_lt_streamed``, which counts its own launches.
 
     Kernel K7 (``csrc/chol.cu``) replaces ``_tri_lt_blocked_kernel`` in
     ``icp_proposal_tpu/ops/chol_pallas.py``.  Bound by the r dependent
@@ -201,8 +246,8 @@ def tri_solve_lt_blocked(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     bsz, r, dev = _tri_args(chol, z)
     if dev.type == "cpu":
         return tri_solve_lt_plain(chol, z)
-    if r > 512:  # 16 residual entries per lane at most
-        raise ValueError(f"tri_solve_lt_blocked takes r ≤ 512, got r={r}")
+    if r > ROWS_MAX_RANK:
+        return tri_solve_lt_streamed(chol, z)
     x = torch.empty_like(z)
     launch("icp_tri_solve_lt_rows", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
            bsz, r)
@@ -211,3 +256,29 @@ def tri_solve_lt_blocked(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 tri_solve_lt_blocked.launches = 0
+
+
+def tri_solve_lt_streamed(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``tri_solve_lt`` with the vector in shared memory, same contract; K7
+    for r > ``ROWS_MAX_RANK``.  On CUDA r ≤ ``STREAM_MAX_RANK``.
+
+    Kernel K7 streamed (``csrc/chol.cu``) replaces ``_tri_lt_blocked_kernel``
+    in ``icp_proposal_tpu/ops/chol_pallas.py`` past the row kernel's 16
+    residual entries a lane (and, past 1,224, XLA's solve_triangular).
+    Bound by the bytes of L's lower triangle at the main paths' chains.  One
+    block of 4 warps per chain in the blocked dot form: for each 32 columns,
+    from the last up, every lane sums L[j, c]·xⱼ over its warp's rows below
+    (coalesced rows, no step waiting on another), then warp 0 solves the
+    32×32 triangle by shuffles."""
+    bsz, r, dev = _tri_args(chol, z)
+    if dev.type == "cpu":
+        return tri_solve_lt_plain(chol, z)
+    _check_rank("tri_solve_lt_streamed", r, STREAM_MAX_RANK, _STREAM_LIMIT)
+    x = torch.empty_like(z)
+    launch("icp_tri_solve_lt_streamed", dev, chol.data_ptr(), z.data_ptr(), x.data_ptr(),
+           bsz, r)
+    tri_solve_lt_streamed.launches += 1
+    return x
+
+
+tri_solve_lt_streamed.launches = 0

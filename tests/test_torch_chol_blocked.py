@@ -82,10 +82,12 @@ def test_tri_solve_lt_blocked_plain_matches_pallas(r, monkeypatch):
 
 def test_routing_rule_is_the_reference_rule():
     """Blocked exactly where the reference's ``_pick_bl(ceil8(r))`` is None:
-    rank 101 stays monolithic, 105 and up (rank 200) go blocked."""
+    rank 101 stays monolithic, 105 and up (rank 200) go blocked, up to
+    2,048, past the reference's blocked kernels' 1,224 and the port's
+    tiled and row kernels' 320 and 512."""
     from icp_proposal_tpu.ops.chol_pallas import _pick_bl
 
-    for r in range(8, 241):
+    for r in range(8, 2049):
         assert chol_cuda.uses_blocked(r) == (_pick_bl(-(-r // 8) * 8) is None), r
     assert not chol_cuda.uses_blocked(101) and not chol_cuda.uses_blocked(104)
     assert chol_cuda.uses_blocked(105) and chol_cuda.uses_blocked(200)

@@ -221,20 +221,26 @@ def test_cuda_tiled_nan_pivot(cuda, kernel, r, j):
 
 @pytest.mark.cuda
 def test_cuda_tiled_rank_limit_and_routing(cuda):
-    """r = 321 raises for both kernels before any launch; ``chol_solve``
-    routes r = 104 to K1 and r = 105 to K6, and each counter moves once."""
+    """r = 321 raises for K1 forced before any launch; ``chol_solve``
+    routes r = 104 to K1, r = 105 and 320 to the tiled K6 and r = 321 to the
+    streamed K6, and each counter moves once a call."""
     m = torch.eye(321, device=cuda).expand(2, -1, -1).contiguous()
     rhs = torch.zeros(2, 321, device=cuda)
-    n1, n6 = chol_cuda.chol_solve.launches, chol_cuda.chol_solve_blocked.launches
-    for kernel in KERNELS.values():
-        with pytest.raises(ValueError, match="320"):
-            kernel(m, rhs)
-    assert (chol_cuda.chol_solve.launches, chol_cuda.chol_solve_blocked.launches) == (n1, n6)
-    for r, want in ((104, (n1 + 1, n6)), (105, (n1 + 1, n6 + 1))):
+
+    def counts():
+        return (chol_cuda.chol_solve.launches, chol_cuda.chol_solve_blocked.launches,
+                chol_cuda.chol_solve_streamed.launches)
+
+    n1, n6, ns = counts()
+    with pytest.raises(ValueError, match="320"):
+        KERNELS["K1"](m, rhs)
+    assert counts() == (n1, n6, ns)
+    for r, want in ((104, (n1 + 1, n6, ns)), (105, (n1 + 1, n6 + 1, ns)),
+                    (320, (n1 + 1, n6 + 2, ns)), (321, (n1 + 1, n6 + 2, ns + 1))):
         mr = torch.eye(r, device=cuda).expand(2, -1, -1).contiguous()
         chol, x, ld = chol_cuda.chol_solve(mr, torch.ones(2, r, device=cuda))
         torch.cuda.synchronize()
-        assert (chol_cuda.chol_solve.launches, chol_cuda.chol_solve_blocked.launches) == want
+        assert counts() == want
         assert torch.equal(chol, mr) and torch.equal(ld, torch.zeros_like(ld))
         assert torch.equal(x, torch.ones_like(x))
 

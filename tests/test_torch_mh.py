@@ -30,12 +30,18 @@ STANDIN = REPO / "artifacts" / "posterior"
 N_CHAINS, N_STEPS = 4, 5
 
 
-def _jax_standin(monkeypatch, setup="flagship", coarse="exact", **setup_kw):
-    """A JAX setup of the stand-in (flagship, parity or rw, with ``setup_kw``
-    passed on), kernels forced on; coarse="dot" opts in to the dot-form
-    coarse kernel."""
+def _jax_standin(monkeypatch, setup="flagship", coarse="exact", components=100,
+                 chol_pallas=True, **setup_kw):
+    """A JAX setup of the stand-in GPMM-``components`` (flagship, parity or
+    rw, with ``setup_kw`` passed on), kernels forced on; coarse="dot" opts
+    in to the dot-form coarse kernel; ``chol_pallas=False`` leaves the
+    Cholesky factor and solve to XLA."""
     monkeypatch.setenv("ICP_TPU_FORCE_PALLAS", "1")
-    monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
+    if chol_pallas:
+        monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
+    else:
+        monkeypatch.delenv("ICP_TPU_FORCE_CHOL_PALLAS", raising=False)
+        monkeypatch.setenv("ICP_TPU_NO_CHOL_PALLAS", "1")
     # JAX builds its shortlist index with its native builder, its default,
     # which the port's index equals
     use_native_index(monkeypatch)
@@ -48,7 +54,7 @@ def _jax_standin(monkeypatch, setup="flagship", coarse="exact", **setup_kw):
     mp, mc = read_stl(STANDIN / "mean.stl")
     tp, tc = read_stl(STANDIN / "map.stl")
     data = jfemur.FemurData(
-        model=build_femur_gpmm(mp, mc, 100), target=make_mesh(tp, tc),
+        model=build_femur_gpmm(mp, mc, components), target=make_mesh(tp, tc),
         model_landmarks={}, target_landmarks={},
         target_boundary_mask=boundary_vertex_mask(tc, len(tp)),
         model_boundary_mask=boundary_vertex_mask(mc, len(mp)),
@@ -92,9 +98,11 @@ def _assert_gradients_match(got, want):
     np.testing.assert_allclose(got[~big], want[~big], rtol=0, atol=1e-4)
 
 
-def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
-    """n_steps of N_CHAINS chains of one setup (``setup_kw`` passed to both
-    packages' setup functions) in both packages from the
+def _step_parity(monkeypatch, setup, coarse, n_steps, components=100, chol_pallas=True,
+                 **setup_kw):
+    """n_steps of N_CHAINS chains of one setup on the stand-in
+    GPMM-``components`` (``setup_kw`` passed to both packages' setup
+    functions; ``chol_pallas`` as for ``_jax_standin``) in both packages from the
     same carry with the same noise: same proposal index, same accept
     decision wherever |log α − log u| > 1e-3, log_post to rtol 1e-4; with
     scale adaptation the step counts exactly and the log-scales to atol
@@ -107,11 +115,12 @@ def _step_parity(monkeypatch, setup, coarse, n_steps, **setup_kw):
     from icp_proposal_tpu.sampling.proposals import MalaComponent as JMala
     from icp_proposal_tpu.sampling.state import init_state as jinit_state
 
-    jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch, setup, coarse, **setup_kw)
+    jdata, (jctx, jmix, jev) = _jax_standin(monkeypatch, setup, coarse, components,
+                                            chol_pallas, **setup_kw)
     model, ctx, mixture, evaluator, step = _port_standin(jdata, setup=setup,
                                                          coarse=coarse, **setup_kw)
     r = model.rank
-    assert r == 101
+    assert r == components + 1
     assert mixture.names == jmix.names
     assert getattr(mixture, "parity", False) == getattr(jmix, "parity", False)
     assert (None if mixture.adapt is None else vars(mixture.adapt)) == (
