@@ -621,6 +621,21 @@ def _print_tiled_config(torch, tag, name, r, warps):
           f"{ctas * sms} chains resident on {sms} SMs")
 
 
+def _print_streamed_config(torch, tag, r):
+    """Print the launch of the streamed K6 at rank r: panel width, the
+    largest row tile, the update's stage depth, shared memory per chain as
+    the launch sizes it, and CTAs (chains) per SM from CUDA's occupancy
+    calculator."""
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    smem, ctas = cc.streamed_smem_bytes(r), cc.streamed_ctas_per_sm(r)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[{tag}] chol_solve_streamed launch at r={r}: panels of {cc.PANEL} columns, row "
+          f"tiles of up to {cc.STREAM_TILE_ROWS} rows, stages of {cc.STREAM_SLICE} columns, "
+          f"{smem} B of shared memory per chain, {ctas} CTAs (chains) per SM, "
+          f"{ctas * sms} chains resident on {sms} SMs")
+
+
 def _anchor_gaps(torch, q, points, ids, ids_exact, chunk=16):
     """How far K8's anchors ``ids`` fall from the exact nearest vertex, in
     float64: (number of anchors that differ from ``ids_exact``, max of the
@@ -862,6 +877,8 @@ def phase_kernels_rank(torch, dev):
                                             cc.tri_solve_lt, f"K6 r={r}", system=system,
                                             reps=reps)
             del system
+            if b == CMP_CHAINS:
+                _print_streamed_config(torch, "kernels:rank", r)
             for name, rec in (("chol_solve_streamed", rec_f), (tri, rec_s)):
                 _print_record("kernels:rank", f"{name}[r={r}]", rec, b)
                 if b == CMP_CHAINS:

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "icp_surface_distances": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
     "icp_chol_solve_blocked": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "icp_chol_solve_streamed": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "icp_chol_solve_streamed": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "icp_tri_solve_lt_streamed": [_P, _P, _P, _I, _I, _P],
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],
     "icp_shortlist_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -55,6 +55,10 @@ _SIGNATURES = {
     # (r, warps): no stream, not a launch
     "icp_chol_tiled_smem_bytes": [_I, _I],
     "icp_chol_tiled_ctas_per_sm": [_I, _I],
+    # (r): no stream, not a launch
+    "icp_chol_streamed_smem_bytes": [_I],
+    "icp_chol_streamed_ws_floats": [_I],
+    "icp_chol_streamed_ctas_per_sm": [_I],
     # (batch, p, v, per_chain, dot, int[5] out): no stream, not a launch
     "icp_nearest_vertices_config": [_I, _I, _I, _I, _I, _P],
     # (n_queries, int[5] out): no stream, not a launch

@@ -82,32 +82,49 @@
 // the reference serves every rank, its blocked kernels to 1,224 and XLA's
 // cholesky and solve_triangular above).  Same contracts as above.
 //   What bounds them: M and L no longer fit a block, so they stay in device
-//   memory.  The streamed factor is left-looking and reads the finished
-//   columns L[i, :j0] again for every panel; each float it stages feeds the
-//   panel's 32 columns, so that is r³/192 floats a chain (1.3 MB at r = 401,
-//   twice M's 0.64 MB).  Neither those bytes nor the r³/3 flops bound it at
-//   the main paths' ranks (7 % of the FP32 bound at r = 401 on 2,048
-//   chains); most likely the panels' order does (not measured): each waits
-//   on its 32×32 diagonal block, which one warp factors.  The solve reads
+//   memory.  The streamed factor's own bound is its r³/3 FP32 flops (0.66 ms
+//   at r = 401 on 2,048 chains, 2.20 ms at r = 600); left-looking, it reads
+//   the finished columns L[i, :j0] again for every panel of b columns,
+//   r³/(6b) floats a chain, which at 2,048 chains spill far past the 50 MB
+//   L2.  With b = 64 its schedule moves 6.5 GB at r = 401 and 17.5 GB at
+//   r = 600 (1.94 and 5.23 ms at 3.35 TB/s if nothing hit L2: M in, L and
+//   y out, the workspace written and read again for each tile's rows and
+//   the panel's, and the back substitution's read of L).  Measured (H100
+//   80GB HBM3, 700 W): 5.5 ms at r = 401, 12.5 ms at r = 600, 0.12 and 0.18
+//   of the flop bound.  Taking each phase out in turn gave back ≈ 1.9 ms
+//   (the update), 1.3 (the 64×64 factor, a chain of dependent steps, where
+//   the registers spill), 0.7 (the back substitution), 0.55 (the rows below
+//   solved against the block) at r = 401: a chain's phases are
+//   latency-bound, and four chains an SM do not hide them.  The solve reads
 //   L's lower triangle once: the bytes bound it.
-//   Design of K6 streamed, chol_solve_streamed_kernel: one block of 8 warps
-//   per chain, left-looking by column panels of kPanel = 32 columns, as the
-//   reference's blocked kernel streams [rp, NB, BL] panels through VMEM.
-//   The right-hand side is the matrix's row r, so the panels' own update
-//   and solve compute y = L⁻¹·rhs (kept in x until the back substitution).
-//   A panel's rows i = j0…r go through in chunks of 256, a thread a row:
-//     (1) the row's M[i, j0:j0+32] (lower triangle only) is staged through
-//         shared memory, coalesced, into the thread's 32 registers;
-//     (2) the update −L[i, :j0]·L[j0:j0+32, :j0]ᵀ, 32 columns k at a time:
-//         the chunk's L[i, k0:k0+32] and the panel's L[j0:j0+32, k0:k0+32]ᵀ
-//         are staged in shared memory (rows of 36 floats: 16-byte reads
-//         without bank conflicts), each thread reads its row as float4 and
-//         the panel's entries as broadcasts, 32 fmaf per k;
-//     (3) chunk 0: warp 0 factors the 32×32 diagonal block in shared
-//         memory (identity past the matrix, log dⱼ summed in pivot order);
-//     (4) the rows below solve X·L_ddᵀ = A in registers, 1/√dⱼ from (3);
-//     (5) the rows go out through the staging tile, coalesced, with zeros
-//         above the diagonal in the panel's columns.
+//   Design of K6 streamed, chol_solve_streamed_kernel: one block of
+//   kStreamWarps = 4 warps per chain and kStreamCtas = 4 chains an SM (128
+//   registers, 43.5 KB of shared memory), left-looking by panels of
+//   kPanel = 64 columns, as the reference's blocked kernel streams panels
+//   through VMEM.  The right-hand side is the matrix's row r, so the
+//   panels' own update and solve compute y = L⁻¹·rhs (kept in x until the
+//   back substitution).  Each finished panel's rows also go to a workspace
+//   in rows of 64 floats, so the update reads them 16 bytes at a time
+//   whatever r is.  A panel's rows j0…r go through in row tiles of 64 (the
+//   tail in 32 or 16: fewer than 16 rows wasted, 32 where 33–48 remain):
+//     (1) each thread holds 8 rows × 4 columns of the tile (rows ty + 8u,
+//         columns tx + 16j), started from M's lower triangle;
+//     (2) the update over the finished columns, kSlice = 16 at a time: the
+//         tile's and the panel's rows of them move by cp.async into a ring
+//         of kStages = 3 stages while the last is multiplied, one block
+//         barrier a stage; a float4 of the tile row is a broadcast and four
+//         of the panel's rows hit distinct banks (rows of kSliceLd = 20
+//         floats): 128 FFMA per 12 shared loads.  A 32- or 16-row tile
+//         splits the depth between 2 or 4 groups of threads, whose sums
+//         join group 0's through shared memory in group order;
+//     (3) the first tile: its 64×64 diagonal block into the packed 16×16
+//         tiles of K1 (identity past the matrix), factored by every warp
+//         with K1's steps (a)–(c); log dⱼ summed in pivot order;
+//     (4) the rows below: X·L_ddᵀ = A a column at a time, the column's
+//         entries broadcast by shuffles within the half warp that holds the
+//         rows, the scale by 1/√d last;
+//     (5) the tile goes out through shared memory, whole panel rows at a
+//         time, to L (zeros above the diagonal) or y, and to the workspace.
 //   Then Lᵀx = y from device memory in the blocked dot form (below).
 //   Design of K7 streamed, tri_solve_lt_streamed_kernel: one block of 4
 //   warps per chain, the vector of r floats in shared memory (64 KB at the
@@ -138,10 +155,14 @@ constexpr int kK6Warps = 8;                // K6: warps per chain
 constexpr int kTriRowWarps = 2;  // K2/K7: chains (warps) per block
 constexpr int kRowsAhead = 4;    // K2/K7: rows of L loaded ahead of their step; divides 32
 constexpr int kRowsMaxRank = 512;  // K2/K7 row kernel: 16 residual entries a lane
-constexpr int kPanel = 32;         // K6 streamed: columns a panel, a lane each
-constexpr int kStreamWarps = 8;    // K6 streamed: warps per chain
-constexpr int kChunkRows = kStreamWarps * 32;  // K6 streamed: rows a chunk, a thread each
-constexpr int kPanelLd = 36;       // K6 streamed: floats a staged row (16-byte aligned)
+constexpr int kPanel = 64;         // K6 streamed: columns a panel
+constexpr int kStreamWarps = 4;    // K6 streamed: warps per chain
+constexpr int kStreamThreads = kStreamWarps * 32;
+constexpr int kStreamCtas = 4;     // K6 streamed: chains an SM (launch bounds: ≤ 128 registers)
+constexpr int kSlice = 16;         // K6 streamed: finished columns a stage of the update
+constexpr int kStages = 3;         // K6 streamed: stages in the cp.async ring
+constexpr int kSliceLd = 20;       // K6 streamed: floats a staged row (16 + 4: no bank conflicts)
+constexpr int kTileRows = 64;      // K6 streamed: rows of the largest row tile
 constexpr int kTriStreamWarps = 4;   // K7 streamed: warps per chain
 constexpr int kStreamMaxRank = 16384;  // K6/K7 streamed: r floats of vector in shared memory
 constexpr unsigned kFull = 0xffffffffu;
@@ -255,52 +276,15 @@ __device__ __forceinline__ void update_tile(float* aij, const float4 (&li)[2][4]
   }
 }
 
+// K1/K6 (a)–(c) over the packed lower tiles of an nt·16-square matrix with
+// kWarps warps: L in place (entries above the diagonal of a diagonal tile
+// left as they were), 1/√dⱼ into ild and log dⱼ into logd; scr0: one
+// scratch tile per warp with work in a panel.  Ends on a block barrier.
 template <int kWarps>
-__global__ void __launch_bounds__(kWarps * 32)
-    chol_solve_tiled_kernel(const float* __restrict__ m, const float* __restrict__ rhs,
-                            float* __restrict__ l, float* __restrict__ x,
-                            float* __restrict__ logdet, int r) {
-  extern __shared__ float4 smem4[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nt = (r + kTile - 1) / kTile;
-  const int rp = nt * kTile;
-  const int n_tiles = nt * (nt + 1) / 2;
-  float* tiles = reinterpret_cast<float*>(smem4);      // [n_tiles][256] packed lower tiles
-  float* scr = tiles + (n_tiles + warp) * kTileElems;  // [256] this warp's L_KKᵀ
-  float* ild = tiles + (n_tiles + kWarps) * kTileElems;  // [rp] 1/√dⱼ
-  float* logd = ild + rp;                                // [rp] log dⱼ
-  const float* mb = m + (size_t)blockIdx.x * r * r;
-
-  // M's lower triangle into the packed tiles, two rows a warp at a time with
-  // all their loads issued before the first store; identity in the padding,
-  // zeros above the diagonal
-  for (int i0 = 2 * warp; i0 < rp; i0 += 2 * kWarps) {
-    float v[2][kMaxRes];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + h;
-#pragma unroll
-      for (int q = 0; q < kMaxRes; ++q) {
-        const int c = lane + 32 * q;
-        v[h][q] = i == c ? 1.0f : 0.0f;
-        if (i < r && c <= i) v[h][q] = mb[(size_t)i * r + c];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + h;  // rp is even, so i < rp
-#pragma unroll
-      for (int q = 0; q < kMaxRes; ++q) {
-        const int c = lane + 32 * q;
-        if (c < ((i >> 4) + 1) * kTile)
-          tiles[tile_off(i >> 4, c >> 4) + swz(i & 15, c & 15)] = v[h][q];
-      }
-    }
-  }
-  __syncthreads();
-
+__device__ __forceinline__ void factor_tiles(float* tiles, float* scr0, float* ild,
+                                             float* logd, int nt, int warp, int lane) {
   const int fi = lane & 15, fh = lane >> 4;
+  float* scr = scr0 + warp * kTileElems;  // this warp's L_KKᵀ
   for (int K = 0; K < nt; ++K) {
     const int below = nt - 1 - K;
     float a[8];
@@ -359,6 +343,53 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncthreads();
   }
+}
+
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+    chol_solve_tiled_kernel(const float* __restrict__ m, const float* __restrict__ rhs,
+                            float* __restrict__ l, float* __restrict__ x,
+                            float* __restrict__ logdet, int r) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nt = (r + kTile - 1) / kTile;
+  const int rp = nt * kTile;
+  const int n_tiles = nt * (nt + 1) / 2;
+  float* tiles = reinterpret_cast<float*>(smem4);      // [n_tiles][256] packed lower tiles
+  float* ild = tiles + (n_tiles + kWarps) * kTileElems;  // [rp] 1/√dⱼ
+  float* logd = ild + rp;                                // [rp] log dⱼ
+  const float* mb = m + (size_t)blockIdx.x * r * r;
+
+  // M's lower triangle into the packed tiles, two rows a warp at a time with
+  // all their loads issued before the first store; identity in the padding,
+  // zeros above the diagonal
+  for (int i0 = 2 * warp; i0 < rp; i0 += 2 * kWarps) {
+    float v[2][kMaxRes];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h;
+#pragma unroll
+      for (int q = 0; q < kMaxRes; ++q) {
+        const int c = lane + 32 * q;
+        v[h][q] = i == c ? 1.0f : 0.0f;
+        if (i < r && c <= i) v[h][q] = mb[(size_t)i * r + c];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h;  // rp is even, so i < rp
+#pragma unroll
+      for (int q = 0; q < kMaxRes; ++q) {
+        const int c = lane + 32 * q;
+        if (c < ((i >> 4) + 1) * kTile)
+          tiles[tile_off(i >> 4, c >> 4) + swz(i & 15, c & 15)] = v[h][q];
+      }
+    }
+  }
+  __syncthreads();
+
+  factor_tiles<kWarps>(tiles, tiles + n_tiles * kTileElems, ild, logd, nt, warp, lane);
 
   const size_t row = (size_t)blockIdx.x * r;
   if (warp == 0) {
@@ -586,165 +617,326 @@ __device__ __forceinline__ void solve_lt_streamed(const float* lb, float* vec, f
   }
 }
 
-// K6 streamed (1), (2): rows t = warp, warp + kStreamWarps, … of a staging
-// tile [kChunkRows][kPanelLd] from val(t, lane), eight loads in flight
-template <typename F>
-__device__ __forceinline__ void stage_rows(float* tile, int warp, int lane, F val) {
-#pragma unroll
-  for (int t0 = 0; t0 < kChunkRows; t0 += 8 * kStreamWarps) {
-    float v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = val(t0 + u * kStreamWarps + warp, lane);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) tile[(t0 + u * kStreamWarps + warp) * kPanelLd + lane] = v[u];
-  }
+// K6 streamed: 16-byte asynchronous copy global → shared; valid false
+// fills zeros and reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// K6 streamed (3): factor the diagonal block ldd [32][33] in place in one
-// warp, lane = row: L on and below the diagonal, 1/√dⱼ into ild; lane 0
-// adds log dⱼ for the block's w real pivots to logsum in pivot order
-__device__ __forceinline__ void factor_block32(float* ldd, float* ild, int lane, int w,
-                                               float& logsum) {
-  constexpr int ld = kPanel + 1;
-  for (int j = 0; j < kPanel; ++j) {
-    float d = ldd[j * ld + j];
-    if (!(d > 0.0f)) d = nan32();  // non-SPD pivot → NaN
-    const float s = sqrtf(d);
-    const float inv = 1.0f / s;
-    if (lane == 0 && j < w) logsum += logf(d);
-    const float lij = ldd[lane * ld + j] * inv;  // L[lane][j] for lane > j
-    __syncwarp();
-    if (lane > j) ldd[lane * ld + j] = lij;
-    if (lane == j) {
-      ldd[j * ld + j] = s;
-      ild[j] = inv;
+// K6 streamed: the workspace keeps each finished panel q's rows 64q…r
+// (row r: y) as rows of 64 floats, 16-byte aligned whatever r is; panel q
+// starts at row ws_row(q, r) of the chain's part
+__host__ __device__ __forceinline__ size_t ws_row(int q, int r) {
+  return (size_t)q * (r + 1) - (size_t)kPanel * q * (q - 1) / 2;
+}
+
+// K6 streamed: the rows of the row tile that starts at row p0 of a panel of
+// n rows (the right-hand side's included): 64 while more than 48 remain,
+// then 32 while more than 16 remain, then 16; the first tile takes 64 from
+// 33 rows on, so that it holds all of the diagonal block's w ≤ 64 rows.
+// A panel wastes fewer than 16 rows, 32 where it has 33 to 48.
+__device__ __forceinline__ int tile_rows(int n, int p0) {
+  const int rem = n - p0;
+  return rem > (p0 == 0 ? kTileRows / 2 : 3 * kTileRows / 4) ? kTileRows
+         : rem > kTileRows / 4                             ? kTileRows / 2
+                                                           : kTileRows / 4;
+}
+
+// K6 streamed (2): one stage of the update, acc −= A·Bᵀ over this group's
+// float4 chunks of the stage's kSlice columns.  as: the tile's rows, bs: the
+// panel's 64 rows, [row][kSliceLd] each.  A thread holds rows
+// ty + (kH/8)·u (u < 8) and columns tx + 16j (j < 4); the A row is a
+// broadcast and the 16 B rows of a quarter warp hit 8 distinct bank
+// quads, so no read conflicts; 128 FMAs per 12 shared loads.  kDiag (the
+// diagonal tile) skips the 16-column blocks wholly above its rows.
+template <int kH, bool kDiag>
+__device__ __forceinline__ void update_stage(float (&acc)[8][4], const float* as,
+                                             const float* bs, int g, int ty, int tx) {
+  constexpr int kChunks = kSlice / 4 / (kTileRows / kH), kRowStep = kH / 8;
+#pragma unroll
+  for (int q = 0; q < kChunks; ++q) {
+    const int kq = g * kChunks + q;
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * kSliceLd + 4 * kq);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(as + (ty + kRowStep * u) * kSliceLd + 4 * kq);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (kDiag && 16 * j >= kRowStep * (u + 1)) continue;
+        acc[u][j] = fmaf(-a.x, b[j].x, acc[u][j]);
+        acc[u][j] = fmaf(-a.y, b[j].y, acc[u][j]);
+        acc[u][j] = fmaf(-a.z, b[j].z, acc[u][j]);
+        acc[u][j] = fmaf(-a.w, b[j].w, acc[u][j]);
+      }
     }
-    __syncwarp();
-    if (lane > j)
-      for (int k = j + 1; k <= lane; ++k)
-        ldd[lane * ld + k] = fmaf(-lij, ldd[k * ld + j], ldd[lane * ld + k]);
-    __syncwarp();
   }
 }
 
-__global__ void __launch_bounds__(kChunkRows, 2)
+// K6 streamed: shared memory of a block, in floats
+constexpr int kStageFloats = (kTileRows + kPanel) * kSliceLd;  // one stage: A then B
+constexpr int kRingFloats = kStages * kStageFloats;
+constexpr int kDiagTiles = 10;  // packed lower 16×16 tiles of the 64×64 diagonal block
+constexpr int kStreamFixedFloats =
+    kRingFloats + (kDiagTiles + 2) * kTileElems + 2 * kPanel;  // ring, block, 2 scratch, ild, logd
+// the ring also holds a tile with the groups' sums (kH·kPanel floats a
+// group), and the parked sums
+static_assert(kRingFloats >= kTileRows * kPanel && kRingFloats >= 32 * kStreamThreads,
+              "the ring must hold what stream_tile puts there");
+
+// K6 streamed: one row tile of kH rows, panel rows p0…p0+kH−1 (matrix rows
+// j0 + p0…; row r is the right-hand side) and the panel's columns
+// j0…j0+w−1.  (1) the thread's outputs start from M's lower triangle (the
+// right-hand side in row r), less the update over the finished columns
+// 0…j0−1 from the workspace, kSlice at a time through a ring of kStages
+// stages filled by cp.async, one block barrier a stage; kTileRows/kH
+// groups of 2·kH threads take the chunks of each stage in turn, and (2)
+// groups 1, 2, 3 add their sums to group 0's in that order; (3) the first
+// tile: its diagonal block into dblk (identity past w), factored by every
+// warp as K1 factors its tiles; (4) the rows below the block: X·L_ddᵀ = A a
+// column c at a time, aᵢc broadcast by shuffles in the half warp that holds
+// row i, every later column less aᵢc·L[col][c]/√d_c, then each column
+// scaled by its 1/√d; (5) out through shared memory, whole rows at a time,
+// to L (the diagonal block's rows from dblk, zeros above its diagonal) or
+// to y, and to the workspace.
+template <int kH>
+__device__ __forceinline__ void stream_tile(const float* mb, const float* rb, float* lb,
+                                            float* xb, float* wsb, float* ring, float* dblk,
+                                            float* ild, float* logd, float& logsum, int r,
+                                            int j0, int w, int p0) {
+  constexpr int kGroups = kTileRows / kH, kGroupThreads = kStreamThreads / kGroups;
+  constexpr int kRowStep = kH / 8;
+  constexpr int kCopies = (kH + kPanel) * (kSlice / 4);  // 16-byte copies a stage
+  const int tid = threadIdx.x;
+  const int g = tid / kGroupThreads, tg = tid % kGroupThreads;
+  const int ty = tg >> 4, tx = tg & 15;
+  const int i0 = j0 + p0;      // the tile's first matrix row
+  const int nk = j0 / kSlice;  // stages of finished columns
+  const bool diag = p0 == 0;
+  float* tile = ring;               // [kH][kPanel] the tile's L on its way out
+  float* red = ring + kH * kPanel;  // [kGroups − 1][kH][kPanel] the groups' sums
+  __syncthreads();  // the last tile is done with the ring
+
+  auto fetch = [&](int s) {  // stage s into ring slot s % kStages
+    if (s < nk) {
+      float* as = ring + (s % kStages) * kStageFloats;
+      const int q = s * kSlice / kPanel;  // the finished panel the stage's columns lie in
+      const float* src0 = wsb + (ws_row(q, r) - (size_t)kPanel * q) * kPanel + s * kSlice % kPanel;
+#pragma unroll
+      for (int e0 = 0; e0 < kCopies; e0 += kStreamThreads) {
+        const int e = e0 + tid;
+        if (kCopies % kStreamThreads != 0 && e >= kCopies) break;
+        const int row = e / (kSlice / 4), k = 4 * (e % (kSlice / 4));  // A rows, then B's
+        const int i = row < kH ? i0 + row : j0 + row - kH;
+        const bool valid = row < kH ? i <= r : row - kH < w;
+        cp_async16(as + row * kSliceLd + k, src0 + (size_t)i * kPanel + k, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // (1) group 0 starts from M's lower triangle (the right-hand side in row
+  // r), the other groups from 0; the loads are all in flight with the
+  // ring's first stages
+  float acc[8][4];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int i = i0 + ty + kRowStep * u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      float v = 0.0f;
+      if (g == 0 && c < w) {
+        if (i < r) {
+          if (j0 + c <= i) v = mb[(size_t)i * r + j0 + c];
+        } else if (i == r) {
+          v = rb[j0 + c];
+        }
+      }
+      acc[u][j] = v;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s is in; every thread is done with stage s − 1's slot
+    fetch(s + kStages - 1);
+    const float* as = ring + (s % kStages) * kStageFloats;
+    const float* bs = as + kH * kSliceLd;
+    if (diag)
+      update_stage<kH, true>(acc, as, bs, g, ty, tx);
+    else
+      update_stage<kH, false>(acc, as, bs, g, ty, tx);
+  }
+  // (2) the groups' sums, added to group 0's in group order
+  if (kGroups > 1 && nk > 0) {
+    __syncthreads();  // every thread is done with the ring
+    if (g > 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          red[((g - 1) * kH + ty + kRowStep * u) * kPanel + tx + 16 * j] = acc[u][j];
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int gg = 1; gg < kGroups; ++gg)
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[u][j] += red[((gg - 1) * kH + ty + kRowStep * u) * kPanel + tx + 16 * j];
+    }
+  }
+  if (diag) {
+    // (3) the diagonal block's rows p < w into dblk, lower tiles only
+    if (g == 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int p = ty + kRowStep * u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (p < w && j <= (p >> 4)) dblk[tile_off(p >> 4, j) + swz(p & 15, tx)] = acc[u][j];
+      }
+    }
+    __syncthreads();  // and every thread is done with the ring
+    // the sums wait in the ring while every warp factors the block, so they
+    // hold no registers there
+    if (g == 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ring[(4 * u + j) * kStreamThreads + tid] = acc[u][j];
+    }
+    factor_tiles<kStreamWarps>(dblk, dblk + kDiagTiles * kTileElems, ild, logd, kPanel / kTile,
+                               tid >> 5, tid & 31);
+    if (g == 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[u][j] = ring[(4 * u + j) * kStreamThreads + tid];
+    }
+    if (tid == 0)
+      for (int j = 0; j < w; ++j) logsum += logd[j];
+  }
+  if (g == 0 && p0 + kH > w) {
+    // (4) X·L_ddᵀ = A for every row of a tile with rows below the block
+    // (the block's own rows are replaced in (5)): column c's unscaled aᵢc
+    // goes to the half warp by shuffles, and every later column takes
+    // −aᵢc·(L[col][c]/√d_c); the scale 1/√d_c last
+#pragma unroll
+    for (int jc = 0; jc < 4; ++jc) {
+      if (16 * jc >= w) break;
+      const int ce = min(16, w - 16 * jc);
+      for (int cc = 0; cc < ce; ++cc) {
+        const float il = ild[16 * jc + cc];
+        float xs[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) xs[u] = __shfl_sync(kFull, acc[u][jc], cc, 16);
+        if (tx > cc) {
+          const float lv = dblk[tile_off(jc, jc) + swz(tx, cc)] * il;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc[u][jc] = fmaf(-xs[u], lv, acc[u][jc]);
+        }
+#pragma unroll
+        for (int j = jc + 1; j < 4; ++j) {
+          const float lv = dblk[tile_off(j, jc) + swz(tx, cc)] * il;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc[u][j] = fmaf(-xs[u], lv, acc[u][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every thread is done with the ring (the groups' or the parked sums)
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float il = ild[tx + 16 * j];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) tile[(ty + kRowStep * u) * kPanel + tx + 16 * j] = acc[u][j] * il;
+    }
+  }
+  __syncthreads();
+  // (5) out, whole rows of the panel at a time: to L or y, and to the workspace
+  float* wsp = wsb + (ws_row(j0 / kPanel, r) - j0) * kPanel;  // this panel's rows, by matrix row
+#pragma unroll 4
+  for (int e = tid; e < kH * kPanel; e += kStreamThreads) {
+    const int p = p0 + e / kPanel, c = e % kPanel, i = j0 + p;
+    if (i > r || c >= w) continue;
+    float v = tile[e];
+    if (p < w) v = c <= p ? dblk[tile_off(p >> 4, c >> 4) + swz(p & 15, c & 15)] : 0.0f;
+    (i < r ? lb + (size_t)i * r : xb)[j0 + c] = v;
+    wsp[(size_t)i * kPanel + c] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kStreamThreads, kStreamCtas)
     chol_solve_streamed_kernel(const float* __restrict__ m, const float* __restrict__ rhs,
-                               float* l, float* x, float* __restrict__ logdet, int r) {
+                               float* l, float* x, float* __restrict__ logdet, float* ws,
+                               int r) {
   extern __shared__ float4 smem4[];
-  constexpr int ld = kPanel + 1;
-  float* tile = reinterpret_cast<float*>(smem4);  // [kChunkRows][kPanelLd] staging
-  float* bt = tile + kChunkRows * kPanelLd;       // [kPanel][kPanelLd]: L[j0 + c][k0 + k] at k, c
-  float* ldd = bt + kPanel * kPanelLd;            // [kPanel][ld] the diagonal block
-  float* ild = ldd + kPanel * ld;                 // [kPanel] 1/√dⱼ
-  float* part = ild + kPanel;                     // [kStreamWarps][32]
-  float* vec = part + kStreamWarps * 32;          // [r] y, then x
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ring = reinterpret_cast<float*>(smem4);     // [kStages][A, B][rows][kSliceLd]
+  float* dblk = ring + kRingFloats;                  // [10 + 2][256] the block, 2 scratch tiles
+  float* ild = dblk + (kDiagTiles + 2) * kTileElems;  // [kPanel] 1/√dⱼ
+  float* logd = ild + kPanel;                        // [kPanel] log dⱼ
+  const int tid = threadIdx.x;
   const float* mb = m + (size_t)blockIdx.x * r * r;
   const float* rb = rhs + (size_t)blockIdx.x * r;
   float* lb = l + (size_t)blockIdx.x * r * r;
   float* xb = x + (size_t)blockIdx.x * r;  // y = L⁻¹·rhs, the matrix's row r
-  float logsum = 0.0f;                     // thread 0: Σ log dⱼ in pivot order
+  const int n_panels = (r + kPanel - 1) / kPanel;
+  float* wsb = ws + blockIdx.x * ws_row(n_panels, r) * kPanel;
+  float logsum = 0.0f;  // thread 0: Σ log dⱼ in pivot order
 
   for (int j0 = 0; j0 < r; j0 += kPanel) {
     const int w = min(kPanel, r - j0);  // columns in this panel
-    const int n_rows = r - j0 + 1;      // rows j0…r−1 and the right-hand side's
-    for (int c0 = 0; c0 < n_rows; c0 += kChunkRows) {
-      const int i0 = j0 + c0;  // the chunk's first row; thread tid has row i0 + tid
-      // (1) M[i, j0:j0+w], lower triangle only
-      stage_rows(tile, warp, lane, [&](int t, int c) {
-        const int i = i0 + t;
-        if (c >= w) return 0.0f;
-        if (i < r) return j0 + c <= i ? mb[(size_t)i * r + j0 + c] : 0.0f;
-        return i == r ? rb[j0 + c] : 0.0f;
-      });
-      __syncthreads();
-      float acc[kPanel];
-#pragma unroll
-      for (int q = 0; q < kPanel / 4; ++q) {
-        const float4 v = reinterpret_cast<const float4*>(tile + tid * kPanelLd)[q];
-        acc[4 * q] = v.x, acc[4 * q + 1] = v.y, acc[4 * q + 2] = v.z, acc[4 * q + 3] = v.w;
-      }
-      __syncthreads();
-      // (2) acc −= L[i, k0:k0+32]·L[j0:j0+32, k0:k0+32]ᵀ over the finished columns
-      for (int k0 = 0; k0 < j0; k0 += kPanel) {
-        stage_rows(tile, warp, lane, [&](int t, int k) {
-          const int i = i0 + t;
-          if (i < r) return __ldcg(lb + (size_t)i * r + k0 + k);
-          return i == r ? __ldcg(xb + k0 + k) : 0.0f;
-        });
-        for (int c = warp; c < kPanel; c += kStreamWarps)
-          bt[lane * kPanelLd + c] = c < w ? __ldcg(lb + (size_t)(j0 + c) * r + k0 + lane) : 0.0f;
-        __syncthreads();
-#pragma unroll
-        for (int kq = 0; kq < kPanel / 4; ++kq) {
-          const float4 a4 = reinterpret_cast<const float4*>(tile + tid * kPanelLd)[kq];
-          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4* bk = reinterpret_cast<const float4*>(bt + (4 * kq + kk) * kPanelLd);
-#pragma unroll
-            for (int q = 0; q < kPanel / 4; ++q) {
-              const float4 b4 = bk[q];
-              acc[4 * q] = fmaf(-a[kk], b4.x, acc[4 * q]);
-              acc[4 * q + 1] = fmaf(-a[kk], b4.y, acc[4 * q + 1]);
-              acc[4 * q + 2] = fmaf(-a[kk], b4.z, acc[4 * q + 2]);
-              acc[4 * q + 3] = fmaf(-a[kk], b4.w, acc[4 * q + 3]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-      const int t_me = c0 + tid;  // this thread's row in the panel, i = j0 + t_me
-      if (c0 == 0) {
-        // (3) the diagonal block, rows t < w; identity past the matrix
-        if (tid < kPanel) {
-#pragma unroll
-          for (int c = 0; c < kPanel; ++c)
-            ldd[tid * ld + c] = tid < w ? (c <= tid ? acc[c] : 0.0f) : (c == tid ? 1.0f : 0.0f);
-        }
-        __syncthreads();
-        if (warp == 0) factor_block32(ldd, ild, lane, w, logsum);
-        __syncthreads();
-      }
-      if (t_me < w) {
-        // a row of the diagonal block: its factored row, zeros above
-#pragma unroll
-        for (int c = 0; c < kPanel; ++c) acc[c] = c <= t_me ? ldd[t_me * ld + c] : 0.0f;
-      } else {
-        // (4) a row below: X·L_ddᵀ = A
-#pragma unroll
-        for (int c = 0; c < kPanel; ++c) {
-          acc[c] *= ild[c];
-#pragma unroll
-          for (int c2 = c + 1; c2 < kPanel; ++c2) acc[c2] = fmaf(-acc[c], ldd[c2 * ld + c], acc[c2]);
-        }
-      }
-      // (5) out through the staging tile, a row per warp at a time
-#pragma unroll
-      for (int q = 0; q < kPanel / 4; ++q)
-        reinterpret_cast<float4*>(tile + tid * kPanelLd)[q] =
-            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-      __syncthreads();
-      if (lane < w) {
-        for (int t = warp; t < kChunkRows; t += kStreamWarps) {
-          const int i = i0 + t;
-          if (i < r) {
-            lb[(size_t)i * r + j0 + lane] = tile[t * kPanelLd + lane];
-          } else if (i == r) {
-            xb[j0 + lane] = tile[t * kPanelLd + lane];
-          }
-        }
-        if (c0 == 0)  // zeros above the diagonal: rows above the panel
-          for (int i = warp; i < j0; i += kStreamWarps) lb[(size_t)i * r + j0 + lane] = 0.0f;
-      }
-      __syncthreads();
+    __syncthreads();  // the last panel is done with dblk, and its L is out
+    // the diagonal block starts as the identity
+    for (int e = tid; e < kDiagTiles * kTileElems; e += kStreamThreads) {
+      const int t = e / kTileElems, i = (e >> 4) & 15, c = e & 15;
+      const int I = t >= 6 ? 3 : t >= 3 ? 2 : t >= 1 ? 1 : 0;
+      dblk[t * kTileElems + swz(i, c)] = t == I * (I + 1) / 2 + I && i == c ? 1.0f : 0.0f;
+    }
+    // zeros above the diagonal right of the block, a run of r − j0 − 64
+    // columns a row (the block's own come with its rows)
+    const int run = r - j0 - kPanel;
+    for (int e = tid; e < w * run; e += kStreamThreads)
+      lb[(size_t)(j0 + e / run) * r + j0 + kPanel + e % run] = 0.0f;
+    const int n = r + 1 - j0;  // the panel's rows, the right-hand side's included
+    for (int p0 = 0; p0 < n;) {
+      const int h = tile_rows(n, p0);
+      if (h == kTileRows)
+        stream_tile<kTileRows>(mb, rb, lb, xb, wsb, ring, dblk, ild, logd, logsum, r, j0, w, p0);
+      else if (h == kTileRows / 2)
+        stream_tile<kTileRows / 2>(mb, rb, lb, xb, wsb, ring, dblk, ild, logd, logsum, r, j0, w,
+                                   p0);
+      else
+        stream_tile<kTileRows / 4>(mb, rb, lb, xb, wsb, ring, dblk, ild, logd, logsum, r, j0, w,
+                                   p0);
+      p0 += h;
     }
   }
-  // Lᵀx = y
-  for (int i = tid; i < r; i += kChunkRows) vec[i] = __ldcg(xb + i);
+  // Lᵀx = y, the vector and the warps' partial sums over the ring
+  __syncthreads();
+  float* part = ring;
+  float* vec = ring + kStreamWarps * 32;
+  for (int i = tid; i < r; i += kStreamThreads) vec[i] = __ldcg(xb + i);
   __syncthreads();
   solve_lt_streamed<kStreamWarps, false>(lb, vec, part, r);
-  for (int i = tid; i < r; i += kChunkRows) xb[i] = vec[i];
+  for (int i = tid; i < r; i += kStreamThreads) xb[i] = vec[i];
   if (tid == 0) logdet[blockIdx.x] = logsum;
 }
 
@@ -762,11 +954,13 @@ __global__ void __launch_bounds__(kTriStreamWarps * 32)
   for (int i = threadIdx.x; i < r; i += kTriStreamWarps * 32) x[row + i] = vec[i];
 }
 
-// K6/K7 streamed: dynamic shared memory a block takes at rank r
+// K6/K7 streamed: dynamic shared memory a block takes at rank r (K6: the
+// ring, the diagonal block and its scratch, or the vector with the warps'
+// partial sums over them, whichever is larger)
 int chol_streamed_smem_bytes(int r) {
-  return (int)(((size_t)kChunkRows * kPanelLd + kPanel * kPanelLd + kPanel * (kPanel + 1) +
-                kPanel + kStreamWarps * 32 + (size_t)r) *
-               sizeof(float));
+  const size_t vec = (size_t)kStreamThreads + r;
+  const size_t fixed = kStreamFixedFloats;
+  return (int)((vec > fixed ? vec : fixed) * sizeof(float));
 }
 int tri_streamed_smem_bytes(int r) {
   return (int)((kTriStreamWarps * 32 + (size_t)r) * sizeof(float));
@@ -813,6 +1007,14 @@ int launch_chol_tiled(const float* m, const float* rhs, float* l, float* x, floa
   return cudaGetLastError();
 }
 
+// K6 streamed: the kernel's dynamic shared-memory ceiling, what
+// r = kStreamMaxRank needs
+cudaError_t allow_streamed_smem() {
+  static std::atomic<unsigned> done{0};
+  return allow_smem((const void*)chol_solve_streamed_kernel,
+                    chol_streamed_smem_bytes(kStreamMaxRank), done);
+}
+
 }  // namespace
 
 extern "C" {
@@ -848,18 +1050,42 @@ int icp_chol_tiled_ctas_per_sm(int r, int warps) {
   return n;
 }
 
-// K6 streamed: any 1 ≤ r ≤ kStreamMaxRank (the wrapper takes it for r > kMaxRank)
+// K6 streamed: any 1 ≤ r ≤ kStreamMaxRank (the wrapper takes it for r > kMaxRank);
+// ws: icp_chol_streamed_ws_floats(r) floats a chain
 int icp_chol_solve_streamed(const float* m, const float* rhs, float* l, float* x,
-                            float* logdet, int batch, int r, void* stream) {
+                            float* logdet, float* ws, int batch, int r, void* stream) {
   if (batch == 0) return cudaSuccess;
   if (r > kStreamMaxRank) return cudaErrorInvalidValue;  // the wrapper refuses it first
-  static std::atomic<unsigned> done{0};
-  cudaError_t e = allow_smem((const void*)chol_solve_streamed_kernel,
-                             chol_streamed_smem_bytes(kStreamMaxRank), done);
+  cudaError_t e = allow_streamed_smem();
   if (e != cudaSuccess) return e;
-  chol_solve_streamed_kernel<<<batch, kChunkRows, chol_streamed_smem_bytes(r),
-                               (cudaStream_t)stream>>>(m, rhs, l, x, logdet, r);
+  chol_solve_streamed_kernel<<<batch, kStreamThreads, chol_streamed_smem_bytes(r),
+                               (cudaStream_t)stream>>>(m, rhs, l, x, logdet, ws, r);
   return cudaGetLastError();
+}
+
+// K6 streamed: the workspace a chain takes at rank r, in floats; -1 past
+// kStreamMaxRank
+int icp_chol_streamed_ws_floats(int r) {
+  return r > kStreamMaxRank ? -1 : (int)(ws_row((r + kPanel - 1) / kPanel, r) * kPanel);
+}
+
+// dynamic shared memory a block of the streamed K6 takes at rank r, as its
+// launch sizes it; -1 past kStreamMaxRank
+int icp_chol_streamed_smem_bytes(int r) {
+  return r > kStreamMaxRank ? -1 : chol_streamed_smem_bytes(r);
+}
+
+// blocks (chains) of the streamed K6 one SM holds at rank r (the occupancy
+// calculator: registers, shared memory, threads); -1 on an error
+int icp_chol_streamed_ctas_per_sm(int r) {
+  if (r < 1 || r > kStreamMaxRank) return -1;
+  int n = 0;
+  if (allow_streamed_smem() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, (const void*)chol_solve_streamed_kernel, kStreamThreads,
+          chol_streamed_smem_bytes(r)) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // K7 streamed: any 1 ≤ r ≤ kStreamMaxRank (the wrapper takes it for r > kRowsMaxRank)

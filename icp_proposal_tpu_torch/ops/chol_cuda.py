@@ -32,7 +32,9 @@ K1_WARPS, K6_WARPS = 4, 8  # warps per chain of K1 and K6 (kK1Warps, kK6Warps)
 ROWS_MAX_RANK = 512  # K2/K7 row kernel: 16 residual entries a lane (kRowsMaxRank)
 # K6/K7 streamed: the vector of r floats they keep in shared memory (kStreamMaxRank)
 STREAM_MAX_RANK = 16384
-PANEL = 32  # K6 streamed: columns a panel (kPanel)
+PANEL = 64  # K6 streamed: columns a panel (kPanel)
+STREAM_SLICE = 16  # K6 streamed: finished columns a stage of the update (kSlice)
+STREAM_TILE_ROWS = 64  # K6 streamed: rows of the largest row tile (kTileRows)
 
 
 def _pick_bl(r: int) -> int | None:
@@ -88,17 +90,53 @@ def tiled_ctas_per_sm(r: int, warps: int) -> int:
     return n
 
 
+def streamed_row_tiles(n: int) -> list[tuple[int, int]]:
+    """The streamed K6's row tiles of a panel of n rows (the right-hand
+    side's included), as the kernel's ``tile_rows`` cuts them: (first row
+    in the panel, rows) — 64 while more than 48 remain, then 32 while more
+    than 16 remain, then 16; the first tile takes 64 from 33 rows on, so
+    that it holds all of the diagonal block's rows."""
+    t = STREAM_TILE_ROWS
+    tiles, p0 = [], 0
+    while p0 < n:
+        rem = n - p0
+        h = t if rem > (t // 2 if p0 == 0 else 3 * t // 4) else t // 2 if rem > t // 4 else t // 4
+        tiles.append((p0, h))
+        p0 += h
+    return tiles
+
+
+def streamed_smem_bytes(r: int) -> int:
+    """Shared memory a chain of the streamed K6 takes at rank r, as its
+    launch sizes it: the cp.async ring, the 64×64 diagonal block and its
+    scratch, or the vector of the back substitution, whichever is larger."""
+    n = load_library().icp_chol_streamed_smem_bytes(r)
+    if n < 0:
+        raise ValueError(f"r={r} is over the limit r ≤ {STREAM_MAX_RANK}")
+    return n
+
+
+def streamed_ctas_per_sm(r: int) -> int:
+    """Blocks (chains) of the streamed K6 that one SM of the current card
+    holds at rank r, from CUDA's occupancy calculator."""
+    n = load_library().icp_chol_streamed_ctas_per_sm(r)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for the streamed K6 at r={r}")
+    return n
+
+
 def _check_rank(name: str, r: int, limit: int, why: str) -> None:
     if r > limit:
         raise ValueError(f"{name} takes r ≤ {limit} ({why}), got r={r}")
 
 
-def _launch_factor(name: str, m: torch.Tensor, rhs: torch.Tensor, bsz: int, r: int, dev):
+def _launch_factor(name: str, m: torch.Tensor, rhs: torch.Tensor, bsz: int, r: int, dev,
+                   *scratch: torch.Tensor):
     l = torch.empty_like(m)
     x = torch.empty_like(rhs)
     logdet = torch.empty(bsz, dtype=torch.float32, device=dev)
     launch(f"icp_{name}", dev, m.data_ptr(), rhs.data_ptr(), l.data_ptr(), x.data_ptr(),
-           logdet.data_ptr(), bsz, r)
+           logdet.data_ptr(), *(t.data_ptr() for t in scratch), bsz, r)
     return l, x, logdet
 
 
@@ -176,18 +214,23 @@ def chol_solve_streamed(m: torch.Tensor, rhs: torch.Tensor):
     Kernel K6 streamed (``csrc/chol.cu``) replaces ``_chol_blocked_kernel``
     in ``icp_proposal_tpu/ops/chol_pallas.py`` where the tiled kernel's
     packed M no longer fits a block (and, past 1,224, XLA's cholesky and
-    cho_solve, which the reference takes there).  Bound by neither its bytes
-    nor its flops at the main paths' ranks; most likely by the panels'
-    order, each waiting on its diagonal block, factored in one warp.  One
-    block of 8 warps per chain, left-looking by panels of 32 columns, 256
-    rows a chunk with a row per thread; the right-hand side rides along as
-    the matrix's row r, then Lᵀx = y from device memory in the blocked dot
+    cho_solve, which the reference takes there).  Bound by its r³/3 FP32
+    flops, held back by its phases' latency.  One block of 4 warps per chain,
+    four chains an SM, left-looking by panels of 64 columns: row tiles of
+    64 (the tail 32, 16) rows, each thread 8×4 outputs updated from a
+    three-stage cp.async ring of 16 finished columns read from a workspace
+    of the finished panels' rows (16-byte aligned whatever r is); the 64×64
+    diagonal block factored by every warp in 16×16 tiles, the rows below
+    solved against it by shuffles; the right-hand side rides along as the
+    matrix's row r, then Lᵀx = y from device memory in the blocked dot
     form."""
     bsz, r, dev = _chol_args(m, rhs)
     if dev.type == "cpu":
         return chol_solve_plain(m, rhs)
     _check_rank("chol_solve_streamed", r, STREAM_MAX_RANK, _STREAM_LIMIT)
-    out = _launch_factor("chol_solve_streamed", m, rhs, bsz, r, dev)
+    # the finished panels' rows, 16-byte aligned, which the update reads again
+    ws = torch.empty(bsz * load_library().icp_chol_streamed_ws_floats(r), device=dev)
+    out = _launch_factor("chol_solve_streamed", m, rhs, bsz, r, dev, ws)
     chol_solve_streamed.launches += 1
     return out
 

@@ -1,6 +1,6 @@
-"""Time K2, K3, K4 and K8 (or K9, K10) of one checkout of the port on one NVIDIA GPU.
+"""Time K2, K3, K4 and K8 (or K9, K10, or the streamed K6) of one checkout of the port on one NVIDIA GPU.
 
-    python3 kernel_turns.py [--root DIR] [--sass] [--probe] [--contexts]
+    python3 kernel_turns.py [--root DIR] [--sass] [--probe] [--contexts] [--streamed] [--ablate]
 
 Times K2 (``tri_solve_lt``, r = 101, beside ``torch.linalg.solve_triangular``),
 K3 (``nearest_vertices``: the shared set, P = 404 against the stand-in
@@ -54,6 +54,26 @@ held to its plain twin first at the femur shape, then one whole
 ``build_surface_index`` over the 31,715 vertices and 63,114 faces of the
 subdivision-6 patch at K = 64 (host clock, ended by a synchronize).
 
+``--streamed`` times only the streamed K6 (``chol_solve_streamed``, the
+factor of r > 320) at ``STREAMED_CASES``: r = 401 and 600 on 2,048 chains
+(the GPMM-400 and rank-600 paths) and r = 321, 401, 600, 1,024, 1,224 and
+2,048 on 256,
+each first held to ``chol_solve_plain`` (rtol 1e-4 + atol 1e-4, the
+non-SPD chain NaN).  Inputs M = I + AAᵀ are drawn on the card from a
+seeded generator.  Beside each time it prints the bound (r³/3 FP32 flops a
+chain, or M's lower triangle in and L, x, log det out over HBM) and the
+bytes this checkout's schedule moves: the workspace of finished panels
+written and read again (each row tile's rows and the panel's 64 rows, once
+per tile) and the back substitution's read of L's lower triangle, with
+their time at 3.35 TB/s.
+
+``--ablate`` (this checkout only) builds copies of ``csrc/chol.cu`` under
+``build/ablate/``, each with one phase of the streamed K6 taken out (its
+results are then wrong and not checked) or its chains an SM changed
+(checked against the plain twin), one ``nvcc`` each, all started together,
+and times them through their C entry point at r = 401 and 600 on 2,048
+chains, the list and then the list reversed (``ABLATIONS``).
+
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 ``{"root": ..., "times": {...}, "sass": {...}, "probe": {...}}`` (ms per
 call, the mean of ``REPS`` calls, each timing repeated ``TURNS`` times).
@@ -71,6 +91,30 @@ from pathlib import Path
 
 CHAINS = (256, 2048)
 REPS, TURNS = 20, 3
+# --streamed: (r, chains, calls a timing)
+STREAMED_CASES = ((401, 2048, 10), (600, 2048, 5), (321, 256, 20), (401, 256, 20),
+                  (600, 256, 10), (1024, 256, 5), (1224, 256, 4), (2048, 256, 2))
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12  # H100 SXM datasheet
+# --ablate: (name, [(text in csrc/chol.cu, its replacement)]); the phases'
+# names follow the kernel's comment, steps (1)–(5)
+_FACTOR = ("    factor_tiles<kStreamWarps>(dblk, dblk + kDiagTiles * kTileElems, ild, logd, "
+           "kPanel / kTile,\n                               tid >> 5, tid & 31);\n")
+ABLATIONS = (
+    ("as built", ()),
+    ("3 chains an SM", (("kStreamCtas = 4;", "kStreamCtas = 3;"),)),
+    ("5 chains an SM", (("kStreamCtas = 4;", "kStreamCtas = 5;"),)),
+    ("no update (1)-(2)", (("  const int nk = j0 / kSlice;", "  const int nk = 0;"),)),
+    ("no diagonal factor (3)", ((_FACTOR, "    __syncthreads();\n"),)),
+    ("no solve of the rows below (4)", (("    for (int jc = 0; jc < 4; ++jc) {\n      if (16",
+                                         "    for (int jc = 0; jc < 0; ++jc) {\n      if (16"),)),
+    ("no M loads (1)", (("if (j0 + c <= i) v = mb[(size_t)i * r + j0 + c];",
+                         "if (j0 + c <= i) v = 1.0f;"),)),
+    ("no L rows out (5)", (("    (i < r ? lb + (size_t)i * r : xb)[j0 + c] = v;\n",
+                            "    if (v == 12345.0f) xb[0] = v;\n"),)),
+    ("no zeros above the block", (("      lb[(size_t)(j0 + e / run) * r + j0 + kPanel + e % run] = 0.0f;",
+                                   "      if (e < 0) lb[0] = 0.0f;"),)),
+    ("no back substitution", (("  solve_lt_streamed<kStreamWarps, false>(lb, vec, part, r);\n", ""),)),
+)
 BFM_P = 400  # the BFM partial step's ICP queries a chain (model direction)
 BFM_NOISE = 0.005  # their offset from the target, below its mean edge (0.0069)
 # (lanes a query, K8's queries a lane) of the --probe builds, beside the
@@ -352,12 +396,166 @@ def _index_times(torch, dev, shapes, patch6):
     return out
 
 
+def streamed_bytes(r, b):
+    """Bytes the streamed K6's schedule (this checkout's ``chol_cuda``) moves
+    for b chains at rank r: M's lower triangle and the right-hand side in,
+    L (zeros above the diagonal too), x and log det out, each finished
+    panel's rows written to the workspace and read again by the update
+    (each row tile's rows that exist, and the panel's rows once per tile),
+    and the back substitution's read of L's lower triangle → {name: bytes};
+    None for a checkout without the row tiles."""
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    if not hasattr(cc, "streamed_row_tiles"):
+        return None
+    a_rows = b_rows = ws_rows = 0
+    for j0 in range(0, r, cc.PANEL):
+        w = min(cc.PANEL, r - j0)
+        tiles = cc.streamed_row_tiles(r + 1 - j0)
+        a_rows += sum(min(h, r + 1 - j0 - p0) for p0, h in tiles) * j0
+        b_rows += len(tiles) * w * j0
+        ws_rows += (r + 1 - j0) * w
+    tri = r * (r + 1) // 2
+    return {k: 4 * b * v for k, v in {
+        "in_out": tri + r + r * r + r + 1, "workspace_out": ws_rows,
+        "rereads_tile_rows": a_rows, "rereads_panel_rows": b_rows,
+        "back_substitution": tri}.items()}
+
+
+def _streamed_times(torch, dev):
+    """The streamed K6 at ``STREAMED_CASES``, each held to the plain twin
+    first → {"r=…@chains": {"ms": [...], ...}}."""
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    out = {}
+    for r, b, reps in STREAMED_CASES:
+        gen = torch.Generator(device=dev).manual_seed(r + b)
+        m = torch.empty(b, r, r, device=dev)
+        for lo in range(0, b, 64):
+            a = torch.randn(min(64, b - lo), r, 3 * r, generator=gen, device=dev) * 0.1
+            m[lo:lo + 64] = a @ a.transpose(1, 2)
+            del a
+        m += torch.eye(r, device=dev)
+        m[b // 2, r // 2, r // 2] = -1.0
+        rhs = torch.randn(b, r, generator=gen, device=dev)
+        got, want = cc.chol_solve_streamed(m, rhs), cc.chol_solve_plain(m, rhs)
+        good = torch.arange(b, device=dev) != b // 2
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[good], w[good], rtol=1e-4, atol=1e-4)
+        if not (torch.isnan(got[1][b // 2]).all() and torch.isnan(got[2][b // 2])):
+            raise AssertionError(f"r={r}: a non-SPD pivot must give NaN")
+        del want
+        ms = [_time_ms(torch, lambda: cc.chol_solve_streamed(m, rhs), reps)
+              for _ in range(TURNS)]
+        n_bytes = streamed_bytes(r, b)
+        tri = r * (r + 1) // 2
+        io = 4 * b * (tri + r + r * r + r + 1)  # M's lower triangle, rhs in; L, x, log det out
+        t_flops, t_io = b * r ** 3 / 3 / PEAK_FP32_FLOPS, io / PEAK_HBM_BYTES
+        rec = {"ms": ms, "bound_ms": 1e3 * max(t_flops, t_io),
+               "bound_by": "operations" if t_flops >= t_io else "bytes", "bytes": n_bytes}
+        line = (f"[streamed] r={r} on {b} chains: {', '.join(f'{t:.4f}' for t in ms)} ms; "
+                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        if n_bytes:
+            rec["design_bytes_ms"] = 1e3 * sum(n_bytes.values()) / PEAK_HBM_BYTES
+            line += (f", the design's bytes {sum(n_bytes.values()) / 1e9:.3f} GB = "
+                     f"{rec['design_bytes_ms']:.4f} ms")
+        if hasattr(cc, "streamed_ctas_per_sm"):
+            rec.update(ctas_per_sm=cc.streamed_ctas_per_sm(r),
+                       smem_bytes=cc.streamed_smem_bytes(r), panel=cc.PANEL)
+            line += f"; {rec['ctas_per_sm']} chains an SM, {rec['smem_bytes']} B shared"
+        out[f"r={r}@{b}"] = rec
+        print(line, flush=True)
+        del m, rhs, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ablate(torch, dev):
+    """The streamed K6 built from each of ``ABLATIONS`` → {"r=…@chains":
+    {name: [ms, ms]}}, and each build's ptxas registers and spill bytes."""
+    import ctypes
+
+    from icp_proposal_tpu_torch import _build
+    from icp_proposal_tpu_torch.ops import chol_cuda as cc
+
+    src = (_build.CSRC / "chol.cu").read_text()
+    nvcc, procs, libs, ptxas = _build.find_nvcc(), [], {}, {}
+    for k, (name, edits) in enumerate(ABLATIONS):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise AssertionError(f"ablation {name!r}: {old!r} is not in chol.cu")
+            text = text.replace(old, new)
+        work = _build.BUILD_DIR.parent / "ablate" / str(k)
+        work.mkdir(parents=True, exist_ok=True)
+        (work / "chol.cu").write_text(text)
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(work / "libchol.so"),
+               str(work / "chol.cu")]
+        procs.append((name, work, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, work, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"ablation {name!r} failed to build:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "chol_solve_streamed_kernel" in line:
+                ptxas[name] = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+        lib = ctypes.CDLL(str(work / "libchol.so"))
+        lib.icp_chol_solve_streamed.argtypes = [P, P, P, P, P, P, I, I, P]
+        lib.icp_chol_streamed_ws_floats.argtypes = [I]
+        libs[name] = lib
+    out = {}
+    for r, b, reps in STREAMED_CASES[:2]:
+        gen = torch.Generator(device=dev).manual_seed(r + b)
+        m = torch.empty(b, r, r, device=dev)
+        for lo in range(0, b, 64):
+            a = torch.randn(min(64, b - lo), r, 3 * r, generator=gen, device=dev) * 0.1
+            m[lo:lo + 64] = a @ a.transpose(1, 2)
+            del a
+        m += torch.eye(r, device=dev)
+        rhs = torch.randn(b, r, generator=gen, device=dev)
+        want = cc.chol_solve_plain(m, rhs)
+        l, x, ld = torch.empty_like(m), torch.empty_like(rhs), torch.empty(b, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        times = {name: [] for name, _ in ABLATIONS}
+        names = [name for name, _ in ABLATIONS]
+        for name in names + names[::-1]:
+            lib = libs[name]
+            ws = torch.empty(b * lib.icp_chol_streamed_ws_floats(r), device=dev)
+
+            def call(lib=lib, ws=ws):
+                if lib.icp_chol_solve_streamed(m.data_ptr(), rhs.data_ptr(), l.data_ptr(),
+                                               x.data_ptr(), ld.data_ptr(), ws.data_ptr(), b,
+                                               r, stream):
+                    raise RuntimeError(f"ablation {name!r}: launch failed")
+
+            call()
+            if not name.startswith("no "):
+                torch.cuda.synchronize()
+                for got, w in zip((l, x, ld), want):
+                    torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-4)
+            times[name].append(_time_ms(torch, call, reps))
+            del ws
+        out[f"r={r}@{b}"] = times
+        for name in names:
+            print(f"[ablate] r={r} on {b} chains, {name}: "
+                  f"{', '.join(f'{t:.4f}' for t in times[name])} ms; {ptxas.get(name)}",
+                  flush=True)
+        del m, rhs, want, l, x
+        torch.cuda.empty_cache()
+    return {"times": out, "ptxas": ptxas}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--contexts", action="store_true")
+    ap.add_argument("--streamed", action="store_true")
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -385,6 +583,11 @@ def main() -> int:
     print(f"[device] nvidia-smi: {smi.splitlines()[0]}")
     dev = torch.device("cuda", 0)
     _build.build_library()
+    if args.streamed or args.ablate:
+        print(json.dumps({"root": str(root), "device": smi.splitlines()[0],
+                          "streamed": _streamed_times(torch, dev) if args.streamed else None,
+                          "ablate": _ablate(torch, dev) if args.ablate else None}))
+        return 0
     data = load_standin_femur_data(device=dev)
     ctx = make_icp_proposal_setup(data)[0]
     index = ctx.index

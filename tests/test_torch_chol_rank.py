@@ -6,14 +6,18 @@ The JAX package serves every rank: its blocked Pallas kernels wherever
 solve_triangular above.  On the CPU: the plain twins against the blocked
 kernels in interpret mode at r = 321, 513, 601 (the factor; 1,224 too for
 the solve) and against the XLA route at r = 1,300; a float32 replay of the
-streamed factor's schedule (panels of 32 columns, the right-hand side as
-row r, the update 32 finished columns at a time, the diagonal block with
-identity past the matrix, the rows below, log det in pivot order, then the
-blocked dot-form back substitution) and of the streamed solve, held to the
-plain twins with non-SPD pivots in the first, a middle and the last panel;
-the wrapper's constants against the source's.  On the card (marker
-``cuda``): both kernels against the twins from r = 321 to 2,048, at 4,096
-and at the limit ``STREAM_MAX_RANK``, NaN pivots included, and past it.
+streamed factor's schedule (panels of 64 columns, the right-hand side as
+row r, row tiles of 64, 32 and 16 rows, the update's depth split among
+groups of a tile's threads and their sums added in group order, the 64×64
+diagonal block factored as K1's 16×16 tiles with identity past the matrix,
+the rows below solved against it, log det in pivot order, then the blocked
+dot-form back substitution) and of the streamed solve, held to the plain
+twins with non-SPD pivots in the first, a middle and the last panel, at
+ranks on the panels' edges (r ≡ 0, 1, 63 mod 64); the row-tile rule; the
+wrapper's constants against the source's.  On the card (marker ``cuda``):
+both kernels against the twins from r = 321 to 2,048 (the panels' edges
+included, with 16- and 4-byte copies), at 4,096 and at the limit
+``STREAM_MAX_RANK``, NaN pivots included, and past it.
 
 Tolerance: rtol 1e-4, atol 1e-4 on L, x and log det, as for K1/K2 — float32
 factorizations that sum in different orders.  The interpret-mode blocked
@@ -27,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_chol_blocked import _pallas_blocked
-from test_torch_chol_tiled import _check_nan_factor
+from test_torch_chol_tiled import _check_nan_factor, replay_tiled
 from torch_threads import one_torch_thread  # noqa: F401
 
 from icp_proposal_tpu_torch.ops import chol_cuda
@@ -142,38 +146,44 @@ def replay_streamed(m: torch.Tensor, rhs: torch.Tensor):
     a[:, r] = rhs
     lmat = torch.zeros(b, r + 1, r)
     logsum = torch.zeros(b)
-    nan = torch.tensor(float("nan"))
+    # the float4 chunk of its stage each finished column falls in
+    chunk = (torch.arange(r) % chol_cuda.STREAM_SLICE) // 4
     for j0 in range(0, r, P):
         w = min(P, r - j0)
-        acc = a[:, j0:, j0:j0 + w].clone()
-        for k0 in range(0, j0, P):  # the update, 32 finished columns at a time
-            acc -= lmat[:, j0:, k0:k0 + P] @ lmat[:, j0:j0 + w, k0:k0 + P].mT
-        d = torch.eye(P).repeat(b, 1, 1)  # the diagonal block, identity past r
-        d[:, :w, :w] = torch.tril(acc[:, :w])
-        ild = torch.zeros(b, P)
-        for j in range(P):
-            piv = d[:, j, j]
-            piv = torch.where(piv > 0, piv, nan)
-            s = torch.sqrt(piv)
-            if j < w:
-                logsum = logsum + torch.log(piv)
-            ild[:, j] = 1.0 / s
-            d[:, j + 1:, j] *= ild[:, j:j + 1]
-            d[:, j, j] = s
-            col = d[:, j + 1:, j]
-            d[:, j + 1:, j + 1:] -= torch.tril(col[:, :, None] * col[:, None, :])
-        x = torch.zeros(b, r + 1 - j0 - w, P)  # the rows below: X·L_ddᵀ = A
-        x[:, :, :w] = acc[:, w:]
-        for c in range(P):
-            x[:, :, c] *= ild[:, c:c + 1]
-            x[:, :, c + 1:] -= x[:, :, c:c + 1] * d[:, None, c + 1:, c]
-        lmat[:, j0:j0 + w, j0:j0 + w] = torch.tril(d[:, :w, :w])
-        lmat[:, j0 + w:, j0:j0 + w] = x[:, :, :w]
+        for p0, h in chol_cuda.streamed_row_tiles(r + 1 - j0):
+            i0, i1 = j0 + p0, min(j0 + p0 + h, r + 1)
+            # the update over the finished columns: the tile's groups take
+            # chunk g·(4/G)…(g+1)·(4/G) − 1 of every stage, group 0 from M,
+            # and their sums go to group 0's in group order
+            groups = chol_cuda.STREAM_TILE_ROWS // h
+            acc = a[:, i0:i1, j0:j0 + w]
+            for g in range(groups):
+                kg = torch.nonzero(chunk[:j0] // (4 // groups) == g)[:, 0]
+                part = lmat[:, i0:i1, kg] @ lmat[:, j0:j0 + w, kg].mT
+                acc = acc - part if g == 0 else acc + -part
+            if p0 == 0:  # the diagonal block, identity past r, as K1's tiles
+                blk = torch.eye(P).repeat(b, 1, 1)
+                blk[:, :w, :w] = torch.tril(acc[:, :w])
+                dfac = replay_tiled(blk, torch.zeros(b, P))[0]
+                ild = 1.0 / torch.diagonal(dfac, dim1=-2, dim2=-1)
+                logd = torch.log(torch.diagonal(dfac, dim1=-2, dim2=-1) ** 2)
+                for j in range(w):
+                    logsum = logsum + logd[:, j]
+                lmat[:, j0:j0 + w, j0:j0 + w] = dfac[:, :w, :w]
+                acc = acc[:, w:]
+                i0 += w
+            # the rows below: X·L_ddᵀ = A with the unscaled column c taken
+            # off the later ones against L[col][c]/√d_c, the scale last
+            x = acc.clone()
+            for c in range(w):
+                lc = dfac[:, c + 1:w, c] * ild[:, c:c + 1]
+                x[:, :, c + 1:] -= x[:, :, c:c + 1] * lc[:, None, :]
+            lmat[:, i0:i1, j0:j0 + w] = x * ild[:, None, :w]
     chol = lmat[:, :r].contiguous()
     return chol, replay_solve_lt(chol, lmat[:, r], guard=False), logsum
 
 
-@pytest.mark.parametrize("r", [321, 401, 600, 1224])
+@pytest.mark.parametrize("r", [321, 383, 384, 401, 600, 1224])
 def test_streamed_schedule_replay_matches_plain(r):
     """The replay against ``chol_solve_plain`` on 4 chains: chain 0 SPD,
     chains 1–3 not SPD from a pivot in the first panel, a middle one and
@@ -218,13 +228,29 @@ def test_streamed_solve_replay_matches_plain(r):
 
 
 def test_streamed_constants_match_the_kernel():
-    """The wrapper's panel width (the replay's), row-kernel limit and
-    streamed limit are the kernel's ``constexpr`` constants."""
+    """The wrapper's panel width, stage depth and largest row tile (the
+    replay's), row-kernel limit and streamed limit are the kernel's
+    ``constexpr`` constants."""
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", SRC.read_text()))
-    assert int(consts["kPanel"]) == chol_cuda.PANEL == 32  # a lane a column
+    assert int(consts["kPanel"]) == chol_cuda.PANEL == 64
+    assert int(consts["kSlice"]) == chol_cuda.STREAM_SLICE == 16  # four float4 chunks
+    assert int(consts["kTileRows"]) == chol_cuda.STREAM_TILE_ROWS == 64
     assert int(consts["kRowsMaxRank"]) == chol_cuda.ROWS_MAX_RANK
     assert int(consts["kStreamMaxRank"]) == chol_cuda.STREAM_MAX_RANK
     assert chol_cuda.MAX_RANK < chol_cuda.ROWS_MAX_RANK < chol_cuda.STREAM_MAX_RANK
+
+
+@pytest.mark.parametrize("n", [2, 16, 17, 18, 32, 33, 48, 49, 64, 65, 81, 97, 113, 402, 601])
+def test_streamed_row_tiles(n):
+    """A panel's row tiles cover its n rows in order and waste fewer than
+    16 (fewer than 32 where n is 33–48: the first tile holds the diagonal
+    block's min(64, n − 1) rows)."""
+    tiles = chol_cuda.streamed_row_tiles(n)
+    assert [p0 for p0, _ in tiles] == [sum(h for _, h in tiles[:t]) for t in range(len(tiles))]
+    end = tiles[-1][0] + tiles[-1][1]
+    assert n <= end < n + (32 if 32 < n <= 48 else 16)
+    assert tiles[0][1] >= min(chol_cuda.PANEL, n - 1)
+    assert all(h in (16, 32, 64) for _, h in tiles)
 
 
 # --------------------------------------------------------------------------
@@ -238,7 +264,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [321, 352, 401, 513, 600, 1024, 1224, 2048])
+@pytest.mark.parametrize("r", [321, 352, 383, 384, 385, 401, 513, 600, 639, 640, 641, 1024,
+                               1224, 2048])
 def test_cuda_streamed_kernels_match_plain(cuda, r):
     """K6 (``chol_solve`` routes past 320 to the streamed factor) and K7
     (past 512 to the streamed solve) against the twins, M's upper triangle
