@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from icp_proposal_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "icp_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -133,7 +135,13 @@ def build_library(build_dir: Path = BUILD_DIR, extra_flags: tuple = ()) -> tuple
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    return bind_library(build_library()[0])
+    """The built library, built or found at the first call (the set-up
+    span ``setup.kernels``); ``compiled`` on it says whether nvcc ran."""
+    with span("setup.kernels"):
+        path, log = build_library()
+        lib = bind_library(path)
+    lib.compiled = bool(log)
+    return lib
 
 
 def bind_library(path: Path) -> ctypes.CDLL:

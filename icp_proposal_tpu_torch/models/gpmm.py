@@ -23,6 +23,7 @@ import torch
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.mesh import TriangleMesh
 from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve, tri_solve_lt
+from icp_proposal_tpu_torch.utils.profiling import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _PROJECTION_SIGMA2 = 1e-5  # scalismo StatisticalMeshModel.coefficients regularizer
@@ -66,22 +67,23 @@ def make_gpmm(ref_points, cells, mean_disp, basis, variance, noise_variance=0.0,
     and the projection factor computed in float64 on the host and stored
     float32, exactly as ``icp_proposal_tpu.models.gpmm.make_gpmm`` does; the
     tensors go to ``device`` (the card unless ``device="cpu"``)."""
-    from icp_proposal_tpu_torch.convert import gpmm_from_arrays
-    from icp_proposal_tpu_torch.ops.morton import morton_sort_faces
+    with span("setup.model"):
+        from icp_proposal_tpu_torch.convert import gpmm_from_arrays
+        from icp_proposal_tpu_torch.ops.morton import morton_sort_faces
 
-    device = resolve_device(device)
-    cells = np.asarray(cells)[morton_sort_faces(ref_points, cells)]
-    basis64 = np.asarray(basis, dtype=np.float64)
-    var64 = np.asarray(variance, dtype=np.float64)
-    v, _, r = basis64.shape
-    q = (basis64 * np.sqrt(var64)[None, None, :]).reshape(3 * v, r)
-    gram = q.T @ q + _PROJECTION_SIGMA2 * np.eye(r)
-    chol = np.linalg.cholesky(gram)
-    return gpmm_from_arrays(
-        ref_points=ref_points, cells=cells, mean_disp=mean_disp, basis=basis,
-        variance=variance, noise_variance=noise_variance,
-        sbasis=q.reshape(v, 3, r), coeff_chol=chol, device=device,
-    )
+        device = resolve_device(device)
+        cells = np.asarray(cells)[morton_sort_faces(ref_points, cells)]
+        basis64 = np.asarray(basis, dtype=np.float64)
+        var64 = np.asarray(variance, dtype=np.float64)
+        v, _, r = basis64.shape
+        q = (basis64 * np.sqrt(var64)[None, None, :]).reshape(3 * v, r)
+        gram = q.T @ q + _PROJECTION_SIGMA2 * np.eye(r)
+        chol = np.linalg.cholesky(gram)
+        return gpmm_from_arrays(
+            ref_points=ref_points, cells=cells, mean_disp=mean_disp, basis=basis,
+            variance=variance, noise_variance=noise_variance,
+            sbasis=q.reshape(v, 3, r), coeff_chol=chol, device=device,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +138,9 @@ class PosteriorFactors(NamedTuple):
 
 def _factor(m_mat: torch.Tensor, rhs: torch.Tensor) -> PosteriorFactors:
     """Symmetrize M against round-off, then factor and solve (K1)."""
-    m_mat = 0.5 * (m_mat + m_mat.transpose(-1, -2))
-    chol, alpha_hat, logdet = chol_solve(m_mat.contiguous(), rhs.contiguous())
+    with span("chol.factor"):
+        m_mat = 0.5 * (m_mat + m_mat.transpose(-1, -2))
+        chol, alpha_hat, logdet = chol_solve(m_mat.contiguous(), rhs.contiguous())
     return PosteriorFactors(alpha_hat=alpha_hat, chol_m=chol, logdet_m=logdet)
 
 
@@ -152,20 +155,21 @@ def posterior_factors_anisotropic(
 ) -> PosteriorFactors:
     """Posterior factors for per-chain observation ids (the ICP target
     direction): gather Qᵢ, precision-scale, contract to M = I + QᵀPQ."""
-    ids = ids.long()
-    q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
-    resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
-    a = 1.0 / (noise_along_normal * noise_along_normal)
-    b = 1.0 / (tangential_noise * tangential_noise)
-    ntq = torch.einsum("bmi,bmir->bmr", normals, q_o)  # [B, m, r]
-    pq = b * q_o + (a - b) * normals[..., None] * ntq[:, :, None, :]
-    pq = pq * mask[..., None, None]
-    bsz, m, _, r = q_o.shape
-    qf = q_o.reshape(bsz, 3 * m, r)
-    pqf = pq.reshape(bsz, 3 * m, r)
-    eye = torch.eye(r, dtype=q_o.dtype, device=q_o.device)
-    m_mat = eye + qf.transpose(1, 2) @ pqf
-    rhs = torch.einsum("bmir,bmi->br", pq, resid)
+    with span("gpmm.assemble"):
+        ids = ids.long()
+        q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
+        resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
+        a = 1.0 / (noise_along_normal * noise_along_normal)
+        b = 1.0 / (tangential_noise * tangential_noise)
+        ntq = torch.einsum("bmi,bmir->bmr", normals, q_o)  # [B, m, r]
+        pq = b * q_o + (a - b) * normals[..., None] * ntq[:, :, None, :]
+        pq = pq * mask[..., None, None]
+        bsz, m, _, r = q_o.shape
+        qf = q_o.reshape(bsz, 3 * m, r)
+        pqf = pq.reshape(bsz, 3 * m, r)
+        eye = torch.eye(r, dtype=q_o.dtype, device=q_o.device)
+        m_mat = eye + qf.transpose(1, 2) @ pqf
+        rhs = torch.einsum("bmir,bmi->br", pq, resid)
     return _factor(m_mat, rhs)
 
 
@@ -186,20 +190,21 @@ def posterior_factors_anisotropic_static(
         M = I + b·Σᵢ wᵢ QᵢᵀQᵢ + (a−b)·Σᵢ wᵢ gᵢgᵢᵀ,   gᵢ = Qᵢᵀnᵢ
 
     so no [B, m, 3, r] tensor is ever built."""
-    a = 1.0 / (noise_along_normal * noise_along_normal)
-    b = 1.0 / (tangential_noise * tangential_noise)
-    w = mask.to(torch.float32)  # [B, m]
-    resid = obs_disp - mean_static  # [B, m, 3]
-    ntq = torch.einsum("bmi,mir->bmr", normals, q_static)  # [B, m, r]
-    bsz, m, r = ntq.shape
-    eye = torch.eye(r, dtype=torch.float32, device=ntq.device)
-    gram_sum = (w @ gram_static.reshape(m, r * r)).reshape(bsz, r, r)
-    outer = (ntq * w[..., None]).transpose(1, 2) @ ntq  # Σᵢ wᵢ gᵢgᵢᵀ
-    m_mat = eye + b * gram_sum + (a - b) * outer
-    n_dot_y = torch.sum(normals * resid, dim=-1)  # [B, m]
-    rhs = b * ((w[..., None] * resid).reshape(bsz, 3 * m)
-               @ q_static.reshape(3 * m, r)) + (a - b) * torch.einsum(
-        "bmr,bm->br", ntq, w * n_dot_y)
+    with span("gpmm.assemble"):
+        a = 1.0 / (noise_along_normal * noise_along_normal)
+        b = 1.0 / (tangential_noise * tangential_noise)
+        w = mask.to(torch.float32)  # [B, m]
+        resid = obs_disp - mean_static  # [B, m, 3]
+        ntq = torch.einsum("bmi,mir->bmr", normals, q_static)  # [B, m, r]
+        bsz, m, r = ntq.shape
+        eye = torch.eye(r, dtype=torch.float32, device=ntq.device)
+        gram_sum = (w @ gram_static.reshape(m, r * r)).reshape(bsz, r, r)
+        outer = (ntq * w[..., None]).transpose(1, 2) @ ntq  # Σᵢ wᵢ gᵢgᵢᵀ
+        m_mat = eye + b * gram_sum + (a - b) * outer
+        n_dot_y = torch.sum(normals * resid, dim=-1)  # [B, m]
+        rhs = b * ((w[..., None] * resid).reshape(bsz, 3 * m)
+                   @ q_static.reshape(3 * m, r)) + (a - b) * torch.einsum(
+            "bmr,bm->br", ntq, w * n_dot_y)
     return _factor(m_mat, rhs)
 
 
@@ -231,11 +236,12 @@ def posterior_factors_isotropic(
     rows, rhs = (Q/σ²)ᵀỹ, factored and solved by K1 (r ≤ 104) or K6.  The
     deterministic ICP solves the same system scaled by σ²
     (``registration.icp_fitting._regression_mean``)."""
-    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=mask.device)
-    if sigma2.dim() == 1:
-        sigma2 = sigma2[:, None]
-    gram, rhs = isotropic_system(gpmm, ids, obs_disp, mask / sigma2)
-    gram.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    with span("gpmm.assemble"):
+        sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=mask.device)
+        if sigma2.dim() == 1:
+            sigma2 = sigma2[:, None]
+        gram, rhs = isotropic_system(gpmm, ids, obs_disp, mask / sigma2)
+        gram.diagonal(dim1=-2, dim2=-1).add_(1.0)
     return _factor(gram, rhs)
 
 

@@ -38,6 +38,7 @@ from icp_proposal_tpu_torch.ops.closest_point_cuda import (
     nearest_vertices,
     refine_shortlist,
 )
+from icp_proposal_tpu_torch.utils.profiling import span
 
 INDEX_K = 64  # the reference's shortlist width (context.build_target_context)
 COARSE_MODES = ("exact", "dot")  # K3, K8
@@ -210,17 +211,19 @@ def closest_auto(queries, points, cells, index: SurfaceIndex | None):
     cells [F, 3]): through the index when there is one, else the dense
     kernel K5.  Dispatch depends only on the index's presence, decided when
     the context was built."""
-    if index is not None:
-        return index_closest(index, queries)
-    return closest_points_on_surface(queries.contiguous(), points,
-                                     cells.to(torch.int32))
+    with span("surface.query"):
+        if index is not None:
+            return index_closest(index, queries)
+        return closest_points_on_surface(queries.contiguous(), points,
+                                         cells.to(torch.int32))
 
 
 def distances_auto(queries, points, cells, index: SurfaceIndex | None):
     """(d2, face_idx) (see ``closest_auto``)."""
-    if index is not None:
-        return index_distances(index, queries)
-    return surface_distances_auto(queries.contiguous(), points, cells.to(torch.int32))
+    with span("surface.query"):
+        if index is not None:
+            return index_distances(index, queries)
+        return surface_distances_auto(queries.contiguous(), points, cells.to(torch.int32))
 
 
 def validate_index(index: SurfaceIndex, queries, atol: float = 1e-4,

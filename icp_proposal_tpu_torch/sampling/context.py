@@ -15,6 +15,7 @@ from icp_proposal_tpu_torch.ops.surface_index import (
     build_surface_index,
     check_coarse,
 )
+from icp_proposal_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -40,23 +41,24 @@ def build_target_context(target: TriangleMesh, boundary_mask=None,
     it every closest-point query takes the dense kernel K5.  coarse: the
     index's coarse pass, "exact" (K3) or "dot" (K8).  Closest-point dispatch
     depends only on what is decided here."""
-    check_coarse(coarse)
-    device = resolve_device(device)
-    points = np.array(target.points, np.float32)  # a writable copy
-    cells = np.asarray(target.cells)
-    if boundary_mask is None:
-        boundary_mask = boundary_vertex_mask(cells, len(points))
-    if morton_faces:
-        cells = cells[morton_sort_faces(points, cells)]
-    # the points go to the device once; the index shares them and its tri
-    points_t = torch.as_tensor(points, device=device)
-    cells_t = torch.as_tensor(cells, dtype=torch.int64, device=device)
-    index = (build_surface_index(points_t, cells_t, k=index_k, coarse=coarse, device=device)
-             if build_index else None)
-    return TargetContext(
-        points=points_t,
-        cells=cells_t,
-        tri=index.tri if index is not None else points_t[cells_t],
-        boundary=torch.as_tensor(np.asarray(boundary_mask, bool), device=device),
-        index=index,
-    )
+    with span("setup.context"):
+        check_coarse(coarse)
+        device = resolve_device(device)
+        points = np.array(target.points, np.float32)  # a writable copy
+        cells = np.asarray(target.cells)
+        if boundary_mask is None:
+            boundary_mask = boundary_vertex_mask(cells, len(points))
+        if morton_faces:
+            cells = cells[morton_sort_faces(points, cells)]
+        # the points go to the device once; the index shares them and its tri
+        points_t = torch.as_tensor(points, device=device)
+        cells_t = torch.as_tensor(cells, dtype=torch.int64, device=device)
+        index = (build_surface_index(points_t, cells_t, k=index_k, coarse=coarse,
+                                     device=device) if build_index else None)
+        return TargetContext(
+            points=points_t,
+            cells=cells_t,
+            tri=index.tri if index is not None else points_t[cells_t],
+            boundary=torch.as_tensor(np.asarray(boundary_mask, bool), device=device),
+            index=index,
+        )

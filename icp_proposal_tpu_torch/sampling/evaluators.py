@@ -35,6 +35,7 @@ from icp_proposal_tpu_torch.ops.surface_index import distances_auto
 from icp_proposal_tpu_torch.ops.surface_sampling import seeded_vertex_subset
 from icp_proposal_tpu_torch.sampling.context import TargetContext
 from icp_proposal_tpu_torch.sampling.state import FitState
+from icp_proposal_tpu_torch.utils.profiling import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -104,37 +105,38 @@ class EvaluatorProgram:
 
     def __init__(self, gpmm, target_ctx: TargetContext, specs, include_prior,
                  model_boundary):
-        for s in specs:
-            if not isinstance(s, (IndependentPointsSpec, HausdorffSpec,
-                                  CollectiveAvgMaxSpec, AcceptAllSpec)):
-                raise TypeError(f"unknown evaluator spec {s}")
-        self.gpmm = gpmm
-        self.ctx = target_ctx
-        self.specs = tuple(specs)
-        self.include_prior = include_prior
-        self.named_keys: List[str] = (["product"] + (["prior"] if include_prior else [])
-                                      + [s.name for s in self.specs])
-        dev = gpmm.device
-        cells = gpmm.cells.cpu().numpy()
-        self._model_boundary = torch.as_tensor(model_boundary, device=dev).bool()
-        # int32 cells for K5
-        self._model_cells = torch.as_tensor(cells, dtype=torch.int32, device=dev)
-        self._target_cells = target_ctx.cells.to(torch.int32)
-        ref = gpmm.ref_points.cpu().numpy()
-        tpts = target_ctx.points.cpu().numpy()
-        # the reference's seeded, Morton-ordered evaluation subsets
-        self._model_ids, self._target_ids = {}, {}
-        for s in self.specs:
-            if isinstance(s, (IndependentPointsSpec, CollectiveAvgMaxSpec)):
-                self._model_ids[s.name] = np.asarray(morton_sort_ids(
-                    ref, seeded_vertex_subset(gpmm.num_points, s.n_points, seed=1024)))
-                self._target_ids[s.name] = np.asarray(morton_sort_ids(
-                    tpts, seeded_vertex_subset(len(tpts), s.n_points, seed=2048)))
-        self._model_ids_t = {n: torch.as_tensor(ids, dtype=torch.int64, device=dev)
-                             for n, ids in self._model_ids.items()}
-        self._target_q = {n: target_ctx.points[torch.as_tensor(ids, dtype=torch.int64,
-                                                               device=dev)]
-                          for n, ids in self._target_ids.items()}
+        with span("setup.evaluator"):
+            for s in specs:
+                if not isinstance(s, (IndependentPointsSpec, HausdorffSpec,
+                                      CollectiveAvgMaxSpec, AcceptAllSpec)):
+                    raise TypeError(f"unknown evaluator spec {s}")
+            self.gpmm = gpmm
+            self.ctx = target_ctx
+            self.specs = tuple(specs)
+            self.include_prior = include_prior
+            self.named_keys: List[str] = (["product"] + (["prior"] if include_prior else [])
+                                          + [s.name for s in self.specs])
+            dev = gpmm.device
+            cells = gpmm.cells.cpu().numpy()
+            self._model_boundary = torch.as_tensor(model_boundary, device=dev).bool()
+            # int32 cells for K5
+            self._model_cells = torch.as_tensor(cells, dtype=torch.int32, device=dev)
+            self._target_cells = target_ctx.cells.to(torch.int32)
+            ref = gpmm.ref_points.cpu().numpy()
+            tpts = target_ctx.points.cpu().numpy()
+            # the reference's seeded, Morton-ordered evaluation subsets
+            self._model_ids, self._target_ids = {}, {}
+            for s in self.specs:
+                if isinstance(s, (IndependentPointsSpec, CollectiveAvgMaxSpec)):
+                    self._model_ids[s.name] = np.asarray(morton_sort_ids(
+                        ref, seeded_vertex_subset(gpmm.num_points, s.n_points, seed=1024)))
+                    self._target_ids[s.name] = np.asarray(morton_sort_ids(
+                        tpts, seeded_vertex_subset(len(tpts), s.n_points, seed=2048)))
+            self._model_ids_t = {n: torch.as_tensor(ids, dtype=torch.int64, device=dev)
+                                 for n, ids in self._model_ids.items()}
+            self._target_q = {n: target_ctx.points[torch.as_tensor(ids, dtype=torch.int64,
+                                                                   device=dev)]
+                              for n, ids in self._target_ids.items()}
 
     def model_ids(self, spec_name: str = "distance"):
         """A likelihood spec's seeded model-vertex subset (numpy)."""
@@ -161,8 +163,9 @@ class EvaluatorProgram:
             terms.append(torch.sum(gaussian_logpdf(torch.sqrt(shared_d2), 0.0,
                                                    spec.sigma), dim=-1))
         if spec.mode in ("target_to_model", "symmetric"):
-            d2, _ = surface_distances_auto(self._target_q[spec.name], points,
-                                           self._model_cells)
+            with span("surface.query"):
+                d2, _ = surface_distances_auto(self._target_q[spec.name], points,
+                                               self._model_cells)
             terms.append(torch.sum(gaussian_logpdf(torch.sqrt(d2), 0.0, spec.sigma),
                                    dim=-1))
         if spec.mode == "symmetric":
@@ -171,8 +174,9 @@ class EvaluatorProgram:
 
     def _hausdorff(self, spec: HausdorffSpec, points):
         # max statistics go through the dense kernel, never the shortlist
-        d2_m2t, _ = surface_distances_auto(points, self.ctx.points, self._target_cells)
-        d2_t2m, _ = surface_distances_auto(self.ctx.points, points, self._model_cells)
+        with span("surface.query"):
+            d2_m2t, _ = surface_distances_auto(points, self.ctx.points, self._target_cells)
+            d2_t2m, _ = surface_distances_auto(self.ctx.points, points, self._model_cells)
         hd = torch.sqrt(torch.maximum(torch.amax(d2_m2t, dim=-1),
                                       torch.amax(d2_t2m, dim=-1)))
         return exponential_logpdf(hd, spec.rate)
@@ -181,7 +185,8 @@ class EvaluatorProgram:
         # exact dense queries in both directions: the max term is a max
         # statistic too
         def masked_avg_max(queries, surf_points, cells, boundary):
-            cp, d2, fidx = closest_points_on_surface(queries, surf_points, cells)
+            with span("surface.query"):
+                cp, d2, fidx = closest_points_on_surface(queries, surf_points, cells)
             near = nearest_vertex_of_faces(cells, fidx, cp, surf_points)
             keep = ~boundary[near]
             d = torch.sqrt(d2)

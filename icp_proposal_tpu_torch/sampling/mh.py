@@ -28,6 +28,7 @@ from icp_proposal_tpu_torch.sampling.evaluators import (
 )
 from icp_proposal_tpu_torch.sampling.proposals import IcpComponent, MixtureProgram
 from icp_proposal_tpu_torch.sampling.state import FitState, transformed_points
+from icp_proposal_tpu_torch.utils.profiling import span
 
 
 class _FusionPlan(NamedTuple):
@@ -162,72 +163,81 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
     target-surface closest-point pass between the model-direction ICP
     correspondence and the Euclidean evaluator when the configuration allows
     it; the results are identical to separate passes."""
-    # gradient-informed components differentiate the target density itself
-    mixture.bind_target(evaluator)
-    plan = _fusion_plan(mixture, evaluator) if fuse else None
-    normals_of = _normals_of(gpmm, mixture)
-    icp_idx = sorted(mixture.icp_components)
+    with span("setup.step"):
+        # gradient-informed components differentiate the target density itself
+        mixture.bind_target(evaluator)
+        plan = _fusion_plan(mixture, evaluator) if fuse else None
+        normals_of = _normals_of(gpmm, mixture)
+        icp_idx = sorted(mixture.icp_components)
 
     def step(carry: MhCarry, noise: StepNoise | None = None,
              generator: torch.Generator | None = None):
-        state = carry.state
-        if noise is None:
-            noise = draw_noise(mixture, state.coeffs.shape[0], generator)
-        factors_cur = dict(zip(icp_idx, carry.icp_factors))
-        scales = (torch.exp(carry.adapt_log_scales) if mixture.adapt is not None
-                  else None)
+        with span("mh.step"):
+            state = carry.state
+            if noise is None:
+                noise = draw_noise(mixture, state.coeffs.shape[0], generator)
+            factors_cur = dict(zip(icp_idx, carry.icp_factors))
+            scales = (torch.exp(carry.adapt_log_scales) if mixture.adapt is not None
+                      else None)
 
-        # dense candidate generation, then per-chain selection
-        candidates = mixture.propose_all(state, factors_cur, noise.z, scales)
-        cand = _select(candidates, noise.idx)
+            # dense candidate generation, then per-chain selection
+            with span("mh.propose"):
+                candidates = mixture.propose_all(state, factors_cur, noise.z, scales)
+                cand = _select(candidates, noise.idx)
 
-        # reverse anchor + densities
-        cand_pts = transformed_points(gpmm, cand)
-        cand_normals = normals_of(cand_pts)
-        shared_icp = shared_eval = None
-        if plan is not None:
-            q = cand_pts[:, plan.eval_ids]
-            ctx = mixture.ctx
-            cp_all, d2_all, fidx_all = closest_auto(q, ctx.points, ctx.cells, ctx.index)
-            shared_icp = {i: (cp_all[:, m], fidx_all[:, m])
-                          for i, m in plan.icp_maps.items()}
-            shared_eval = {plan.spec_name: d2_all}
-        factors_cand = mixture.anchor_factors(cand, cand_pts, cand_normals,
-                                              shared_icp)
-        log_q_fwd = mixture.log_q_mixture(state, cand, factors_cur, scales)
-        log_q_rev = mixture.log_q_mixture(cand, state, factors_cand, scales)
-        log_post_cand, named_cand = evaluator(cand, cand_pts, shared_eval)
+            # reverse anchor + densities
+            with span("mh.decode"):
+                cand_pts = transformed_points(gpmm, cand)
+                cand_normals = normals_of(cand_pts)
+            shared_icp = shared_eval = None
+            if plan is not None:
+                q = cand_pts[:, plan.eval_ids]
+                ctx = mixture.ctx
+                cp_all, d2_all, fidx_all = closest_auto(q, ctx.points, ctx.cells, ctx.index)
+                shared_icp = {i: (cp_all[:, m], fidx_all[:, m])
+                              for i, m in plan.icp_maps.items()}
+                shared_eval = {plan.spec_name: d2_all}
+            with span("mh.anchor"):
+                factors_cand = mixture.anchor_factors(cand, cand_pts, cand_normals,
+                                                      shared_icp)
+            with span("mh.density"):
+                log_q_fwd = mixture.log_q_mixture(state, cand, factors_cur, scales)
+                log_q_rev = mixture.log_q_mixture(cand, state, factors_cand, scales)
+            with span("mh.evaluate"):
+                log_post_cand, named_cand = evaluator(cand, cand_pts, shared_eval)
 
-        log_alpha = (log_post_cand - carry.log_post) + (log_q_rev - log_q_fwd)
-        log_alpha = torch.where(torch.isnan(log_alpha), -torch.inf, log_alpha)
-        accept = noise.log_u < log_alpha
+            with span("mh.accept"):
+                log_alpha = (log_post_cand - carry.log_post) + (log_q_rev - log_q_fwd)
+                log_alpha = torch.where(torch.isnan(log_alpha), -torch.inf, log_alpha)
+                accept = noise.log_u < log_alpha
 
-        new_state = FitState(*(_where(accept, c, s) for c, s in zip(cand, state)))
-        new_factors = tuple(_where_anchor(accept, factors_cand[i], factors_cur[i])
-                            for i in icp_idx)
-        log_scales, step_idx = carry.adapt_log_scales, carry.step_idx
-        if mixture.adapt is not None:
-            log_scales = mixture.update_scales(log_scales, step_idx, noise.idx, log_alpha)
-            step_idx = step_idx + 1
-        new_carry = MhCarry(
-            state=new_state,
-            log_post=torch.where(accept, log_post_cand, carry.log_post),
-            named=_where(accept, named_cand, carry.named),
-            icp_factors=new_factors,
-            adapt_log_scales=log_scales,
-            step_idx=step_idx,
-        )
-        record = ChainRecord(
-            accepted=accept,
-            proposal_idx=noise.idx.to(torch.int32),
-            log_product=log_post_cand,
-            named=named_cand,
-            coeffs=new_state.coeffs if store_params else None,
-            pose=(torch.cat([new_state.trans, new_state.rot, new_state.center], dim=-1)
-                  if store_params else None),
-            log_alpha=log_alpha if store_params else None,
-        )
-        return new_carry, record
+                new_state = FitState(*(_where(accept, c, s) for c, s in zip(cand, state)))
+                new_factors = tuple(_where_anchor(accept, factors_cand[i], factors_cur[i])
+                                    for i in icp_idx)
+                log_scales, step_idx = carry.adapt_log_scales, carry.step_idx
+                if mixture.adapt is not None:
+                    log_scales = mixture.update_scales(log_scales, step_idx, noise.idx,
+                                                       log_alpha)
+                    step_idx = step_idx + 1
+                new_carry = MhCarry(
+                    state=new_state,
+                    log_post=torch.where(accept, log_post_cand, carry.log_post),
+                    named=_where(accept, named_cand, carry.named),
+                    icp_factors=new_factors,
+                    adapt_log_scales=log_scales,
+                    step_idx=step_idx,
+                )
+                record = ChainRecord(
+                    accepted=accept,
+                    proposal_idx=noise.idx.to(torch.int32),
+                    log_product=log_post_cand,
+                    named=named_cand,
+                    coeffs=new_state.coeffs if store_params else None,
+                    pose=(torch.cat([new_state.trans, new_state.rot, new_state.center],
+                                    dim=-1) if store_params else None),
+                    log_alpha=log_alpha if store_params else None,
+                )
+                return new_carry, record
 
     step.mixture = mixture
     return step
@@ -237,20 +247,21 @@ def init_carry(gpmm, evaluator: EvaluatorProgram, state: FitState,
                mixture: Optional[MixtureProgram] = None) -> MhCarry:
     """Evaluator values, the anchors of the mixture's anchored components
     at the initial state and, with adaptation, log-scales 0 and step 0."""
-    pts = transformed_points(gpmm, state)
-    log_post, named = evaluator(state, pts)
-    factors = ()
-    if mixture is not None and mixture.icp_components:
-        mixture.bind_target(evaluator)
-        fac = mixture.anchor_factors(state, pts, _normals_of(gpmm, mixture)(pts))
-        factors = tuple(fac[i] for i in sorted(fac))
-    log_scales = step_idx = None
-    if mixture is not None and mixture.adapt is not None:
-        n = state.coeffs.shape[0]
-        log_scales = torch.zeros((n, mixture.num_components), device=gpmm.device)
-        step_idx = torch.zeros(n, device=gpmm.device)
-    return MhCarry(state=state, log_post=log_post, named=named, icp_factors=factors,
-                   adapt_log_scales=log_scales, step_idx=step_idx)
+    with span("setup.carry"):
+        pts = transformed_points(gpmm, state)
+        log_post, named = evaluator(state, pts)
+        factors = ()
+        if mixture is not None and mixture.icp_components:
+            mixture.bind_target(evaluator)
+            fac = mixture.anchor_factors(state, pts, _normals_of(gpmm, mixture)(pts))
+            factors = tuple(fac[i] for i in sorted(fac))
+        log_scales = step_idx = None
+        if mixture is not None and mixture.adapt is not None:
+            n = state.coeffs.shape[0]
+            log_scales = torch.zeros((n, mixture.num_components), device=gpmm.device)
+            step_idx = torch.zeros(n, device=gpmm.device)
+        return MhCarry(state=state, log_post=log_post, named=named, icp_factors=factors,
+                       adapt_log_scales=log_scales, step_idx=step_idx)
 
 
 def run_chains(step, carry: MhCarry, n_steps: int,

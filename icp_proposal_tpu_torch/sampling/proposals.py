@@ -30,6 +30,7 @@ from icp_proposal_tpu_torch.sampling.state import (
     pose_inverse_apply,
     transformed_points,
 )
+from icp_proposal_tpu_torch.utils.profiling import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _MODEL_SEED = 1024  # the reference's ICP model subset seed (targets: seed + 1)
@@ -262,31 +263,33 @@ class IcpComponent:
         if spec.direction == "model":
             # closest target-surface point per sampled model vertex; boundary
             # check on the nearest target vertex (reference :94-109)
-            if shared_cp_fidx is not None:
-                cp, fidx = shared_cp_fidx
-            else:
-                q = cur_points[:, self._model_ids_t]
-                cp, _, fidx = closest_auto(q, self.ctx.points, self.ctx.cells,
-                                           self.ctx.index)
-            near = nearest_vertex_of_faces(self.ctx.cells, fidx, cp, self.ctx.points)
-            obs_disp = pose_inverse_apply(state, cp) - self._ref_static
+            with span("icp.correspond"):
+                if shared_cp_fidx is not None:
+                    cp, fidx = shared_cp_fidx
+                else:
+                    q = cur_points[:, self._model_ids_t]
+                    cp, _, fidx = closest_auto(q, self.ctx.points, self.ctx.cells,
+                                               self.ctx.index)
+                near = nearest_vertex_of_faces(self.ctx.cells, fidx, cp, self.ctx.points)
+                obs_disp = pose_inverse_apply(state, cp) - self._ref_static
+                normals = cur_normals[:, self._model_ids_t]
+                mask = self._mask(self.ctx.boundary[near])
             return gp.posterior_factors_anisotropic_static(
                 self.gpmm, self._q_static, self._gram_static, self._mean_static,
-                obs_disp, cur_normals[:, self._model_ids_t],
-                spec.noise_along_normal, spec.tangential_noise,
-                self._mask(self.ctx.boundary[near]),
-            )
+                obs_disp, normals, spec.noise_along_normal, spec.tangential_noise, mask)
         # target→model: nearest candidate-mesh vertex per sampled target
         # point (K3, one vertex set per chain); boundary check on the model
-        bsz = cur_points.shape[0]
-        tq = self._target_points.expand(bsz, -1, -1).contiguous()
-        ids = nearest_vertices(tq, cur_points.contiguous())  # [B, m]
-        obs_disp = pose_inverse_apply(state, tq) - self.gpmm.ref_points[ids.long()]
+        with span("icp.correspond"):
+            bsz = cur_points.shape[0]
+            tq = self._target_points.expand(bsz, -1, -1).contiguous()
+            with span("surface.query"):
+                ids = nearest_vertices(tq, cur_points.contiguous())  # [B, m]
+            obs_disp = pose_inverse_apply(state, tq) - self.gpmm.ref_points[ids.long()]
+            normals = _take_rows(cur_normals, ids)
+            mask = self._mask(self._model_boundary[ids.long()])
         return gp.posterior_factors_anisotropic(
-            self.gpmm, ids, obs_disp, _take_rows(cur_normals, ids),
-            spec.noise_along_normal, spec.tangential_noise,
-            self._mask(self._model_boundary[ids.long()]),
-        )
+            self.gpmm, ids, obs_disp, normals, spec.noise_along_normal,
+            spec.tangential_noise, mask)
 
     def propose(self, state: FitState, factors: gp.PosteriorFactors,
                 z: torch.Tensor) -> FitState:
@@ -392,54 +395,55 @@ class MixtureProgram:
     def __init__(self, weighted_specs, gpmm, ctx: TargetContext, model_boundary,
                  parity: bool = False, seed: int = _MODEL_SEED,
                  adapt: AdaptConfig | None = None, icp_model_ids=None):
-        for _, s in weighted_specs:
-            if not isinstance(s, (IcpSpec, MalaSpec, RandomShapeSpec, RotationSpec,
-                                  TranslationSpec)):
-                raise TypeError(f"unknown proposal spec {s}")
-        total = sum(w for w, _ in weighted_specs)
-        self.weights = [w / total for w, _ in weighted_specs]
-        self.specs = [s for _, s in weighted_specs]
-        self.names = [s.name for s in self.specs]
-        self.parity = parity
-        self.adapt = adapt
-        self.gpmm = gpmm
-        self.ctx = ctx
-        dev = gpmm.device
-        self._log_weights = torch.log(torch.tensor(self.weights, dtype=torch.float32,
-                                                   device=dev))
-        # components with an adaptable scalar scale, and their acceptance
-        # targets: 0.574 for Langevin proposals, cfg.target (0.234) for walks
-        self.adaptable = np.asarray([not isinstance(s, IcpSpec) for s in self.specs],
-                                    np.float32)
-        self.adapt_targets = np.asarray(
-            [0.574 if isinstance(s, MalaSpec)
-             else (adapt.target if adapt is not None else 0.234) for s in self.specs],
-            np.float32)
-        self._adaptable_t = torch.as_tensor(self.adaptable, device=dev)
-        self._adapt_targets_t = torch.as_tensor(self.adapt_targets, device=dev)
-        # "anchored" components carry per-state data through the carry: ICP
-        # its GP-posterior factors, MALA ∇log π (the historic name is the
-        # reference's)
-        self.icp_components = {}
-        tpts = ctx.points.cpu().numpy()
-        ref = gpmm.ref_points.cpu().numpy()
-        for i, s in enumerate(self.specs):
-            if isinstance(s, MalaSpec):
-                self.icp_components[i] = MalaComponent(s, gpmm)
-            if not isinstance(s, IcpSpec):
-                continue
-            model_ids = (morton_sort_ids(ref, seeded_vertex_subset(
-                gpmm.num_points, s.n_points, seed))
-                if icp_model_ids is None else icp_model_ids)
-            if len(model_ids) < s.n_points:
-                raise ValueError(
-                    f"icp_model_ids has {len(model_ids)} ids but {s.name} "
-                    f"declares n_points={s.n_points}")
-            target_ids = morton_sort_ids(
-                tpts, seeded_vertex_subset(len(tpts), s.n_points, seed + 1))
-            self.icp_components[i] = IcpComponent(
-                s, gpmm, ctx, model_boundary, np.asarray(model_ids[: s.n_points]),
-                target_ids)
+        with span("setup.mixture"):
+            for _, s in weighted_specs:
+                if not isinstance(s, (IcpSpec, MalaSpec, RandomShapeSpec, RotationSpec,
+                                      TranslationSpec)):
+                    raise TypeError(f"unknown proposal spec {s}")
+            total = sum(w for w, _ in weighted_specs)
+            self.weights = [w / total for w, _ in weighted_specs]
+            self.specs = [s for _, s in weighted_specs]
+            self.names = [s.name for s in self.specs]
+            self.parity = parity
+            self.adapt = adapt
+            self.gpmm = gpmm
+            self.ctx = ctx
+            dev = gpmm.device
+            self._log_weights = torch.log(torch.tensor(self.weights, dtype=torch.float32,
+                                                       device=dev))
+            # components with an adaptable scalar scale, and their acceptance
+            # targets: 0.574 for Langevin proposals, cfg.target (0.234) for walks
+            self.adaptable = np.asarray([not isinstance(s, IcpSpec) for s in self.specs],
+                                        np.float32)
+            self.adapt_targets = np.asarray(
+                [0.574 if isinstance(s, MalaSpec)
+                 else (adapt.target if adapt is not None else 0.234) for s in self.specs],
+                np.float32)
+            self._adaptable_t = torch.as_tensor(self.adaptable, device=dev)
+            self._adapt_targets_t = torch.as_tensor(self.adapt_targets, device=dev)
+            # "anchored" components carry per-state data through the carry: ICP
+            # its GP-posterior factors, MALA ∇log π (the historic name is the
+            # reference's)
+            self.icp_components = {}
+            tpts = ctx.points.cpu().numpy()
+            ref = gpmm.ref_points.cpu().numpy()
+            for i, s in enumerate(self.specs):
+                if isinstance(s, MalaSpec):
+                    self.icp_components[i] = MalaComponent(s, gpmm)
+                if not isinstance(s, IcpSpec):
+                    continue
+                model_ids = (morton_sort_ids(ref, seeded_vertex_subset(
+                    gpmm.num_points, s.n_points, seed))
+                    if icp_model_ids is None else icp_model_ids)
+                if len(model_ids) < s.n_points:
+                    raise ValueError(
+                        f"icp_model_ids has {len(model_ids)} ids but {s.name} "
+                        f"declares n_points={s.n_points}")
+                target_ids = morton_sort_ids(
+                    tpts, seeded_vertex_subset(len(tpts), s.n_points, seed + 1))
+                self.icp_components[i] = IcpComponent(
+                    s, gpmm, ctx, model_boundary, np.asarray(model_ids[: s.n_points]),
+                    target_ids)
 
     @property
     def num_components(self):
