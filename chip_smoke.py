@@ -232,6 +232,12 @@ PEAK_FP64_ISSUE = PEAK_FP64_FLOPS / 2
 # edge and vertex terms and all comparisons are left out, so bounds built on
 # it are lower bounds
 PAIR_FLOPS = 82
+# what K5's cascade issues a pair on sm_90a in the lanes' own loop
+# (-fmad=false, five IEEE divisions; kernel_turns.py --k5 --sass reads it
+# from the SASS), and the H100 SXM's lane-instruction issue rate: 132 SMs ×
+# 4 schedulers × 32 lanes at 1.98 GHz
+CASCADE_INSTRUCTIONS = 233
+LANE_ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 NV_PAIR_FLOPS = 8  # nearest vertex: 3 differences, 3 products, 2 sums
 DOT_PAIR_FLOPS = 6  # dot-form nearest vertex: 3 products, 3 sums
 
@@ -813,7 +819,7 @@ def _k5_records(torch, dev, rng, b, model, evaluator):
         d2, fidx = cp.surface_distances(*args)
         d2_d, fidx_d = cp.surface_distances(*args, cull=False)
         d2_p, fidx_p = cp.surface_distances_plain(*args)
-        visits = torch.zeros(2, dtype=torch.int64, device=dev)
+        visits = torch.zeros(3, dtype=torch.int64, device=dev)
         cp.surface_distances(*args, visits=visits)
         _sync(torch)
         for what, (dd, ff) in (("the dense scan", (d2_d, fidx_d)),
@@ -827,7 +833,7 @@ def _k5_records(torch, dev, rng, b, model, evaluator):
         q, points, cells = args
         p, f = q.shape[-2], cells.shape[0]
         n_tiles = -(-f // cp.TILE_FACES)
-        tiles_seen, pairs_seen = (int(x) for x in visits.tolist())
+        tiles_seen, pairs_seen, cascades = (int(x) for x in visits.tolist())
         n_bytes = _nbytes(q, points, cells, d2, fidx)
         def dense():
             return cp.surface_distances(*args, cull=False)
@@ -841,6 +847,8 @@ def _k5_records(torch, dev, rng, b, model, evaluator):
         rec.update(dense_ms=dense_ms,
                    dense_bound_ms=_bound(n_bytes, PAIR_FLOPS * b * p * f)[0],
                    tile_share=tiles_seen / (b * p * n_tiles), pair_share=pairs_seen / (b * p * f),
+                   survivor_share=cascades / max(pairs_seen, 1),
+                   issue_bound_ms=1e3 * cascades * CASCADE_INSTRUCTIONS / LANE_ISSUE_PER_S,
                    chains=b)
         records[f"surface_distances[{mode}]"] = rec
     return records
@@ -1101,9 +1109,12 @@ def _print_record(tag, name, rec, chains):
         print(f"[{tag}] {name}: culled {rec['ms']:.4f} ms, dense scan "
               f"{rec['dense_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; culled visits "
               f"{rec['tile_share']:.4f} of the (query, tile) pairs and "
-              f"{rec['pair_share']:.4f} of the (query, face) pairs; bound over the pairs "
+              f"{rec['pair_share']:.4f} of the (query, face) pairs, the cascade run on "
+              f"{rec['survivor_share']:.4f} of those (survivor share); bound over the pairs "
               f"visited {rec['bound_ms']:.4f} ms, dense bound {rec['dense_bound_ms']:.4f} "
-              f"ms; culled = dense scan = plain twin bitwise; {chains} chains")
+              f"ms; issue bound over the cascades run {rec['issue_bound_ms']:.4f} ms "
+              f"({CASCADE_INSTRUCTIONS} instructions a pair); culled = dense scan = plain "
+              f"twin bitwise; {chains} chains")
     if rec["id_mismatches"] or (not tol and rec["max_abs_err"]):
         raise AssertionError(f"{name}: the kernel disagrees with its plain twin")
 

@@ -93,12 +93,16 @@
 // least d², then the lowest face index (the Pallas kernel's net rule: lowest
 // lane within a 128-face tile, strictly smaller d² across tiles); a NaN d²
 // never wins, so a NaN query gets (+inf, face 0).
-//   What bounds it: FP32 issue rate on the pairs it evaluates.  Scanned
-//   densely, ~82 counted operations per (query, face) pair and
-//   2,048 × 800 × (3,202 + 3,872) ≈ 1.16·10¹⁰ pairs per BFM step; the bytes
+//   What bounds it: instruction issue on the pairs it runs the cascade on.
+//   The cascade issues 233 instructions a pair on sm_90a in the lanes' own
+//   loop below and 324 in the packed rounds, shuffles and merge included
+//   (-fmad=false and five IEEE divisions; kernel_turns.py --k5 --sass reads
+//   them from the SASS; K4's loop issues 249), and a dense scan of a BFM
+//   step is 2,048 × 800 × (3,202 + 3,872) ≈ 1.16·10¹⁰ pairs; the bytes
 //   (queries, vertices, cells) are a few MB.  So the lever is the number of
-//   pairs: most faces lie far from a given query.
-//   Design: exact nearest-first tile culling per warp.
+//   cascades: most faces lie far from a given query.
+//   Design: exact nearest-first tile culling per warp, then a per-face test
+//   inside each visited tile.
 //   * A pre-pass (tile_boxes_kernel) computes the corner AABB of each tile
 //     of 32 consecutive faces once per surface (once per call for a shared
 //     surface, once per chain for per-chain surfaces, gathered through
@@ -118,17 +122,41 @@
 //     the nearest remaining key exceeds every lane's best plus margin (a
 //     query's lb² is never below its warp's key: rounding is monotone).  No
 //     block barrier anywhere: warps of a block run apart.
-//   * A visited tile's faces pass through the warp's own 2 KB of shared
-//     memory, one face per lane, as a, b, c, ab = b − a and ac = c − a (four
-//     float4; the same subtractions as in the cascade, done once per face
-//     instead of once per pair, so bitwise the same).  The gather (cells,
-//     then corners) of the tile to consider next is issued into registers
-//     before the current tile is evaluated, so its latency overlaps the
-//     arithmetic; when that tile is then skipped, the gather is wasted and
-//     the next visit gathers anew.  Registers and not cp.async, because ab
-//     and ac are formed from the corners before they are stored.
-//   * Any visit order gives the dense result because a face wins on
-//     d² < best || (d² == best && id < best_id).
+//   * A visited tile's faces pass through the warp's own 3 KB of shared
+//     memory, one face per lane, as a, b, c, ab = b − a, ac = c − a (the
+//     same subtractions as in the cascade, done once per face instead of
+//     once per pair, so bitwise the same) and the face's own corner box, in
+//     six float4 rows of 32 faces (row k of face u at k·32 + u, so lanes
+//     reading different faces rarely share a bank); beside it 4 KB of
+//     scratch a warp.  The gather (cells, then corners) of the tile to
+//     consider next is issued into registers before the current tile is
+//     evaluated, so its latency overlaps the arithmetic; when that tile is
+//     then skipped, the gather is wasted and the next visit gathers anew.
+//     Registers and not cp.async, because ab, ac and the box are formed
+//     from the corners before they are stored.
+//   * Inside a visited tile each lane tests every face's box against its
+//     query with the tile test's box_dist2 and the threshold from before
+//     the tile (a superset of what could still win): bit u of its mask is
+//     set where lb² ≤ best + margin, and the lb² go to the warp's scratch.
+//     Where over 32 pairs survive (always in the first tile, whose
+//     thresholds are +inf), each lane first runs the cascade on its own
+//     nearest kept face, then keeps only the faces whose lb² are within its
+//     new best plus the margin: one round that usually leaves a few faces a
+//     query where it kept the whole tile.  The surviving pairs are numbered
+//     by a warp prefix sum over the masks' popcounts and listed in the
+//     scratch, by lane, then face; rounds of 32 run one pair a lane (the
+//     query's coordinates by shuffle), and a segmented shuffle min over
+//     each run of one query's pairs hands the run's least (d², id) to the
+//     query's lane.  Where those rounds would not be fewer than 4/5 of the
+//     most faces one lane kept, each lane runs its own kept faces in turn
+//     instead, which needs no shuffles and never takes more rounds than the
+//     faces any lane kept.  The choice follows the observed counts, so a
+//     query about equally far from every face (the centre of a sphere)
+//     pays the tests and nothing more: it runs no more cascades than the
+//     dense scan.
+//   * Any visit or evaluation order gives the dense result because a face
+//     wins on d² < best || (d² == best && id < best_id), a total order on
+//     the non-NaN d², and a NaN d² never wins.
 //   Skip margin: skip when lb² > best + 2⁻¹⁷·(‖q‖ + maxᵥ‖v‖)² + 2⁻¹²⁶.  With
 //   u = 2⁻²⁴ and M the largest vertex norm, every product and sum rounded on
 //   its own (-fmad=false): ab, ac and the closest point a + v·ab + w·ac are
@@ -138,9 +166,13 @@
 //   point, and the computed lb² at most (1 + 5u) of the true one.  Hence a
 //   computed d² ≥ lb² − 81u·(‖q‖ + M)², while the margin is 128u·(‖q‖ + M)²:
 //   a skipped tile holds no face whose d² could reach the running best,
-//   ties included.  The 2⁻¹²⁶ term covers the absolute rounding of
-//   subnormal results.  cull = 0 visits every tile in ascending order (the
-//   dense scan the checks compare the culled kernel with).
+//   ties included.  The same holds for one face's own corner box: the
+//   triangle lies in it and its corners' norms are at most the warp's
+//   largest, so a face whose lb² exceeds best + margin is skipped exactly
+//   (a face with a NaN or infinite corner has a NaN or infinite d² and
+//   never wins, whatever its box).  The 2⁻¹²⁶ term covers the absolute
+//   rounding of subnormal results.  cull = 0 visits every tile in ascending
+//   order (the dense scan the checks compare the culled kernel with).
 //
 // K8 icp_coarse_nearest_dot replaces _make_coarse_mxu_kernel /
 // _coarse_mxu_call in the same file (reached through coarse_nearest_mxu, the
@@ -194,6 +226,11 @@ constexpr int kRefineWarps = 8;  // K4: warps per block
 constexpr int kRefineLanes = ICP_REFINE_LANES;  // K4: lanes per query, a power of 2
 constexpr int kTileFaces = 32;   // K5: faces per culling tile, one per lane
 constexpr int kCpWarps = 4;      // K5: warps per block, 32 queries each
+constexpr int kStageRows = 6;    // K5: float4 rows a staged face (a b c ab ac, box)
+constexpr int kPairSlots = 32 * kTileFaces;  // K5: most surviving pairs a tile
+constexpr int kScratchFloats = 32 * (kTileFaces + 1);  // K5: a warp's lb², then its pairs
+static_assert(kScratchFloats * sizeof(float) >= kPairSlots * sizeof(unsigned short),
+              "the pair list fits where the lb² were");
 constexpr float kSkipScale = 7.62939453125e-06f;  // K5 skip margin: 2⁻¹⁷
 constexpr float kSkipFloor = 1.17549435e-38f;     // and 2⁻¹²⁶
 constexpr unsigned kFull = 0xffffffffu;
@@ -777,7 +814,8 @@ __device__ __forceinline__ int nearest_tile(const float* keys, int n, int lane,
 // K5: blockDim.x == kCpWarps·32, warp w of block x takes queries
 // (x·kCpWarps + w)·32 .. +31 of chain blockIdx.y.  boxes == nullptr: the
 // dense scan.  visits, when given, gains (active queries × tiles visited,
-// active queries × faces visited) per warp.
+// active queries × faces visited, (active query, face) pairs the cascade
+// ran on) per warp.
 __global__ void __launch_bounds__(kCpWarps * 32)
     surface_distances_kernel(const float* __restrict__ q, long long q_batch_stride,
                              const float* __restrict__ pts, long long pts_batch_stride,
@@ -791,8 +829,16 @@ __global__ void __launch_bounds__(kCpWarps * 32)
   const int b = blockIdx.y;
   const int q0 = (blockIdx.x * kCpWarps + warp) * 32;
   if (q0 >= p) return;  // whole warps leave; nothing synchronises the block
-  float4* stage = smem4 + warp * kTileFaces * 4;  // a tile as (a b c ab ac), 4 float4 a face
-  float* keys = reinterpret_cast<float*>(smem4 + kCpWarps * kTileFaces * 4) + warp * n_tiles;
+  // a tile as rows (a, b.x) (b.y b.z, c.x c.y) (c.z, ab) (ac, ·) (lo, hi.x)
+  // (hi.y hi.z, · ·): row k of face u at stage[k·32 + u]
+  float4* stage = smem4 + warp * kStageRows * kTileFaces;
+  // the lb² of the faces each lane keeps (row lane, padded against bank
+  // conflicts), then in the same place the packed pairs, (lane << 5) | face
+  float* const scratch_base =
+      reinterpret_cast<float*>(smem4 + kCpWarps * kStageRows * kTileFaces);
+  float* scratch = scratch_base + warp * kScratchFloats;
+  unsigned short* pairs = reinterpret_cast<unsigned short*>(scratch);
+  float* keys = scratch_base + kCpWarps * kScratchFloats + warp * n_tiles;
   const int qi = q0 + lane;
   const bool active = qi < p;
   float qx = 0.0f, qy = 0.0f, qz = 0.0f;
@@ -810,7 +856,9 @@ __global__ void __launch_bounds__(kCpWarps * 32)
   float best = inf32();
   int best_id = 0;
   float margin = 0.0f;
-  float thr = live ? inf32() : -inf32();  // lb² > thr: nothing in the tile can win
+  // lb² > thr: nothing in the box can win; +inf before the first tile,
+  // −inf on a dead lane, else finite
+  float thr = live ? inf32() : -inf32();
   float key = 0.0f;
   int tile = n_tiles > 0 ? 0 : INT_MAX;  // the tile to consider next
   if (cull) {
@@ -829,7 +877,21 @@ __global__ void __launch_bounds__(kCpWarps * 32)
     __syncwarp();
     tile = nearest_tile(keys, n_tiles, lane, key);
   }
-  unsigned long long n_seen = 0, n_faces = 0;
+  // d² from (px, py, pz) to staged face u
+  auto dist2 = [&](int u, float px, float py, float pz) {
+    const float4 f0 = stage[u], f1 = stage[kTileFaces + u];
+    const float4 f2 = stage[2 * kTileFaces + u], f3 = stage[3 * kTileFaces + u];
+    return point_tri_dist2_edges(px, py, pz, f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
+                                 f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z);
+  };
+  auto take = [&](float d2, int id) {
+    if (d2 < best || (d2 == best && id < best_id)) {
+      best = d2;
+      best_id = id;
+    }
+  };
+  unsigned long long n_seen = 0, n_faces = 0;  // tiles visited, faces in them
+  unsigned long long n_ran = 0;                // this lane's query's cascades
   float g[9];        // the corners of one face of tile `fetched`, one face per lane
   int fetched = -1;  // the tile whose gather g holds
   while (tile != INT_MAX) {
@@ -849,13 +911,20 @@ __global__ void __launch_bounds__(kCpWarps * 32)
     if (fetched != visit) gather_face(g, pb, cells, lo + lane, lane < n);
     ++n_seen;
     n_faces += n;
-    __syncwarp();  // the previous tile is consumed
-    {
-      float4* slot = stage + 4 * lane;
-      slot[0] = make_float4(g[0], g[1], g[2], g[3]);
-      slot[1] = make_float4(g[4], g[5], g[6], g[7]);
-      slot[2] = make_float4(g[8], g[3] - g[0], g[4] - g[1], g[5] - g[2]);
-      slot[3] = make_float4(g[6] - g[0], g[7] - g[1], g[8] - g[2], 0.0f);
+    __syncwarp();  // the previous tile and its pairs are consumed
+    stage[lane] = make_float4(g[0], g[1], g[2], g[3]);
+    stage[kTileFaces + lane] = make_float4(g[4], g[5], g[6], g[7]);
+    stage[2 * kTileFaces + lane] = make_float4(g[8], g[3] - g[0], g[4] - g[1], g[5] - g[2]);
+    stage[3 * kTileFaces + lane] = make_float4(g[6] - g[0], g[7] - g[1], g[8] - g[2], 0.0f);
+    if (cull) {  // the face's corner box, as tile_boxes_kernel forms a tile's
+      float box[6];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        box[a] = fminf(fminf(fminf(inf32(), g[a]), g[3 + a]), g[6 + a]);
+        box[3 + a] = fmaxf(fmaxf(fmaxf(-inf32(), g[a]), g[3 + a]), g[6 + a]);
+      }
+      stage[4 * kTileFaces + lane] = make_float4(box[0], box[1], box[2], box[3]);
+      stage[5 * kTileFaces + lane] = make_float4(box[4], box[5], 0.0f, 0.0f);
     }
     __syncwarp();
     // the gather of the tile considered next overlaps this tile's arithmetic
@@ -864,25 +933,112 @@ __global__ void __launch_bounds__(kCpWarps * 32)
       const int nlo = tile * kTileFaces;
       gather_face(g, pb, cells, nlo + lane, nlo + lane < f);
     }
-    for (int u = 0; u < n; ++u) {
-      const float4 f0 = stage[4 * u], f1 = stage[4 * u + 1];
-      const float4 f2 = stage[4 * u + 2], f3 = stage[4 * u + 3];
-      const float d2 = point_tri_dist2_edges(qx, qy, qz, f0.x, f0.y, f0.z, f0.w, f1.x,
-                                             f1.y, f1.z, f1.w, f2.x, f2.y, f2.z, f2.w,
-                                             f3.x, f3.y, f3.z);
-      const int id = lo + u;
-      if (d2 < best || (d2 == best && id < best_id)) {
-        best = d2;
-        best_id = id;
+    unsigned mine = n == 32 ? kFull : (1u << n) - 1u;  // the faces this lane's query keeps
+    bool packed = false;
+    int n_pairs = 0, first = 0;
+    if (cull) {
+      // each face's box against this lane's threshold: the lb² of the kept
+      // faces to the scratch, and the nearest of them
+      float* lbs = scratch + lane * (kTileFaces + 1);
+      mine = 0u;
+      int seed = -1;
+      float seed_lb = 0.0f;
+      for (int u = 0; u < n; ++u) {
+        const float4 b0 = stage[4 * kTileFaces + u], b1 = stage[5 * kTileFaces + u];
+        const float bx[6] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y};
+        const float lb = box_dist2(bx, qx, qy, qz, qx, qy, qz);
+        if (lb <= thr) {
+          mine |= 1u << u;
+          lbs[u] = lb;
+          if (seed < 0 || lb < seed_lb) {
+            seed = u;
+            seed_lb = lb;
+          }
+        }
+      }
+      if (__reduce_add_sync(kFull, __popc(mine)) > 32) {
+        // two rounds or more: each lane first runs its nearest kept face,
+        // then keeps what can still win against that result
+        const bool has = mine != 0u;
+        const float d = dist2(has ? seed : 0, qx, qy, qz);
+        if (has) take(d, lo + seed);
+        n_ran += has;
+        const float now = best + margin;
+        unsigned kept = 0u;
+        for (unsigned m = has ? mine & ~(1u << seed) : 0u; m != 0u; m &= m - 1u) {
+          const int u = __ffs(m) - 1;
+          if (lbs[u] <= now) kept |= 1u << u;
+        }
+        mine = kept;
+      }
+      __syncwarp();  // the lb² are read before the pair list takes their place
+      int incl = __popc(mine);  // pairs of lanes 0..lane
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += o;
+      }
+      n_pairs = __shfl_sync(kFull, incl, 31);
+      first = incl - __popc(mine);
+      // a packed round costs about 5/4 of a round of the lanes' own loops
+      packed = 5 * ((n_pairs + 31) >> 5) < 4 * (int)__reduce_max_sync(kFull, __popc(mine));
+    }
+    n_ran += __popc(mine);
+    if (!packed) {  // each lane over its own kept faces, lowest first
+      const int rounds = (int)__reduce_max_sync(kFull, __popc(mine));
+      unsigned m = mine;
+      for (int k = 0; k < rounds; ++k, m &= m - 1u) {
+        const int u = m != 0u ? __ffs(m) - 1 : 0;
+        const float d = dist2(u, qx, qy, qz);
+        if (m != 0u) take(d, lo + u);
+      }
+    } else {
+      int at = first;
+      for (unsigned m = mine; m != 0u; m &= m - 1u)
+        pairs[at++] = (unsigned short)((lane << 5) | (__ffs(m) - 1));
+      __syncwarp();
+      for (int r0 = 0; r0 < n_pairs; r0 += 32) {
+        const bool has = r0 + lane < n_pairs;
+        const int pr = has ? pairs[r0 + lane] : 0;
+        const int own = has ? pr >> 5 : -1, u = pr & 31;
+        const int src = has ? own : lane;
+        float d = dist2(u, __shfl_sync(kFull, qx, src), __shfl_sync(kFull, qy, src),
+                        __shfl_sync(kFull, qz, src));
+        int id = lo + u;
+        if (!has || isnan(d)) {  // never wins
+          d = inf32();
+          id = INT_MAX;
+        }
+        // the least (d², id) from each lane to the end of its query's run
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float od = __shfl_down_sync(kFull, d, off);
+          const int oid = __shfl_down_sync(kFull, id, off);
+          const int oown = __shfl_down_sync(kFull, own, off);
+          if (lane + off < 32 && oown == own && lex_less(od, oid, d, id)) {
+            d = od;
+            id = oid;
+          }
+        }
+        // this lane's query's run in this round starts at max(first, r0)
+        const bool run = mine != 0u && first < r0 + 32 && first + __popc(mine) > r0;
+        const int head = run ? max(first, r0) - r0 : lane;
+        const float hd = __shfl_sync(kFull, d, head);
+        const int hid = __shfl_sync(kFull, id, head);
+        if (run) take(hd, hid);
       }
     }
     if (live) thr = best + margin;
   }
   if (visits != nullptr) {
     const unsigned long long n_active = __popc(__ballot_sync(kFull, active));
+    unsigned long long ran = active ? n_ran : 0ull;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ran += __shfl_xor_sync(kFull, ran, off);
     if (lane == 0) {
       atomicAdd(&visits[0], n_active * n_seen);
       atomicAdd(&visits[1], n_active * n_faces);
+      atomicAdd(&visits[2], ran);
     }
   }
   if (active) {
@@ -1088,7 +1244,7 @@ int icp_refine_shortlist_config(int n_queries, int* out) {
 }
 
 // boxes: scratch of n_tiles·8 floats per surface (one surface, or batch
-// with pts_batched), used when cull; visits: nullptr or two counters
+// with pts_batched), used when cull; visits: nullptr or three counters
 int icp_surface_distances(const float* q, const float* pts, const int* cells, float* boxes,
                           unsigned long long* visits, float* d2, int* idx, int batch, int p,
                           int v, int f, int q_batched, int pts_batched, int cull,
@@ -1104,7 +1260,8 @@ int icp_surface_distances(const float* q, const float* pts, const int* cells, fl
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  const int bytes = kCpWarps * (kTileFaces * 4 * (int)sizeof(float4) +
+  const int bytes = kCpWarps * (kStageRows * kTileFaces * (int)sizeof(float4) +
+                                kScratchFloats * (int)sizeof(float) +
                                 (cull ? n_tiles * (int)sizeof(float) : 0));
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -190,16 +190,21 @@ def surface_distances(queries: torch.Tensor, points: torch.Tensor,
     Kernel K5 (``csrc/closest_point.cu``) replaces ``_make_kernel`` /
     ``_dist2_call`` in ``icp_proposal_tpu/ops/closest_point_pallas.py``.
     Unlike ``pack_triangles``, it takes vertices and cells, not a triangle
-    soup.  Bound by FP32 issue rate on the (query, face) pairs it evaluates
-    (~82 operations a pair), so it evaluates few: each warp of 32 queries
-    visits the tiles of ``TILE_FACES`` consecutive faces nearest first by
-    the bounding boxes its own pre-pass (``tile_boxes_kernel``) computes,
-    and skips a tile when no query can reach its running best plus a stated
-    rounding margin, so the result is bitwise the dense scan's.  ``cull=False`` is that dense scan (every tile in ascending
-    order), kept only as what the checks compare the culled kernel with.
-    ``visits``, an int64 CUDA tensor of 2 that the call adds to, counts
-    (active queries × tiles visited, × faces visited); None on the main
-    path."""
+    soup.  Bound by instruction issue on the (query, face) pairs it runs
+    the cascade on (233 instructions a pair in SASS, 324 with the packing's
+    shuffles), so it runs few: each warp of 32 queries visits the tiles of ``TILE_FACES``
+    consecutive faces nearest first by the bounding boxes its own pre-pass
+    (``tile_boxes_kernel``) computes, and skips a tile when no query can
+    reach its running best plus a stated rounding margin; inside a visited
+    tile each face's own box is tested against each query the same way,
+    and the surviving pairs are packed onto the warp's lanes (or, where
+    most survive, every lane runs every kept face).  So the result is
+    bitwise the dense scan's.  ``cull=False`` is that dense scan (every
+    tile in ascending order), kept only as what the checks compare the
+    culled kernel with.  ``visits``, an int64 CUDA tensor of 3 that the
+    call adds to, counts (active queries × tiles visited, × faces visited,
+    cascades run: packed pairs, and active queries × faces of the direct
+    loop); None on the main path."""
     q_batched, p_batched = queries.dim() == 3, points.dim() == 3
     if not (q_batched or p_batched):
         raise ValueError("surface_distances needs a chain dimension on the "
@@ -211,7 +216,7 @@ def surface_distances(queries: torch.Tensor, points: torch.Tensor,
                  (bsz, None, 3) if p_batched else (None, 3))
     check_tensor(cells, "cells", torch.int32, (None, 3))
     if visits is not None:
-        check_tensor(visits, "visits", torch.int64, (2,))
+        check_tensor(visits, "visits", torch.int64, (3,))
     dev = kernel_device(queries, points, cells,
                         *(() if visits is None else (visits,)))
     if dev.type == "cpu":

@@ -1,6 +1,7 @@
-"""Time K2, K3, K4 and K8 (or K9, K10, or the streamed K6) of one checkout of the port on one NVIDIA GPU.
+"""Time K2, K3, K4 and K8 (or K5, K9, K10, the streamed K6) of one checkout of the port on one GPU.
 
     python3 kernel_turns.py [--root DIR] [--sass] [--probe] [--contexts] [--streamed] [--ablate]
+                            [--k5]
 
 Times K2 (``tri_solve_lt``, r = 101, beside ``torch.linalg.solve_triangular``),
 K3 (``nearest_vertices``: the shared set, P = 404 against the stand-in
@@ -67,6 +68,20 @@ written and read again (each row tile's rows and the panel's 64 rows, once
 per tile) and the back substitution's read of L's lower triangle, with
 their time at 3.35 TB/s.
 
+``--k5`` times only K5 (``surface_distances``, culled) at ``chip_smoke.py``'s
+BFM shapes: the rank-200 face stand-in moved off its mean by 0.5·N(0, I)
+coefficients, the partial-face evaluator's queries (as ``chip_smoke.py``
+takes them: P = 800 model points against the partial target's 3,202
+faces, ``shared``, and 800 target points against each chain's 3,872,
+``per_chain``), on 256 and 2,048 chains.  Each is first held to the dense
+scan (``cull=False``) bitwise, and at 256 chains to the plain twin too; one
+counted call gives
+the shares of (query, tile) and (query, face) pairs visited and, where the
+checkout counts them, the cascades run.  With ``--sass``, the instructions
+a pair of each loop of ``surface_distances_kernel`` that holds the
+cascade (pairs counted by its five ``MUFU.RCP``), with the loop's shuffles,
+and a box of each loop that holds box tests (six ``FMNMX`` a box).
+
 ``--ablate`` (this checkout only) builds copies of ``csrc/chol.cu`` under
 ``build/ablate/``, each with one phase of the streamed K6 taken out (its
 results are then wrong and not checked) or its chains an SM changed
@@ -115,6 +130,7 @@ ABLATIONS = (
                                    "      if (e < 0) lb[0] = 0.0f;"),)),
     ("no back substitution", (("  solve_lt_streamed<kStreamWarps, false>(lb, vec, part, r);\n", ""),)),
 )
+K5_REPS = 10  # --k5: calls a timing
 BFM_P = 400  # the BFM partial step's ICP queries a chain (model direction)
 BFM_NOISE = 0.005  # their offset from the target, below its mean edge (0.0069)
 # (lanes a query, K8's queries a lane) of the --probe builds, beside the
@@ -251,6 +267,86 @@ def _cascade_sass(funcs, kernel):
         return {"fp64_per_pair": _fp64_count(body) / pairs, "pairs_in_body": pairs,
                 "instructions_per_pair": len(body) / pairs}
     return None
+
+
+def _k5_sass(funcs):
+    """K5's innermost loops: for those that hold the cascade (pairs counted
+    by its five IEEE divisions, one ``MUFU.RCP`` each) {instructions a pair,
+    pairs in the body, shuffles in the body}; for the others that hold
+    ``FMNMX`` (the box tests: six a box) {instructions a box, boxes in the
+    body}."""
+    out = {"cascade": [], "boxes": []}
+    for name, ins in funcs.items():
+        if "surface_distances_kernel" not in name:
+            continue
+        loops = _loops(ins, lambda b: len(b))
+        for body, _, lo, hi in loops:
+            if any(lo < x[2] and x[3] <= hi for x in loops):
+                continue  # an enclosing loop: its inner loops are counted on their own
+            text = [t for a, t in ins if lo <= a <= hi]
+            pairs = sum("MUFU.RCP" in t for t in text) / 5
+            boxes = sum("FMNMX" in t for t in text) / 6
+            if pairs:
+                out["cascade"].append({"per_pair": body / pairs, "pairs_in_body": pairs,
+                                       "shuffles": sum("SHFL" in t for t in text)})
+            elif boxes:
+                out["boxes"].append({"per_box": body / boxes, "boxes_in_body": boxes})
+    return out
+
+
+def _k5_times(torch, dev, face, evaluator):
+    """K5 culled at the BFM shapes (``--k5``) → ({name@chains: [ms, ...]},
+    {name@chains: shares of pairs visited and cascades run})."""
+    import numpy as np
+
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cp
+    from icp_proposal_tpu_torch.sampling.state import init_state, transformed_points
+
+    model, ctx = face.model, evaluator.ctx
+    rng = np.random.RandomState(1)
+    times, shares = {}, {}
+    for b in CHAINS:
+        state = init_state(model, b)
+        state = state._replace(coeffs=torch.as_tensor(
+            rng.randn(b, model.rank).astype(np.float32) * 0.5, device=dev))
+        pts = transformed_points(model, state).contiguous()
+        spec = evaluator.specs[0]
+        if hasattr(spec, "n_points"):  # a seeded subset each way, as chip_smoke.py
+            ids_m = torch.as_tensor(evaluator.model_ids(spec.name), dtype=torch.int64,
+                                    device=dev)
+            ids_t = torch.as_tensor(evaluator.target_ids(spec.name), dtype=torch.int64,
+                                    device=dev)
+        else:  # the Hausdorff term: every vertex each way
+            ids_m = torch.arange(model.num_points, device=dev)
+            ids_t = torch.arange(len(ctx.points), device=dev)
+        cases = {"shared": (pts[:, ids_m].contiguous(), ctx.points, ctx.cells.int()),
+                 "per_chain": (ctx.points[ids_t].contiguous(), pts, model.cells.int())}
+        for mode, args in cases.items():
+            got = cp.surface_distances(*args)
+            wants = [cp.surface_distances(*args, cull=False)]
+            if b == CHAINS[0]:
+                wants.append(cp.surface_distances_plain(*args))
+            for want in wants:
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"K5 {mode} at {b} chains differs from the dense "
+                                         "scan or the plain twin")
+            for n in (3, 2):  # a checkout from before the cascade count has two
+                visits = torch.zeros(n, dtype=torch.int64, device=dev)
+                try:
+                    cp.surface_distances(*args, visits=visits)
+                    break
+                except ValueError:
+                    continue
+            counts = visits.tolist()
+            p, f = args[0].shape[-2], args[2].shape[0]
+            key = f"surface_distances[{mode}]@{b}"
+            shares[key] = {"tiles": counts[0] / (b * p * -(-f // cp.TILE_FACES)),
+                           "pairs": counts[1] / (b * p * f),
+                           "cascades": counts[2] / (b * p * f) if n == 3 else None}
+            times[key] = [_time_ms(torch, lambda: cp.surface_distances(*args), K5_REPS)
+                          for _ in range(TURNS)]
+        del pts
+    return times, shares
 
 
 def _probe_libraries():
@@ -556,6 +652,7 @@ def main() -> int:
     ap.add_argument("--contexts", action="store_true")
     ap.add_argument("--streamed", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--k5", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -582,7 +679,18 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[device] nvidia-smi: {smi.splitlines()[0]}")
     dev = torch.device("cuda", 0)
-    _build.build_library()
+    lib_path, build_log = _build.build_library()
+    if args.k5:
+        face = load_synthetic_face_data(rank=200, subdiv=4, device=dev)
+        evaluator = make_bfm_fitting_setup(face, partial=True)[2]
+        times, shares = _k5_times(torch, dev, face, evaluator)
+        funcs = _sass_functions(lib_path, _build.find_nvcc()) if args.sass else None
+        regs = re.findall(r"Function properties for \S*surface_distances_kernel\S*\n.*?"
+                          r"Used (\d+) registers", build_log, re.S)
+        print(json.dumps({"root": str(root), "device": smi.splitlines()[0], "times": times,
+                          "shares": shares, "sass": _k5_sass(funcs) if funcs else None,
+                          "registers": regs[:1] or None}))
+        return 0
     if args.streamed or args.ablate:
         print(json.dumps({"root": str(root), "device": smi.splitlines()[0],
                           "streamed": _streamed_times(torch, dev) if args.streamed else None,

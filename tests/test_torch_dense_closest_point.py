@@ -10,12 +10,14 @@ come from a child process whose XLA targets SSE4.2, which has no FMA
     python tests/test_torch_dense_closest_point.py OUT.npz
 
 ``_replay_culled`` replays K5's culled visit logic in float32 on the CPU
-(tile boxes, nearest-first order, skip margin, tie rule).  Run as
+(tile boxes, nearest-first order, skip margin, tie rule, and with
+``per_face`` each face's own box inside a visited tile).  Run as
 
     PYTHONPATH=. python tests/test_torch_dense_closest_point.py --replay
 
-it prints the share of (query, face) pairs the culled kernel evaluates on
-the face stand-in's surfaces with 32- and 128-face tiles.
+it prints the shares of (query, face) pairs the culled kernel visits and
+runs the cascade on, on the face stand-in's surfaces with 32- and 128-face
+tiles.
 """
 import os
 import subprocess
@@ -187,14 +189,20 @@ def test_surface_distances_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         surface_distances(q, torch.zeros(3, 4, 3), cells)  # 3 mesh chains, 2 query chains
     with pytest.raises(ValueError):  # the plain version counts no tile visits
-        surface_distances(q, pts, cells, visits=torch.zeros(2, dtype=torch.int64))
+        surface_distances(q, pts, cells, visits=torch.zeros(3, dtype=torch.int64))
 
 
-def _replay_culled(q, pts, cells, tile=32):
+def _replay_culled(q, pts, cells, tile=32, per_face=False):
     """K5's culled visit logic, warp by warp, in float32 with the kernel's
     operation order: q [P, 3] (one chain), pts [V, 3], cells [F, 3] →
-    (d2 [P], idx [P], share of the (query, face) pairs evaluated).  The
-    pair distances come from the plain cascade, bitwise the kernel's."""
+    (d2 [P], idx [P], share of the (query, face) pairs visited, share of
+    the pairs the cascade runs on).  The pair distances come from the plain
+    cascade, bitwise the kernel's.  ``per_face``: inside a visited tile,
+    each face's own corner box against each query's threshold from before
+    the tile; where over 32 pairs survive, each query's nearest kept face
+    first and the rest against its best after it (packed or run by each
+    lane in turn, the same pairs either way).  Without it every visited
+    pair runs."""
     from icp_proposal_tpu_torch.ops.closest_point import closest_point_on_triangle
 
     f32, inf = np.float32, np.float32(np.inf)
@@ -212,19 +220,24 @@ def _replay_culled(q, pts, cells, tile=32):
         boxes[t, 3:6] = np.fmax.reduce(c, axis=0, initial=-inf)
         m = np.fmax(np.abs(boxes[t, :3]), np.abs(boxes[t, 3:6]))
         boxes[t, 6] = np.sqrt(f32(f32(f32(m[0] * m[0]) + f32(m[1] * m[1])) + f32(m[2] * m[2])))
+    # each face's own corner box, [F, 6]
+    face_boxes = np.concatenate([np.fmin.reduce(pts[cells], axis=1, initial=inf),
+                                 np.fmax.reduce(pts[cells], axis=1, initial=-inf)], -1)
 
-    def box_d2(bx, lo, hi):  # lo, hi [n, 3] → [n]
+    def box_d2(bx, lo, hi):  # bx [..., 6] against lo, hi [n, 3] → [n, ...]
+        bx = np.asarray(bx)[None, ..., :6]
+        lo, hi = (a.reshape(a.shape[:1] + (1,) * (bx.ndim - 2) + (3,)) for a in (lo, hi))
         with np.errstate(invalid="ignore"):
-            g = np.fmax(np.fmax(bx[:3] - hi, lo - bx[3:6]), f32(0)).astype(f32)
-        return f32(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]) + f32(g[:, 2] * g[:, 2])
+            g = np.fmax(np.fmax(bx[..., :3] - hi, lo - bx[..., 3:6]), f32(0)).astype(f32)
+        return f32(g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + f32(g[..., 2] * g[..., 2])
 
-    out_d, out_i, pairs = np.zeros(n_q, f32), np.zeros(n_q, np.int64), 0
+    out_d, out_i, pairs, cascades = np.zeros(n_q, f32), np.zeros(n_q, np.int64), 0, 0
     for q0 in range(0, n_q, 32):
         qq = q[q0:q0 + 32]
         live = ~np.isnan(qq).any(-1)
         lo = np.fmin.reduce(np.where(live[:, None], qq, inf), axis=0)
         hi = np.fmax.reduce(np.where(live[:, None], qq, -inf), axis=0)
-        keys = np.array([box_d2(boxes[t], lo[None], hi[None])[0] for t in range(n_t)])
+        keys = box_d2(boxes, lo[None], hi[None])[0]
         s = np.sqrt(f32(f32(qq[:, 0] * qq[:, 0]) + f32(qq[:, 1] * qq[:, 1]))
                     + f32(qq[:, 2] * qq[:, 2])) + boxes[:, 6].max()
         margin = f32(f32(2.0 ** -17) * f32(s * s)) + f32(2.0 ** -126)
@@ -241,13 +254,28 @@ def _replay_culled(q, pts, cells, tile=32):
                 continue
             ids = np.arange(t * tile, min((t + 1) * tile, n_f))
             pairs += len(qq) * len(ids)
-            for u in ids:
+            run = np.ones((len(qq), len(ids)), bool)  # (query, face) pairs the cascade runs
+            if per_face:
+                lb = box_d2(face_boxes[ids], qq, qq)
+                run = lb <= thr[:, None]
+                if run.sum() > 32:  # each lane first runs its nearest kept face
+                    has = run.any(1)
+                    seed = np.argmin(np.where(run, lb, inf), 1)  # the first of equal lb²
+                    d = dist[q0:q0 + 32][np.arange(len(qq)), ids[seed]]
+                    win = has & ((d < best) | ((d == best) & (ids[seed] < best_id)))
+                    best, best_id = np.where(win, d, best), np.where(win, ids[seed], best_id)
+                    cascades += int(has.sum())
+                    with np.errstate(invalid="ignore"):
+                        run &= lb <= f32(best + margin)[:, None]
+                    run[np.arange(len(qq)), seed] = False
+            cascades += int(run.sum())
+            for j, u in enumerate(ids):
                 d = dist[q0:q0 + 32, u]
-                win = (d < best) | ((d == best) & (u < best_id))
+                win = run[:, j] & ((d < best) | ((d == best) & (u < best_id)))
                 best, best_id = np.where(win, d, best), np.where(win, u, best_id)
             thr = np.where(live, f32(best + margin), thr).astype(f32)
         out_d[q0:q0 + 32], out_i[q0:q0 + 32] = best, best_id
-    return out_d, out_i, pairs / (n_q * n_f)
+    return out_d, out_i, pairs / (n_q * n_f), cascades / (n_q * n_f)
 
 
 def _replay_surfaces(subdiv, n_q, seed=0):
@@ -295,10 +323,194 @@ def test_culled_replay_is_the_dense_scan(surface):
                              torch.as_tensor(cells))
     shares = {}
     for tile in (32, 128):
-        d2, idx, shares[tile] = _replay_culled(q, pts, cells, tile)
+        d2, idx, shares[tile], _ = _replay_culled(q, pts, cells, tile)
         np.testing.assert_array_equal(d2, want[0][0].numpy())
         np.testing.assert_array_equal(idx, want[1][0].numpy())
     assert shares[32] < shares[128] < 1.0
+
+
+@pytest.mark.parametrize("surface", ["partial", "full"])
+def test_culled_replay_with_per_face_boxes_is_the_dense_scan(surface):
+    """The replay with K5's per-face box test inside each visited tile (the
+    threshold from before the tile, packed pairs or the direct loop) gives
+    the plain result bitwise on the face stand-in at subdiv 3, runs the
+    cascade on fewer pairs than it visits, and visits fewer than all."""
+    from icp_proposal_tpu_torch.ops.closest_point import surface_distances
+
+    q, surfaces = _replay_surfaces(3, 256)
+    pts, cells = surfaces[surface]
+    want = surface_distances(torch.as_tensor(q)[None], torch.as_tensor(pts),
+                             torch.as_tensor(cells))
+    d2, idx, visited, ran = _replay_culled(q, pts, cells, per_face=True)
+    np.testing.assert_array_equal(d2, want[0][0].numpy())
+    np.testing.assert_array_equal(idx, want[1][0].numpy())
+    assert ran < visited < 1.0
+    assert _replay_culled(q, pts, cells)[2] == visited  # the tiles visited are the same
+
+
+def _tie_in_one_tile(rng):
+    """Tile 0 (visited first) sets every best at x = ±0.3.  Tile 1 holds
+    faces 35 and 61, the same corners bit for bit, the nearest to every
+    query at x = 0.1; six faces in the plane x − z = 0.3 whose boxes hold
+    the queries with y < 0 but which lie ≥ 0.17 from them, so those
+    queries run one of them first and keep both copies and the other five;
+    small faces at x = 0.25 and far ones.  The queries with y > 0 keep one
+    face after their first, those with y < 0 seven, so the pairs are
+    packed and the tie is decided in the packed rounds' merge."""
+    def big(x):  # holds every query's (y, z)
+        return np.array([[x, -2.0, -1.0], [x, 2.0, -1.0], [x, 0.0, 2.0]], np.float32)
+
+    tile0 = np.stack([big(sg * (0.3 + 0.01 * k)) for k in range(16) for sg in (-1, 1)])
+    tilted = [np.array([[-0.2, -1.1, -0.5], [0.8, -1.1, 0.5], [0.3, -0.01 * k, 0.0]],
+                       np.float32) for k in range(6)]
+    small = [np.array([[0.25, y - 0.05, -0.1], [0.25, y + 0.05, -0.1], [0.25, y, 0.1]],
+                      np.float32) for y in np.linspace(-1.0, 1.0, 15)]
+    tile1 = np.concatenate([np.stack(tilted[:3] + [big(0.1)] + tilted[3:] + small),
+                            _random_triangles(rng, 10, (3, -1, -1), (4, 1, 1))])
+    tile1[29] = big(0.1)
+    tile2 = _random_triangles(rng, 32, (50, -2, -2), (60, 2, 2))
+    pts, cells = _soup(np.concatenate([tile0, tile1, tile2]))
+    cells[32 + 29] = cells[32 + 3]
+    b, p = 2, 40  # a full warp and one of 8 queries
+    q = np.zeros((b, p, 3), np.float32)
+    q[..., 1] = np.sort(rng.uniform(0.1, 1.0, (b, p)) * rng.choice([-1, 1], (b, p)), axis=-1)
+    q[..., 2] = rng.uniform(-0.05, 0.05, (b, p))
+    return q, pts, cells
+
+
+def _flat_boxes(rng):
+    """Two tiles of 32 faces tiling the planes x = 0.5 and x = 0.5 − 2δ,
+    each face flat in its own box, and queries at x = 0.5 − δ on the grid's
+    lines and corners and between them: a face's bound and the other
+    plane's best differ by a few ulps, so the skip margin decides."""
+    delta = 1e-3
+    g = np.linspace(-1.0, 1.0, 5)
+
+    def plane(x):
+        tris = []
+        for i in range(4):
+            for k in range(4):
+                y0, y1, z0, z1 = g[i], g[i + 1], g[k], g[k + 1]
+                tris += [[(x, y0, z0), (x, y1, z0), (x, y1, z1)],
+                         [(x, y0, z0), (x, y1, z1), (x, y0, z1)]]
+        return np.asarray(tris, np.float32)  # 32 faces, one tile
+
+    pts, cells = _soup(np.concatenate([plane(0.5), plane(0.5 - 2 * delta),
+                                       _random_triangles(rng, 32, (3, -1, -1), (4, 1, 1))]))
+    b, p = 2, 96
+    q = rng.uniform(-1.0, 1.0, (b, p, 3)).astype(np.float32)
+    grid = np.array([(y, z) for y in g for z in g], np.float32)
+    q[:, :25, 1:] = grid
+    q[:, 25:45, 1] = rng.choice(g, (b, 20))  # on a grid line
+    q[..., 0] = np.float32(0.5 - delta)
+    return q, pts, cells
+
+
+def _degenerate_faces(rng):
+    """The open patch with every third face made degenerate: a repeated
+    corner (a segment), one corner thrice (a point) or three collinear
+    corners (a new vertex halfway along an edge); queries on vertices,
+    exactly, and near the surface, Morton-sorted."""
+    from icp_proposal_tpu_torch.models.synthetic import make_open_patch
+    from icp_proposal_tpu_torch.ops.morton import morton_sort_faces, morton_sort_ids
+
+    fp, fc = make_open_patch(subdivisions=3, radius=0.1, z_cut=0.55)
+    fp, fc = fp.astype(np.float32), fc.astype(np.int32).copy()
+    mids = []
+    for n, i in enumerate(range(0, len(fc), 3)):
+        a, b_, _ = fc[i]
+        if n % 3 == 0:
+            fc[i] = (a, a, b_)
+        elif n % 3 == 1:
+            fc[i] = (b_, b_, b_)
+        else:
+            mids.append((fp[a] + fp[b_]) * np.float32(0.5))
+            fc[i] = (a, len(fp) + len(mids) - 1, b_)
+    fp = np.concatenate([fp, np.asarray(mids, np.float32)])
+    fc = np.ascontiguousarray(fc[morton_sort_faces(fp, fc)])
+    b, p = 2, 160
+    ids = morton_sort_ids(fp, rng.choice(len(fp), p, replace=False))
+    q = (fp[ids][None] + rng.randn(b, p, 3) * 0.002).astype(np.float32)
+    q[:, ::4] = fp[ids][::4]  # on a vertex
+    return q, fp, fc
+
+
+def _every_face_survives(rng):
+    """Queries near the centre of a sphere of radius 1 (320 faces): every
+    face is about equally far, so each visited tile keeps most of its
+    faces for every query and the direct loop runs."""
+    from icp_proposal_tpu_torch.models.synthetic import make_icosphere
+
+    sp, sc = make_icosphere(subdivisions=2, radius=1.0)
+    q = (rng.randn(2, 64, 3) * 1e-3).astype(np.float32)
+    return q, np.asarray(sp, np.float32), np.asarray(sc, np.int32)
+
+
+def _nan_queries_and_vertices(rng):
+    """The Morton-sorted open patch with NaN queries (one lane, a whole
+    warp); the per-chain meshes get NaN vertices (a few, or all)."""
+    from icp_proposal_tpu_torch.ops.morton import morton_sort_ids
+
+    fp, fc = _holed_patch(rng)
+    b, p = 3, 96
+    ids = morton_sort_ids(fp, rng.choice(len(fp), p, replace=False))
+    q = (fp[ids][None] + rng.randn(b, p, 3) * 0.005).astype(np.float32)
+    q[0, 3, 1] = np.nan
+    q[1, 32:64] = np.nan
+    return q, fp, fc
+
+
+PER_FACE_CASES = {
+    "tie_in_one_tile": _tie_in_one_tile,
+    "flat_boxes": _flat_boxes,
+    "degenerate_faces": _degenerate_faces,
+    "every_face_survives": _every_face_survives,
+    "nan_queries_and_vertices": _nan_queries_and_vertices,
+}
+
+
+def _per_face_args(case):
+    """A case's shared-surface call (q [B, P, 3] against one mesh) and its
+    per-chain call (the first chain's queries against B meshes moved
+    apart; NaN vertices in the NaN case) → two tuples of numpy arrays."""
+    rng = np.random.RandomState(11)
+    q, pts, cells = PER_FACE_CASES[case](rng)
+    pts_b = (pts[None] + rng.randn(len(q), 1, 3).astype(np.float32) * 1e-4).astype(np.float32)
+    if case == "nan_queries_and_vertices":
+        pts_b[1] = np.nan
+        pts_b[2, rng.randint(0, len(pts), 40)] = np.nan
+    return (q, pts, cells), (np.ascontiguousarray(q[0]), pts_b, cells)
+
+
+def _per_face_expect(case, args, d2, idx):
+    """What a case pins beyond the dense scan (torch tensors d2, idx)."""
+    q, pts = args[0], args[1]
+    if case == "tie_in_one_tile":
+        assert (idx == 35).all()
+    elif case == "nan_queries_and_vertices":
+        nan = torch.as_tensor(np.isnan(q).any(-1) if q.ndim == 3 else
+                              np.isnan(pts).all((-1, -2))[:, None].repeat(q.shape[0], 1),
+                              device=d2.device)
+        assert torch.isposinf(d2[nan]).all() and (idx[nan] == 0).all()
+
+
+@pytest.mark.parametrize("case", sorted(PER_FACE_CASES))
+def test_per_face_replay_on_the_kernel_cases(case):
+    """The float32 replay with the per-face box test gives the plain
+    result bitwise on each case of the per-face CUDA test, shared and
+    per-chain, and runs no more cascades than it visits pairs."""
+    from icp_proposal_tpu_torch.ops.closest_point import surface_distances
+
+    for args in _per_face_args(case):
+        q, pts, cells = args
+        d2, idx = surface_distances(*(torch.as_tensor(a) for a in args))
+        _per_face_expect(case, args, d2, idx)
+        for b in range(len(d2)):
+            qb, pb = (q[b] if q.ndim == 3 else q), (pts[b] if pts.ndim == 3 else pts)
+            rd2, ridx, visited, ran = _replay_culled(qb, pb, cells, per_face=True)
+            np.testing.assert_array_equal(rd2, d2[b].numpy())
+            np.testing.assert_array_equal(ridx, idx[b].numpy())
+            assert ran <= visited <= 1.0
 
 
 @pytest.fixture
@@ -479,13 +691,36 @@ def test_cuda_culled_nan_queries_and_meshes(cuda):
     assert torch.isposinf(d2[1]).all() and (idx[1] == 0).all()
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PER_FACE_CASES))
+def test_cuda_culled_per_face_cases(cuda, case):
+    """K5's per-face box test and the merge of packed pairs on the card:
+    a tie of two identical faces in one tile, faces flat in their boxes,
+    degenerate faces, a tile every face of which survives (the direct
+    loop) and NaN queries and vertices, shared and per-chain: bitwise the
+    dense scan and the plain version, the cascades run no more than the
+    pairs visited."""
+    from icp_proposal_tpu_torch.ops import closest_point_cuda as cc
+
+    for args in _per_face_args(case):
+        gargs = tuple(torch.as_tensor(a, device=cuda) for a in args)
+        d2, idx = _culled_dense_plain(gargs)
+        _per_face_expect(case, args, d2, idx)
+        visits = torch.zeros(3, dtype=torch.int64, device=cuda)
+        cc.surface_distances(*gargs, visits=visits)
+        tiles, visited, ran = visits.tolist()
+        assert 0 < ran <= visited
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--replay":
         q, surfaces = _replay_surfaces(4, 800)
         for name, (pts, cells) in surfaces.items():
             for tile in (32, 128):
-                share = _replay_culled(q, pts, cells, tile)[2]
+                _, _, share, ran = _replay_culled(q, pts, cells, tile, per_face=True)
                 print(f"{name} surface, {len(cells)} faces, {tile}-face tiles: "
-                      f"{share:.4f} of the (query, face) pairs evaluated")
+                      f"{share:.4f} of the (query, face) pairs visited, the cascade "
+                      f"run on {ran:.4f}")
     else:
         _jax_references(sys.argv[1])
