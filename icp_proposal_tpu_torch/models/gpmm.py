@@ -156,20 +156,22 @@ def posterior_factors_anisotropic(
     """Posterior factors for per-chain observation ids (the ICP target
     direction): gather Qᵢ, precision-scale, contract to M = I + QᵀPQ."""
     with span("gpmm.assemble"):
-        ids = ids.long()
-        q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
-        resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
-        a = 1.0 / (noise_along_normal * noise_along_normal)
-        b = 1.0 / (tangential_noise * tangential_noise)
-        ntq = torch.einsum("bmi,bmir->bmr", normals, q_o)  # [B, m, r]
-        pq = b * q_o + (a - b) * normals[..., None] * ntq[:, :, None, :]
-        pq = pq * mask[..., None, None]
-        bsz, m, _, r = q_o.shape
-        qf = q_o.reshape(bsz, 3 * m, r)
-        pqf = pq.reshape(bsz, 3 * m, r)
-        eye = torch.eye(r, dtype=q_o.dtype, device=q_o.device)
-        m_mat = eye + qf.transpose(1, 2) @ pqf
-        rhs = torch.einsum("bmir,bmi->br", pq, resid)
+        with span("gpmm.gather"):
+            ids = ids.long()
+            q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
+            resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
+            a = 1.0 / (noise_along_normal * noise_along_normal)
+            b = 1.0 / (tangential_noise * tangential_noise)
+            ntq = torch.einsum("bmi,bmir->bmr", normals, q_o)  # [B, m, r]
+            pq = b * q_o + (a - b) * normals[..., None] * ntq[:, :, None, :]
+            pq = pq * mask[..., None, None]
+        with span("gpmm.contract"):
+            bsz, m, _, r = q_o.shape
+            qf = q_o.reshape(bsz, 3 * m, r)
+            pqf = pq.reshape(bsz, 3 * m, r)
+            eye = torch.eye(r, dtype=q_o.dtype, device=q_o.device)
+            m_mat = eye + qf.transpose(1, 2) @ pqf
+            rhs = torch.einsum("bmir,bmi->br", pq, resid)
     return _factor(m_mat, rhs)
 
 
@@ -191,20 +193,22 @@ def posterior_factors_anisotropic_static(
 
     so no [B, m, 3, r] tensor is ever built."""
     with span("gpmm.assemble"):
-        a = 1.0 / (noise_along_normal * noise_along_normal)
-        b = 1.0 / (tangential_noise * tangential_noise)
-        w = mask.to(torch.float32)  # [B, m]
-        resid = obs_disp - mean_static  # [B, m, 3]
-        ntq = torch.einsum("bmi,mir->bmr", normals, q_static)  # [B, m, r]
-        bsz, m, r = ntq.shape
-        eye = torch.eye(r, dtype=torch.float32, device=ntq.device)
-        gram_sum = (w @ gram_static.reshape(m, r * r)).reshape(bsz, r, r)
-        outer = (ntq * w[..., None]).transpose(1, 2) @ ntq  # Σᵢ wᵢ gᵢgᵢᵀ
-        m_mat = eye + b * gram_sum + (a - b) * outer
-        n_dot_y = torch.sum(normals * resid, dim=-1)  # [B, m]
-        rhs = b * ((w[..., None] * resid).reshape(bsz, 3 * m)
-                   @ q_static.reshape(3 * m, r)) + (a - b) * torch.einsum(
-            "bmr,bm->br", ntq, w * n_dot_y)
+        with span("gpmm.gather"):
+            a = 1.0 / (noise_along_normal * noise_along_normal)
+            b = 1.0 / (tangential_noise * tangential_noise)
+            w = mask.to(torch.float32)  # [B, m]
+            resid = obs_disp - mean_static  # [B, m, 3]
+            ntq = torch.einsum("bmi,mir->bmr", normals, q_static)  # [B, m, r]
+        with span("gpmm.contract"):
+            bsz, m, r = ntq.shape
+            eye = torch.eye(r, dtype=torch.float32, device=ntq.device)
+            gram_sum = (w @ gram_static.reshape(m, r * r)).reshape(bsz, r, r)
+            outer = (ntq * w[..., None]).transpose(1, 2) @ ntq  # Σᵢ wᵢ gᵢgᵢᵀ
+            m_mat = eye + b * gram_sum + (a - b) * outer
+            n_dot_y = torch.sum(normals * resid, dim=-1)  # [B, m]
+            rhs = b * ((w[..., None] * resid).reshape(bsz, 3 * m)
+                       @ q_static.reshape(3 * m, r)) + (a - b) * torch.einsum(
+                "bmr,bm->br", ntq, w * n_dot_y)
     return _factor(m_mat, rhs)
 
 
@@ -214,13 +218,15 @@ def isotropic_system(gpmm: Gpmm, ids: torch.Tensor, obs_disp: torch.Tensor,
     ids [B, m] with displacements obs_disp [B, m, 3] from the reference
     points; ``weight`` [B, m] is wᵢ, None for all ones (then no weighted
     copy of the gathered Q [B, m, 3, r] is made)."""
-    ids = ids.long()
-    q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
-    resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
-    bsz, m, _, r = q_o.shape
-    qf = q_o.reshape(bsz, 3 * m, r)
-    pqf = qf if weight is None else (q_o * weight[..., None, None]).reshape(bsz, 3 * m, r)
-    return qf.transpose(1, 2) @ pqf, (resid.reshape(bsz, 1, 3 * m) @ pqf)[:, 0]
+    with span("gpmm.gather"):
+        ids = ids.long()
+        q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
+        resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
+        bsz, m, _, r = q_o.shape
+        qf = q_o.reshape(bsz, 3 * m, r)
+        pqf = qf if weight is None else (q_o * weight[..., None, None]).reshape(bsz, 3 * m, r)
+    with span("gpmm.contract"):
+        return qf.transpose(1, 2) @ pqf, (resid.reshape(bsz, 1, 3 * m) @ pqf)[:, 0]
 
 
 def posterior_factors_isotropic(

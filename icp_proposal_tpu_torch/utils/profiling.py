@@ -33,6 +33,8 @@ STEP_SPANS = {
     "mh.anchor": "the reverse anchors: correspondences, assembly, factor",
     "icp.correspond": "an ICP component's correspondences, masks and observations",
     "gpmm.assemble": "the posterior system M and its right-hand side",
+    "gpmm.gather": "the basis rows at the observations and their precision scaling",
+    "gpmm.contract": "the contractions of those rows to M and to the right-hand side",
     "chol.factor": "symmetrize M, factor and solve (K1/K6)",
     "surface.query": "closest-point and nearest-vertex queries (K3/K4/K8/K5)",
     "mh.density": "the forward and reverse mixture densities",

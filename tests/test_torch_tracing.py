@@ -38,6 +38,7 @@ STEP_TREE = {"mh.step": None, "mh.propose": "mh.step", "mh.decode": "mh.step",
              "mh.anchor": "mh.step", "mh.density": "mh.step",
              "mh.evaluate": "mh.step", "mh.accept": "mh.step"}
 ICP_TREE = {("icp.correspond", "mh.anchor"), ("gpmm.assemble", "mh.anchor"),
+            ("gpmm.gather", "gpmm.assemble"), ("gpmm.contract", "gpmm.assemble"),
             ("chol.factor", "mh.anchor"), ("surface.query", "icp.correspond")}
 TREES = {
     "flagship": set(STEP_TREE.items()) | ICP_TREE | {("surface.query", "mh.step")},
@@ -216,6 +217,54 @@ def test_every_op_of_a_step_lies_under_a_phase(built, tmp_path):
     assert {name for span, name in owner if span == "mh.step"} <= STEP_OWN_OPS
     phases_seen = {span for span, _ in owner}
     assert {"mh.propose", "mh.decode", "mh.density", "mh.evaluate", "mh.accept"} <= phases_seen
+
+
+def _assembly_calls():
+    """Each assembly function of ``models/gpmm`` on a small synthetic GPMM,
+    as a name → call."""
+    from icp_proposal_tpu_torch.models import gpmm as gp
+    from icp_proposal_tpu_torch.models.synthetic import make_icosphere, make_synthetic_gpmm
+
+    pts, cells = make_icosphere(1)
+    model = make_synthetic_gpmm(pts, cells, rank=6, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    bsz, m = 3, 5
+    ids = torch.randint(0, model.num_points, (bsz, m), generator=gen)
+    obs = torch.randn((bsz, m, 3), generator=gen)
+    nrm = torch.nn.functional.normalize(torch.randn((bsz, m, 3), generator=gen), dim=-1)
+    mask = (torch.rand((bsz, m), generator=gen) > 0.2).to(torch.float32)
+    q_static = model.sbasis[ids[0]]
+    gram_static = torch.einsum("mir,mis->mrs", q_static, q_static)
+    return {
+        "anisotropic": lambda: gp.posterior_factors_anisotropic(
+            model, ids, obs, nrm, 5.0, 10.0, mask),
+        "anisotropic_static": lambda: gp.posterior_factors_anisotropic_static(
+            model, q_static, gram_static, model.mean_disp[ids[0]], obs, nrm, 5.0, 10.0,
+            mask),
+        "isotropic": lambda: gp.posterior_factors_isotropic(model, ids, obs, 0.5, mask),
+    }
+
+
+@pytest.mark.parametrize("name", ["anisotropic", "anisotropic_static", "isotropic"])
+def test_assembly_splits_into_gather_and_contract(name):
+    """With tracing on, each assembly function's ``gpmm.assemble`` holds a
+    ``gpmm.gather`` and then a ``gpmm.contract``, and ``chol.factor``
+    follows it; off, it records nothing and computes the same bits."""
+    call = _assembly_calls()[name]
+    profiling.spans()
+    off = call()
+    assert profiling.spans() == []
+    with profiling.tracing():
+        on = call()
+    kept = profiling.spans()
+    assert [(s.name, s.parent) for s in kept] == [
+        ("gpmm.gather", "gpmm.assemble"), ("gpmm.contract", "gpmm.assemble"),
+        ("gpmm.assemble", None), ("chol.factor", None)]
+    gather, contract, assemble = kept[:3]
+    assert (assemble.start_ns <= gather.start_ns <= gather.end_ns <= contract.start_ns
+            <= contract.end_ns <= assemble.end_ns)
+    assert {"gpmm.gather", "gpmm.contract"} <= set(profiling.STEP_SPANS)
+    assert phases.same_bits(tuple(off), tuple(on))
 
 
 # ---------------------------------------------------------------------------
