@@ -24,6 +24,16 @@ Phases (each prints one line or a short block, and ends in
                  and 2,048 on 256 chains, and at 401 and 600 on 2,048 chains
                  (the two paths below), a non-SPD chain NaN; K6 in turns
                  with cholesky_ex, K7 beside solve_triangular;
+3c. kernels:assembly  the ICP target direction's assembly kernel at the two
+                 femur flagship cells' shapes (r = 101, m = 202, 4,096 chains;
+                 r = 401, m = 802, 2,048 chains; random bases and
+                 observations drawn on the card, ids repeating, a fifth of
+                 the vertices on the boundary): M's lower triangle and rhs of
+                 the first 64 chains held to the float64 twin within the
+                 rounding bound of a float32 sum of 3m terms, then the
+                 kernel and the float32 twin in turns, with the bound and
+                 the launch (bands, tiles a chain, threads, observations a
+                 stage, shared memory, blocks an SM);
 4. main          the stand-in femur GPMM-100 (rank 101) flagship ICP-proposal
                  MH step at 2,048 chains through the kernels: warm-up, then
                  timed steps, with each kernel's launch count;
@@ -251,13 +261,21 @@ FEMUR_STEP_LAUNCHES = {"chol_solve": 2, "tri_solve_lt": 2, "nearest_vertices[sha
                        "surface_distances[per_chain]": 0, "chol_solve_blocked": 0,
                        "tri_solve_lt_blocked": 0, "coarse_nearest_dot": 0,
                        "shortlist_topk": 0, "point_tri_d2": 0, "chol_solve_streamed": 0,
-                       "tri_solve_lt_streamed": 0}
+                       "tri_solve_lt_streamed": 0, "target_assembly": 1}
 BFM_STEP_LAUNCHES = {"chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 1,
                      "nearest_vertices[per_chain]": 0, "refine_shortlist": 1,
                      "surface_distances[shared]": 1, "surface_distances[per_chain]": 1,
                      "chol_solve_blocked": 1, "tri_solve_lt_blocked": 1,
                      "coarse_nearest_dot": 0, "shortlist_topk": 0, "point_tri_d2": 0,
-                     "chol_solve_streamed": 0, "tri_solve_lt_streamed": 0}
+                     "chol_solve_streamed": 0, "tri_solve_lt_streamed": 0,
+                     "target_assembly": 0}
+# the target direction's assembly ([kernels:assembly]): (rank, observations,
+# chains) of femur100.flagship.c4096 and femur400.flagship.c2048, the
+# chains checked against the float64 twin, calls a timing, and the noise
+# a = 1/σₙ², c = 1/σₜ² of the flagship's ICP
+ASSEMBLY_SHAPES = ((101, 202, 4096), (401, 802, 2048))
+ASSEMBLY_CHECK_CHAINS, ASSEMBLY_REPS = 64, 10
+ASSEMBLY_SIGMAS = (5.0, 10.0)
 # K6 and K7 past the tiled kernel's r = 320 and the row kernel's 512
 # ([kernels:rank]): 256 chains at each rank, 2,048 more at the ranks of the
 # two paths below; fewer turns where a call takes a second or so
@@ -280,7 +298,7 @@ HYBRID_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 
                                                     "refine_shortlist": 2})
 MALA_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{
     "chol_solve": 0, "tri_solve_lt": 0, "nearest_vertices[shared]": 2,
-    "nearest_vertices[per_chain]": 0, "refine_shortlist": 2})
+    "nearest_vertices[per_chain]": 0, "refine_shortlist": 2, "target_assembly": 0})
 RW_STEP_LAUNCHES = dict(MALA_STEP_LAUNCHES, **{"nearest_vertices[shared]": 1,
                                                "refine_shortlist": 1})
 # [check:stationary]: chains started from exact N(0, I) draws under the
@@ -309,10 +327,11 @@ REG_STEP_LAUNCHES = dict(FEMUR_STEP_LAUNCHES, **{"nearest_vertices[shared]": 0,
                                                  "coarse_nearest_dot": 1})
 # launches of one verbose registration run outside its steps: the target's
 # context (K9), the initial carry's unfused queries (evaluator and
-# model-direction ICP: K8 + K4 each; target-direction ICP: K3 per chain; two
-# factorizations) and the four K5 queries of the reconstruction metrics
+# model-direction ICP: K8 + K4 each; target-direction ICP: K3 per chain and
+# its assembly; two factorizations) and the four K5 queries of the
+# reconstruction metrics
 REG_RUN_LAUNCHES = {"coarse_nearest_dot": 2, "refine_shortlist": 2,
-                    "nearest_vertices[per_chain]": 1, "chol_solve": 2,
+                    "nearest_vertices[per_chain]": 1, "target_assembly": 1, "chol_solve": 2,
                     "surface_distances[shared]": 4, **CONTEXT_LAUNCHES}
 # the deterministic ICP: both directions every iteration (K3 shared + K4 for
 # the model direction, K3 per chain for the target direction), one
@@ -335,12 +354,14 @@ EXP_INITS, EXP_SAMPLES = 100, 1000
 # initial carry queries the evaluator and the ICP anchors once, unfused,
 # with no draw.
 EXP_EUCLID_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
-                   "nearest_vertices[per_chain]": 1, "chol_solve_blocked": 2,
-                   "tri_solve_lt_blocked": 2}
+                   "nearest_vertices[per_chain]": 1, "target_assembly": 1,
+                   "chol_solve_blocked": 2, "tri_solve_lt_blocked": 2}
 EXP_EUCLID_INIT = {"nearest_vertices[shared]": 2, "refine_shortlist": 2,
-                   "nearest_vertices[per_chain]": 1, "chol_solve_blocked": 2}
+                   "nearest_vertices[per_chain]": 1, "target_assembly": 1,
+                   "chol_solve_blocked": 2}
 EXP_HAUSDORFF_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
-                      "nearest_vertices[per_chain]": 1, "chol_solve_blocked": 2,
+                      "nearest_vertices[per_chain]": 1, "target_assembly": 1,
+                      "chol_solve_blocked": 2,
                       "tri_solve_lt_blocked": 2, "surface_distances[shared]": 1,
                       "surface_distances[per_chain]": 1}
 EXP_HAUSDORFF_INIT = dict(EXP_HAUSDORFF_STEP, tri_solve_lt_blocked=0)
@@ -370,11 +391,12 @@ RI_RND_STEP = {"nearest_vertices[shared]": 1, "refine_shortlist": 1,
 # then the replay CLI's two sub-commands at the JAX CLI's defaults.  A run
 # of runfitting(verbose=False) launches outside its steps the initial
 # carry's unfused queries (evaluator and model-direction ICP: K3 shared + K4
-# each; target-direction ICP: K3 per chain), its two K1 factors and the
-# target's context (K9).
+# each; target-direction ICP: K3 per chain and its assembly), its two K1
+# factors and the target's context (K9).
 PIPE_SAMPLES = 1200
 PIPE_RUN_LAUNCHES = {"nearest_vertices[shared]": 2, "refine_shortlist": 2,
-                     "nearest_vertices[per_chain]": 1, "chol_solve": 2, **CONTEXT_LAUNCHES}
+                     "nearest_vertices[per_chain]": 1, "target_assembly": 1, "chol_solve": 2,
+                     **CONTEXT_LAUNCHES}
 REPLAY_STRIDE, REPLAY_SNAPSHOTS = 10, 50  # JAX CLI: replay --stride, --max-snapshots
 # the statismo files committed for the reader (written by h5py in layouts
 # other than its default by tests/make_statismo_fixtures.py): each held to
@@ -478,6 +500,9 @@ SOURCES = {  # record → (source in the port, TPU kernel it replaces)
     # host C++ kernels of the JAX package, not Pallas kernels
     "shortlist_topk": ("csrc/point_tri.cu", "icp_proposal_tpu/native/point_tri.cpp:114"),
     "point_tri_d2": ("csrc/point_tri.cu", "icp_proposal_tpu/native/point_tri.cpp:100"),
+    # no Pallas kernel: the JAX package leaves the assembly to XLA
+    "target_assembly": ("csrc/assemble.cu",
+                        "icp_proposal_tpu/models/gpmm.py:194 (XLA, not a Pallas kernel)"),
 }
 VALUE_TOL = {"chol_solve", "tri_solve_lt", "chol_solve_blocked", "tri_solve_lt_blocked",
              "chol_solve_streamed", "tri_solve_lt_streamed"}
@@ -904,6 +929,106 @@ def phase_kernels_rank(torch, dev):
     return out
 
 
+def assembly_inputs(torch, dev, seed, b, m, r, v):
+    """The assembly's tables and observations drawn on the card: a random
+    basis, ids from half the vertices (so they repeat), every fifth vertex
+    on the boundary, target points near the reference points, unit
+    normals."""
+    from icp_proposal_tpu_torch.ops.assemble_cuda import TargetTables
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.zeros((v, 3, -(-r // 4) * 4), device=dev)
+    q[..., :r] = torch.randn((v, 3, r), generator=gen, device=dev)
+    ref = 50.0 * torch.randn((v, 3), generator=gen, device=dev)
+    w = (torch.arange(v, device=dev) % 5 != 0).to(torch.float32)
+    vtab = torch.cat([ref, w[:, None], torch.randn((v, 3), generator=gen, device=dev),
+                      torch.zeros((v, 1), device=dev)], 1).contiguous()
+    pool = torch.randperm(v, generator=gen, device=dev)[: v // 2]
+    ids = pool[torch.randint(0, len(pool), (b, m), generator=gen, device=dev)].to(torch.int32)
+    tp = (ref[ids.long()] + torch.randn((b, m, 3), generator=gen, device=dev)).contiguous()
+    nrm = torch.nn.functional.normalize(torch.randn((b, v, 3), generator=gen, device=dev),
+                                        dim=-1).contiguous()
+    return TargetTables(q=q, vtab=vtab, rank=r), ids, tp, nrm
+
+
+def assembly_error_share(torch, tables, ids, tp, nrm, got, lo, hi):
+    """The largest |kernel − float64 twin| over M's lower triangle and rhs
+    of chains lo … hi − 1, as a share of the rounding bound of a float32 sum
+    of the 3m terms in any order: (3m + 16)·2⁻²⁴ times the sum of the
+    terms' magnitudes (|Q|ᵀ|PQ| + I, |ỹ|ᵀ|PQ|); NaN where got is not
+    finite."""
+    from icp_proposal_tpu_torch.ops.assemble_cuda import TargetTables, target_assembly_plain
+
+    r, sl = tables.rank, slice(lo, hi)
+    idx, b = ids[sl].long(), hi - lo
+    t64 = TargetTables(q=tables.q.double(), vtab=tables.vtab.double(), rank=r)
+    want_m, want_rhs = target_assembly_plain(t64, ids[sl], tp[sl].double(), nrm[sl].double(),
+                                             *ASSEMBLY_SIGMAS)
+    q_o = t64.q[:, :, :r][idx].abs()
+    n = nrm[sl].double()[torch.arange(b, device=ids.device)[:, None], idx].abs()
+    a, c = (1.0 / s ** 2 for s in ASSEMBLY_SIGMAS)
+    pq = c * q_o + (a - c) * n[..., None] * torch.einsum("bmi,bmir->bmr", n, q_o)[:, :, None]
+    vt = t64.vtab[idx]
+    y = tp[sl].double().abs() + vt[..., 0:3].abs() + vt[..., 4:7].abs()
+    m = idx.shape[1]
+    u = (3 * m + 16) * 2.0 ** -24
+    eye = torch.eye(r, dtype=torch.float64, device=ids.device)
+    bound_m = u * (q_o.reshape(b, 3 * m, r).transpose(1, 2) @ pq.reshape(b, 3 * m, r) + eye)
+    bound_rhs = u * torch.einsum("bmir,bmi->br", pq, y)
+    lower = torch.tril(torch.ones((r, r), dtype=torch.bool, device=ids.device))
+    share_m = ((got[0][sl].double() - want_m).abs() / bound_m)[:, lower]
+    share_rhs = (got[1][sl].double() - want_rhs).abs() / bound_rhs
+    shares = torch.cat([share_m.flatten(), share_rhs.flatten()])
+    return float(shares.max()) if bool(torch.isfinite(shares).all()) else float("nan")
+
+
+def phase_kernels_assembly(torch, dev):
+    """``[kernels:assembly]``: the target direction's assembly at
+    ``ASSEMBLY_SHAPES`` against the float64 twin (a share of the rounding
+    bound, held ≤ 1), two launches bitwise equal, then the kernel and the
+    float32 twin in turns → {"target_assembly": record at the last shape,
+    with the others' under "at_rank"}."""
+    from icp_proposal_tpu_torch.ops import assemble_cuda as ac
+
+    out = {}
+    for r, m, b in ASSEMBLY_SHAPES:
+        inputs = assembly_inputs(torch, dev, r + m, b, m, r, 1622)
+        _reset_counts()
+        got = ac.target_assembly(*inputs, *ASSEMBLY_SIGMAS)
+        again = ac.target_assembly(*inputs, *ASSEMBLY_SIGMAS)
+        _sync(torch)
+        _check_counts(f"[kernels:assembly] r={r}", _read_counts(), {"target_assembly": 2})
+        lower = torch.tril(torch.ones((r, r), dtype=torch.bool, device=dev))
+        if not (torch.equal(got[0][:, lower], again[0][:, lower])
+                and torch.equal(got[1], again[1])):
+            raise AssertionError(f"[kernels:assembly] r={r}: two launches differ")
+        share = assembly_error_share(torch, *inputs, got, 0, ASSEMBLY_CHECK_CHAINS)
+        if not share <= 1.0:
+            raise AssertionError(f"[kernels:assembly] r={r}: the kernel is off the float64 "
+                                 f"twin by {share:.3g} of the rounding bound")
+        del got, again
+        n_flops = 2.0 * b * 3 * m * r * (r + 1) / 2
+        n_bytes = 4.0 * (inputs[0].q.shape[0] * 3 * r + 8 * b * m + b * (r * (r + 1) / 2 + r))
+        rec = _record(torch, share, 0, lambda: ac.target_assembly(*inputs, *ASSEMBLY_SIGMAS),
+                      lambda: ac.target_assembly_plain(*inputs, *ASSEMBLY_SIGMAS),
+                      n_bytes, n_flops, reps=ASSEMBLY_REPS, plain_reps=2)
+        rec.update(ac.target_assembly_config(r, m), rank=r, observations=m)
+        out[f"r={r}"] = rec
+        print(f"[kernels:assembly] target_assembly r={r}, m={m}, {b} chains: kernel "
+              f"{rec['ms']:.4f} ms, plain twin {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of it; off the float64 twin by "
+              f"{share:.3g} of the rounding bound (first {ASSEMBLY_CHECK_CHAINS} chains), "
+              f"two launches bitwise equal; launch: {rec['bands']} bands of 16 micro rows, "
+              f"{rec['tiles']} tiles a chain, {rec['threads']} threads, {rec['obs']} "
+              f"observations a stage, {rec['smem_bytes']} B shared, {rec['ctas_per_sm']} "
+              f"blocks an SM", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    last = out.pop(f"r={ASSEMBLY_SHAPES[-1][0]}")
+    return {"target_assembly": dict(last, at_rank=out)}
+
+
 def phase_kernels_bfm(torch, dev, data, evaluator):
     """K5 (both modes), K6 and K7 against the plain twins at the BFM path's
     shapes on ``CMP_CHAINS`` and on ``N_CHAINS`` chains (the larger as
@@ -1121,14 +1246,14 @@ def _print_record(tag, name, rec, chains):
 
 def _wrappers():
     from icp_proposal_tpu_torch import native
-    from icp_proposal_tpu_torch.ops import chol_cuda, closest_point_cuda
+    from icp_proposal_tpu_torch.ops import assemble_cuda, chol_cuda, closest_point_cuda
 
     return (chol_cuda.chol_solve, chol_cuda.tri_solve_lt, chol_cuda.chol_solve_blocked,
             chol_cuda.tri_solve_lt_blocked, chol_cuda.chol_solve_streamed,
             chol_cuda.tri_solve_lt_streamed, closest_point_cuda.nearest_vertices,
             closest_point_cuda.refine_shortlist, closest_point_cuda.surface_distances,
             closest_point_cuda.coarse_nearest_dot, native.shortlist_topk,
-            native.point_tri_d2)
+            native.point_tri_d2, assemble_cuda.target_assembly)
 
 
 def _reset_counts():
@@ -2990,6 +3115,10 @@ def main() -> int:
     rank_records = phase_kernels_rank(torch, dev)
     _sync(torch)
     print(f"[kernels:rank] the phase took {time.perf_counter() - t:.3f} s; nvidia-smi: {smi}")
+
+    # 3c. the target direction's assembly against its twins
+    records.update(phase_kernels_assembly(torch, dev))
+    _sync(torch)
 
     # 4. main path: femur
     launches = {"femur": phase_main(torch, dev, "main", data.model, mixture, evaluator,

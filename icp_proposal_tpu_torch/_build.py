@@ -39,9 +39,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # pointers..., ints..., stream
+    # pointers..., ints..., floats..., stream
     "icp_chol_solve": [_P, _P, _P, _P, _P, _I, _I, _P],
     "icp_tri_solve_lt_rows": [_P, _P, _P, _I, _I, _P],
     "icp_nearest_vertices": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -54,6 +54,7 @@ _SIGNATURES = {
     "icp_coarse_nearest_dot": [_P, _P, _P, _I, _I, _I, _P],
     "icp_shortlist_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
     "icp_point_tri_d2": [_P, _P, _P, _I, _I, _P],
+    "icp_target_assembly": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # (r, warps): no stream, not a launch
     "icp_chol_tiled_smem_bytes": [_I, _I],
     "icp_chol_tiled_ctas_per_sm": [_I, _I],
@@ -61,6 +62,8 @@ _SIGNATURES = {
     "icp_chol_streamed_smem_bytes": [_I],
     "icp_chol_streamed_ws_floats": [_I],
     "icp_chol_streamed_ctas_per_sm": [_I],
+    # (r, m, int[6] out): no stream, not a launch
+    "icp_target_assembly_config": [_I, _I, _P],
     # (batch, p, v, per_chain, dot, int[5] out): no stream, not a launch
     "icp_nearest_vertices_config": [_I, _I, _I, _I, _I, _P],
     # (n_queries, int[5] out): no stream, not a launch

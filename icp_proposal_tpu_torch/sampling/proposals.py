@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from icp_proposal_tpu_torch.models import gpmm as gp
+from icp_proposal_tpu_torch.ops.assemble_cuda import target_assembly, target_tables
+from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve
 from icp_proposal_tpu_torch.ops.closest_point import nearest_vertex_of_faces
 from icp_proposal_tpu_torch.ops.closest_point_cuda import nearest_vertices
 from icp_proposal_tpu_torch.ops.morton import morton_sort_ids
@@ -213,12 +215,6 @@ def _gaussian_walk_logpdf(delta: torch.Tensor, sigma) -> torch.Tensor:
             - n * _log(sigma) - 0.5 * n * _LOG_2PI)
 
 
-def _take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """x [B, V, ...] rows at per-chain ids [B, m] → [B, m, ...]."""
-    ids = ids.long()
-    return x[torch.arange(x.shape[0], device=x.device)[:, None], ids]
-
-
 class IcpComponent:
     """Concrete ICP proposal: spec + precomputed sample ids; ``factors``
     computes the coefficient-space GP-posterior factors anchored at a state
@@ -248,6 +244,11 @@ class IcpComponent:
                 np.einsum("mir,mis->mrs", q64, q64).astype(np.float32), device=dev)
             self._mean_static = gpmm.mean_disp[self._model_ids_t]
             self._ref_static = gpmm.ref_points[self._model_ids_t]
+        if spec.direction == "target":
+            # the target assembly's tables: the padded basis, and per vertex
+            # ref, weight (boundary-aware: 0 on the model boundary) and mean
+            self._target_tables = target_tables(
+                gpmm, self._model_boundary if spec.boundary_aware else None)
 
     def _mask(self, on_boundary: torch.Tensor) -> torch.Tensor:
         """Observation weights: boundary correspondences drop out."""
@@ -284,12 +285,14 @@ class IcpComponent:
             tq = self._target_points.expand(bsz, -1, -1).contiguous()
             with span("surface.query"):
                 ids = nearest_vertices(tq, cur_points.contiguous())  # [B, m]
-            obs_disp = pose_inverse_apply(state, tq) - self.gpmm.ref_points[ids.long()]
-            normals = _take_rows(cur_normals, ids)
-            mask = self._mask(self._model_boundary[ids.long()])
-        return gp.posterior_factors_anisotropic(
-            self.gpmm, ids, obs_disp, normals, spec.noise_along_normal,
-            spec.tangential_noise, mask)
+            target_points = pose_inverse_apply(state, tq)
+        with span("gpmm.assemble"):
+            m_mat, rhs = target_assembly(self._target_tables, ids,
+                                         target_points.contiguous(), cur_normals.contiguous(),
+                                         spec.noise_along_normal, spec.tangential_noise)
+        with span("chol.factor"):  # the factor reads M's lower triangle alone
+            chol, alpha_hat, logdet = chol_solve(m_mat, rhs)
+        return gp.PosteriorFactors(alpha_hat=alpha_hat, chol_m=chol, logdet_m=logdet)
 
     def propose(self, state: FitState, factors: gp.PosteriorFactors,
                 z: torch.Tensor) -> FitState:
