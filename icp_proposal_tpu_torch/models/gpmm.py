@@ -10,6 +10,14 @@ with the anisotropic observation precision P = (1/σ_t²) I + (1/σ_n² − 1/σ
 Every function takes chains as the leading dimension B.  The r×r factor and
 solve go through the K1 kernel (``ops/chol_cuda.chol_solve``), the posterior
 draw through K2 (``ops/chol_cuda.tri_solve_lt``).
+
+This module turns the ICP proposal's observations into ``PosteriorFactors``
+in both directions, from tables built once at set-up: the target direction
+(``posterior_factors_anisotropic`` over ``target_tables``) through the
+assembly kernel K11 (``ops/assemble_cuda.target_assembly``), the model
+direction (``posterior_factors_anisotropic_static`` over ``static_tables``)
+through torch contractions.  The sampler finds the correspondences and
+calls them.
 """
 from __future__ import annotations
 
@@ -22,6 +30,11 @@ import torch
 
 from icp_proposal_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from icp_proposal_tpu_torch.mesh import TriangleMesh
+from icp_proposal_tpu_torch.ops.assemble_cuda import (  # noqa: F401 (target_tables: re-exported)
+    TargetTables,
+    target_assembly,
+    target_tables,
+)
 from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve, tri_solve_lt
 from icp_proposal_tpu_torch.utils.profiling import span
 
@@ -144,35 +157,52 @@ def _factor(m_mat: torch.Tensor, rhs: torch.Tensor) -> PosteriorFactors:
     return PosteriorFactors(alpha_hat=alpha_hat, chol_m=chol, logdet_m=logdet)
 
 
+class StaticTables(NamedTuple):
+    """The model direction's tables at its fixed observation ids."""
+
+    q: torch.Tensor  # [m, 3, r] sbasis rows at the ids
+    gram: torch.Tensor  # [m, r, r] per-observation Gram QᵢᵀQᵢ
+    mean: torch.Tensor  # [m, 3] mean_disp at the ids
+    ref: torch.Tensor  # [m, 3] ref_points at the ids
+
+
+def static_tables(gpmm: Gpmm, ids) -> StaticTables:
+    """The tables of ``posterior_factors_anisotropic_static`` at the host
+    vertex ids [m]; the Gram matrices formed in float64 and stored
+    float32."""
+    ids = np.asarray(ids)
+    q = gpmm.sbasis.cpu().numpy()[ids]  # [m, 3, r]
+    q64 = q.astype(np.float64)
+    idx = torch.as_tensor(ids, dtype=torch.int64, device=gpmm.device)
+    return StaticTables(
+        q=torch.as_tensor(q, device=gpmm.device),
+        gram=torch.as_tensor(np.einsum("mir,mis->mrs", q64, q64).astype(np.float32),
+                             device=gpmm.device),
+        mean=gpmm.mean_disp[idx], ref=gpmm.ref_points[idx])
+
+
 def posterior_factors_anisotropic(
-    gpmm: Gpmm,
-    ids: torch.Tensor,  # [B, m] vertex ids of the observations
-    obs_disp: torch.Tensor,  # [B, m, 3] observed displacement from ref points
-    normals: torch.Tensor,  # [B, m, 3] unit normals defining the noise frame
+    tables: TargetTables,  # ``target_tables`` of the model
+    ids: torch.Tensor,  # [B, m] int32 vertex ids of the observations
+    target_points: torch.Tensor,  # [B, m, 3] observed points, pose-inverted
+    normals: torch.Tensor,  # [B, V, 3] unit vertex normals of the candidate
     noise_along_normal: float,
     tangential_noise: float,
-    mask: torch.Tensor,  # [B, m] float; 0 ⇒ observation excluded
 ) -> PosteriorFactors:
     """Posterior factors for per-chain observation ids (the ICP target
-    direction): gather Qᵢ, precision-scale, contract to M = I + QᵀPQ."""
+    direction).  The observation i at vertex idᵢ has the displacement
+    tᵢ − refᵢ, the noise frame of the normal at idᵢ and the tables' weight
+    at idᵢ (0 drops it).  M and rhs come from ``target_assembly``, K11 on
+    the card (M's lower triangle alone) and its plain twin on the CPU, and
+    are factored as they come: ``chol_solve`` reads M's lower triangle
+    alone, so M is not symmetrized."""
     with span("gpmm.assemble"):
-        with span("gpmm.gather"):
-            ids = ids.long()
-            q_o = gpmm.sbasis[ids]  # [B, m, 3, r]
-            resid = obs_disp - gpmm.mean_disp[ids]  # [B, m, 3]
-            a = 1.0 / (noise_along_normal * noise_along_normal)
-            b = 1.0 / (tangential_noise * tangential_noise)
-            ntq = torch.einsum("bmi,bmir->bmr", normals, q_o)  # [B, m, r]
-            pq = b * q_o + (a - b) * normals[..., None] * ntq[:, :, None, :]
-            pq = pq * mask[..., None, None]
-        with span("gpmm.contract"):
-            bsz, m, _, r = q_o.shape
-            qf = q_o.reshape(bsz, 3 * m, r)
-            pqf = pq.reshape(bsz, 3 * m, r)
-            eye = torch.eye(r, dtype=q_o.dtype, device=q_o.device)
-            m_mat = eye + qf.transpose(1, 2) @ pqf
-            rhs = torch.einsum("bmir,bmi->br", pq, resid)
-    return _factor(m_mat, rhs)
+        m_mat, rhs = target_assembly(tables, ids, target_points.contiguous(),
+                                     normals.contiguous(), noise_along_normal,
+                                     tangential_noise)
+    with span("chol.factor"):
+        chol, alpha_hat, logdet = chol_solve(m_mat, rhs)
+    return PosteriorFactors(alpha_hat=alpha_hat, chol_m=chol, logdet_m=logdet)
 
 
 def posterior_factors_anisotropic_static(

@@ -10,9 +10,11 @@ component is boundary-aware, else 1), a = 1/σₙ² and c = 1/σₜ²:
     M   = I + Σᵢ wᵢ · Qᵢᵀ (c·I + (a−c)·nᵢnᵢᵀ) Qᵢ
     rhs =     Σᵢ wᵢ · Qᵢᵀ (c·I + (a−c)·nᵢnᵢᵀ) ((tᵢ − refᵢ) − μᵢ)
 
-which is what ``models.gpmm.posterior_factors_anisotropic`` assembles from
-the gathered rows.  Dispatch: tensors on the CPU take the plain twin;
-tensors on a CUDA device launch the kernel or raise.
+``models.gpmm.posterior_factors_anisotropic`` calls it at every anchor of
+the target direction and factors what it returns; the tables are built
+once at set-up (``target_tables``, which ``models.gpmm`` exports).
+Dispatch: tensors on the CPU take the plain twin, the system's one plain
+form; tensors on a CUDA device launch the kernel or raise.
 ``target_assembly.launches`` counts the kernel's launches (the plain twin
 does not count).
 """
@@ -64,9 +66,8 @@ def _check(tables: TargetTables, ids, target_points, normals):
 def target_assembly_plain(tables: TargetTables, ids: torch.Tensor,
                           target_points: torch.Tensor, normals: torch.Tensor,
                           noise_along_normal: float, tangential_noise: float):
-    """(M [B, r, r], rhs [B, r]) with the gathered [B, m, 3, r] rows, as
-    ``posterior_factors_anisotropic`` assembles them (its einsum form, the
-    same operations in the same order); M is whole, in the tables' dtype."""
+    """(M [B, r, r], rhs [B, r]) from the gathered [B, m, 3, r] rows,
+    precision-scaled and contracted; M is whole, in the tables' dtype."""
     r = tables.rank
     idx = ids.long()
     q_o = tables.q[:, :, :r][idx]  # [B, m, 3, r]

@@ -19,8 +19,6 @@ import numpy as np
 import torch
 
 from icp_proposal_tpu_torch.models import gpmm as gp
-from icp_proposal_tpu_torch.ops.assemble_cuda import target_assembly, target_tables
-from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve
 from icp_proposal_tpu_torch.ops.closest_point import nearest_vertex_of_faces
 from icp_proposal_tpu_torch.ops.closest_point_cuda import nearest_vertices
 from icp_proposal_tpu_torch.ops.morton import morton_sort_ids
@@ -217,8 +215,9 @@ def _gaussian_walk_logpdf(delta: torch.Tensor, sigma) -> torch.Tensor:
 
 class IcpComponent:
     """Concrete ICP proposal: spec + precomputed sample ids; ``factors``
-    computes the coefficient-space GP-posterior factors anchored at a state
-    (the reference's ``icpPosterior`` in closed form)."""
+    finds the correspondences at a state and has ``models/gpmm`` turn them
+    into the coefficient-space GP-posterior factors (the reference's
+    ``icpPosterior`` in closed form)."""
 
     def __init__(self, spec: IcpSpec, gpmm, ctx: TargetContext, model_boundary,
                  model_ids, target_ids):
@@ -235,19 +234,11 @@ class IcpComponent:
         self._target_points = ctx.points[
             torch.as_tensor(self.target_ids, dtype=torch.int64, device=dev)]
         if spec.direction == "model":
-            # static tables for the analytic assembly (the model direction
-            # observes a FIXED vertex subset), Gram matrices in float64
-            q = gpmm.sbasis.cpu().numpy()[self.model_ids]  # [m, 3, r]
-            q64 = q.astype(np.float64)
-            self._q_static = torch.as_tensor(q, device=dev)
-            self._gram_static = torch.as_tensor(
-                np.einsum("mir,mis->mrs", q64, q64).astype(np.float32), device=dev)
-            self._mean_static = gpmm.mean_disp[self._model_ids_t]
-            self._ref_static = gpmm.ref_points[self._model_ids_t]
+            # the model direction observes a FIXED vertex subset
+            self._static_tables = gp.static_tables(gpmm, self.model_ids)
         if spec.direction == "target":
-            # the target assembly's tables: the padded basis, and per vertex
-            # ref, weight (boundary-aware: 0 on the model boundary) and mean
-            self._target_tables = target_tables(
+            # boundary-aware: observations at model-boundary vertices weigh 0
+            self._target_tables = gp.target_tables(
                 gpmm, self._model_boundary if spec.boundary_aware else None)
 
     def _mask(self, on_boundary: torch.Tensor) -> torch.Tensor:
@@ -272,27 +263,25 @@ class IcpComponent:
                     cp, _, fidx = closest_auto(q, self.ctx.points, self.ctx.cells,
                                                self.ctx.index)
                 near = nearest_vertex_of_faces(self.ctx.cells, fidx, cp, self.ctx.points)
-                obs_disp = pose_inverse_apply(state, cp) - self._ref_static
+                tables = self._static_tables
+                obs_disp = pose_inverse_apply(state, cp) - tables.ref
                 normals = cur_normals[:, self._model_ids_t]
                 mask = self._mask(self.ctx.boundary[near])
             return gp.posterior_factors_anisotropic_static(
-                self.gpmm, self._q_static, self._gram_static, self._mean_static,
-                obs_disp, normals, spec.noise_along_normal, spec.tangential_noise, mask)
+                self.gpmm, tables.q, tables.gram, tables.mean, obs_disp, normals,
+                spec.noise_along_normal, spec.tangential_noise, mask)
         # target→model: nearest candidate-mesh vertex per sampled target
-        # point (K3, one vertex set per chain); boundary check on the model
+        # point (K3, one vertex set per chain); the boundary weights are the
+        # tables'
         with span("icp.correspond"):
             bsz = cur_points.shape[0]
             tq = self._target_points.expand(bsz, -1, -1).contiguous()
             with span("surface.query"):
                 ids = nearest_vertices(tq, cur_points.contiguous())  # [B, m]
             target_points = pose_inverse_apply(state, tq)
-        with span("gpmm.assemble"):
-            m_mat, rhs = target_assembly(self._target_tables, ids,
-                                         target_points.contiguous(), cur_normals.contiguous(),
-                                         spec.noise_along_normal, spec.tangential_noise)
-        with span("chol.factor"):  # the factor reads M's lower triangle alone
-            chol, alpha_hat, logdet = chol_solve(m_mat, rhs)
-        return gp.PosteriorFactors(alpha_hat=alpha_hat, chol_m=chol, logdet_m=logdet)
+        return gp.posterior_factors_anisotropic(
+            self._target_tables, ids, target_points, cur_normals, spec.noise_along_normal,
+            spec.tangential_noise)
 
     def propose(self, state: FitState, factors: gp.PosteriorFactors,
                 z: torch.Tensor) -> FitState:

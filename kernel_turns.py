@@ -92,13 +92,12 @@ chains, the list and then the list reversed (``ABLATIONS``).
 ``--assembly`` (a checkout with ``ops/assemble_cuda``) times only the ICP
 target direction's assembly at ``ASSEMBLY_CASES``, the two femur
 flagship cells' shapes (r = 101, m = 202 on 4,096 chains; r = 401, m = 802
-on 2,048), on inputs drawn on the card: the kernel (``target_assembly``),
-its float32 plain twin and the torch assembly the target direction ran
-before it (``posterior_factors_anisotropic`` up to its factor: the rows
-gathered, M and rhs contracted by cuBLAS, M symmetrized), in turns (twin,
-torch, kernel, kernel, torch, twin), with the bound (B·3m·r(r+1)/2 FP32
-multiply-adds, or the basis, inputs and M's lower triangle and rhs over
-HBM), the kernel's launch and its ptxas registers and spills.
+on 2,048), on inputs drawn on the card: the kernel (``target_assembly``)
+and its float32 plain twin in turns (twin, kernel, kernel, twin), with the
+kernel's largest distance from the twin on M's lower triangle, the bound
+(B·3m·r(r+1)/2 FP32 multiply-adds, or the basis, inputs and M's lower
+triangle and rhs over HBM), the kernel's launch and its ptxas registers
+and spills.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 ``{"root": ..., "times": {...}, "sass": {...}, "probe": {...}}`` (ms per
@@ -143,7 +142,7 @@ ABLATIONS = (
 )
 K5_REPS = 10  # --k5: calls a timing
 # --assembly: (rank, observations, chains, calls a timing of the kernel);
-# the twin and the torch path take 2 calls a timing
+# the twin takes 2 calls a timing
 ASSEMBLY_CASES = ((101, 202, 4096, 20), (401, 802, 2048, 5))
 BFM_P = 400  # the BFM partial step's ICP queries a chain (model direction)
 BFM_NOISE = 0.005  # their offset from the target, below its mean edge (0.0069)
@@ -581,52 +580,28 @@ def _streamed_times(torch, dev):
 
 
 def _assembly_times(torch, dev, build_log):
-    """The target assembly at ``ASSEMBLY_CASES``: kernel, twin and the torch
-    path in turns → {"r=…@chains": {...}}."""
+    """The target assembly at ``ASSEMBLY_CASES``: kernel and twin in turns
+    → {"r=…@chains": {...}}."""
     import chip_smoke
-    from icp_proposal_tpu_torch.models import gpmm as gp
     from icp_proposal_tpu_torch.ops import assemble_cuda as ac
 
     regs = re.findall(r"Function properties for \S*target_assembly_kernel\S*\n(.*?)\n.*?"
                       r"Used (\d+) registers", build_log, re.S)
     sig = chip_smoke.ASSEMBLY_SIGMAS
-
-    def torch_path(model, tables, ids, tp, nrm):
-        """posterior_factors_anisotropic's assembly and symmetrize, as the
-        target branch ran them: its factor swapped for the symmetrize."""
-        idx = ids.long()
-        bsz = ids.shape[0]
-        mask = tables.vtab[idx, 3]
-        out = {}
-        factor = gp._factor
-        gp._factor = lambda m, rhs: out.update(m=0.5 * (m + m.transpose(-1, -2)), rhs=rhs)
-        try:
-            gp.posterior_factors_anisotropic(
-                model, ids, tp - model.ref_points[idx],
-                nrm[torch.arange(bsz, device=dev)[:, None], idx], *sig, mask)
-        finally:
-            gp._factor = factor
-        return out["m"], out["rhs"]
-
     out = {}
     for r, m, b, reps in ASSEMBLY_CASES:
         v = 1622
         tables, ids, tp, nrm = chip_smoke.assembly_inputs(torch, dev, r, b, m, r, v)
-        vt = tables.vtab
-        model = gp.Gpmm(ref_points=vt[:, 0:3], cells=None, mean_disp=vt[:, 4:7], basis=None,
-                        variance=None, noise_variance=None, sbasis=tables.q[..., :r],
-                        coeff_chol=None)
         kernel = lambda: ac.target_assembly(tables, ids, tp, nrm, *sig)  # noqa: E731
         twin = lambda: ac.target_assembly_plain(tables, ids, tp, nrm, *sig)  # noqa: E731
-        path = lambda: torch_path(model, tables, ids, tp, nrm)  # noqa: E731
-        got, want = kernel(), path()
+        got, want = kernel(), twin()
         lower = torch.tril(torch.ones((r, r), dtype=torch.bool, device=dev))
         scale = torch.sqrt(torch.diagonal(want[0], dim1=1, dim2=2))
         rel = ((got[0] - want[0]).abs() / (scale[:, :, None] * scale[:, None, :]))[:, lower]
         del got, want
-        ms = {"twin": [], "torch": [], "kernel": []}
-        for name in ("twin", "torch", "kernel", "kernel", "torch", "twin"):
-            ms[name].append(_time_ms(torch, {"twin": twin, "torch": path, "kernel": kernel}[name],
+        ms = {"twin": [], "kernel": []}
+        for name in ("twin", "kernel", "kernel", "twin"):
+            ms[name].append(_time_ms(torch, {"twin": twin, "kernel": kernel}[name],
                                      reps if name == "kernel" else 2))
         flops = 2.0 * b * 3 * m * r * (r + 1) / 2
         n_bytes = 4.0 * (v * 3 * r + 8 * b * m + b * (r * (r + 1) / 2 + r))
@@ -638,11 +613,11 @@ def _assembly_times(torch, dev, build_log):
         rec["roofline_pct"] = 100 * rec["bound_ms"] / min(ms["kernel"])
         out[f"r={r}@{b}"] = rec
         print(f"[assembly] r={r}, m={m} on {b} chains: kernel {ms['kernel']} ms, twin "
-              f"{ms['twin']} ms, torch path {ms['torch']} ms; bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), {rec['roofline_pct']:.1f} % of it; |kernel − torch| ≤ "
+              f"{ms['twin']} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"{rec['roofline_pct']:.1f} % of it; |kernel − twin| ≤ "
               f"{rec['max_err_over_diag_scale']:.3g}·√(MᵢᵢMⱼⱼ); launch {rec['launch']}",
               flush=True)
-        del model, tables, ids, tp, nrm
+        del tables, ids, tp, nrm
         torch.cuda.empty_cache()
     return out
 

@@ -308,7 +308,9 @@ def test_parity_mode_chain_runs(sphere):
 def test_static_factor_assembly_matches_dynamic(sphere):
     """The model-direction component's factors from its precomputed per-id
     Gram tables (``posterior_factors_anisotropic_static``) agree with the
-    general dynamic-id path at a posed state, to fp tolerance."""
+    dynamic-id path (``posterior_factors_anisotropic``, the target
+    direction's) at the same observations and a posed state, to fp
+    tolerance."""
     from icp_proposal_tpu_torch.ops.closest_point import nearest_vertex_of_faces
     from icp_proposal_tpu_torch.ops.surface_index import closest_auto
     from icp_proposal_tpu_torch.sampling.state import pose_inverse_apply
@@ -328,11 +330,14 @@ def test_static_factor_assembly_matches_dynamic(sphere):
     ids = torch.as_tensor(comp.model_ids, dtype=torch.int64)
     cp, _, fidx = closest_auto(pts[:, ids], ctx.points, ctx.cells, ctx.index)
     near = nearest_vertex_of_faces(ctx.cells, fidx, cp, ctx.points)
-    mask = (~ctx.boundary[near]).float()
-    obs_disp = pose_inverse_apply(s0, cp) - model.ref_points[ids]
+    # the ids are distinct: each observation's target-boundary weight
+    # becomes its vertex's
+    dropped = torch.zeros(model.num_points, dtype=torch.bool)
+    dropped[ids] = ctx.boundary[near][0]
     fac_dyn = gp.posterior_factors_anisotropic(
-        model, ids[None], obs_disp, normals[:, ids], spec.noise_along_normal,
-        spec.tangential_noise, mask)
+        gp.target_tables(model, dropped), ids[None].to(torch.int32),
+        pose_inverse_apply(s0, cp), normals, spec.noise_along_normal,
+        spec.tangential_noise)
     for got, want in zip(fac_static, fac_dyn):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-3, atol=2e-4)
 

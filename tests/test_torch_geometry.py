@@ -102,6 +102,30 @@ def _obs(pm, m, seed):
     )
 
 
+def _target_obs(pm, m, seed):
+    """The target direction's inputs: the port's tables (about a tenth of
+    the vertices and each chain's first three ids on the boundary, weight
+    0), ids [B, m] int32, target points [B, m, 3] and unit vertex normals
+    [B, V, 3]; and JAX's per-observation obs_disp, normals and mask, the
+    port's rows at each id."""
+    rng = np.random.RandomState(seed)
+    v = pm.num_points
+    ids = np.stack([rng.choice(v, m, False) for _ in range(B)]).astype(np.int32)
+    ref = pm.ref_points.numpy()
+    tp = (ref[ids] + rng.randn(B, m, 3) * 2).astype(np.float32)
+    n = rng.randn(B, v, 3)
+    vnormals = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    boundary = rng.rand(v) < 0.1
+    boundary[ids[:, :3]] = True
+    port = dict(tables=pgp.target_tables(pm, torch.as_tensor(boundary)),
+                ids=torch.as_tensor(ids), target_points=torch.as_tensor(tp),
+                normals=torch.as_tensor(vnormals))
+    jax_obs = dict(ids=ids, obs_disp=tp - ref[ids],
+                   normals=vnormals[np.arange(B)[:, None], ids],
+                   mask=(~boundary[ids]).astype(np.float32))
+    return port, jax_obs
+
+
 def _assert_factors(got, want):
     np.testing.assert_allclose(got.chol_m.numpy(), np.asarray(want.chol_m), **TOL)
     np.testing.assert_allclose(got.alpha_hat.numpy(), np.asarray(want.alpha_hat), **TOL)
@@ -109,19 +133,23 @@ def _assert_factors(got, want):
 
 
 def test_posterior_factors_and_densities(models, monkeypatch):
-    """Both factor forms (dynamic ids: ICP target direction; static ids:
-    model direction), the draw α̂ + L⁻ᵀz and transition_logpdf."""
+    """Both factor forms (dynamic ids: ICP target direction, the tables'
+    plain assembly and factor on the CPU; static ids: model direction), the
+    draw α̂ + L⁻ᵀz and transition_logpdf."""
     monkeypatch.setenv("ICP_TPU_FORCE_CHOL_PALLAS", "1")
     jm, pm = models
     m = 2 * pm.rank
-    o = _obs(pm, m, seed=3)
-    t = {k: torch.as_tensor(v) for k, v in o.items()}
-    got = pgp.posterior_factors_anisotropic(pm, t["ids"], t["obs_disp"], t["normals"],
-                                            5.0, 10.0, t["mask"])
+    port, jo = _target_obs(pm, m, seed=3)
+    assert 0 < jo["mask"].sum() < jo["mask"].size
+    got = pgp.posterior_factors_anisotropic(**port, noise_along_normal=5.0,
+                                            tangential_noise=10.0)
     want = jax.vmap(lambda i, d, n, k: jgp.posterior_factors_anisotropic(
-        jm, i, d, n, 5.0, 10.0, k))(*(jnp.asarray(o[k]) for k in
+        jm, i, d, n, 5.0, 10.0, k))(*(jnp.asarray(jo[k]) for k in
                                       ("ids", "obs_disp", "normals", "mask")))
     _assert_factors(got, want)
+
+    o = _obs(pm, m, seed=3)
+    t = {k: torch.as_tensor(v) for k, v in o.items()}
 
     ids = o["ids"][0]
     q = np.asarray(jm.sbasis)[ids]

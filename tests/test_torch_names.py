@@ -63,6 +63,16 @@ ALLOWED = {
     "param ops/closest_point.py closest_points_on_surface(triangles)": _TRI,
     "param ops/surface_index.py closest_auto(tri)": _TRI,
     "param ops/surface_index.py distances_auto(tri)": _TRI,
+    # the ICP target direction's entry takes what its kernel reads
+    "param models/gpmm.py posterior_factors_anisotropic(gpmm)":
+        "the kernel's input: target_tables(gpmm, boundary), the padded basis and a row "
+        "per vertex, built once at set-up",
+    "param models/gpmm.py posterior_factors_anisotropic(obs_disp)":
+        "the kernel's input: target_points, the pose-inverted points (the displacement "
+        "from the tables' reference point is taken inside)",
+    "param models/gpmm.py posterior_factors_anisotropic(mask)":
+        "per-vertex weights in the tables (0 on the model boundary) in place of a "
+        "per-observation mask",
     # the other parameter differences
     "param models/gpmm.py make_gpmm(morton_faces)":
         "no caller in either package passes it: every model's faces are in Morton order",
@@ -156,6 +166,54 @@ def test_public_names_match_the_reference():
     assert diff - set(ALLOWED) == set(), "names the port lacks without a reason"
     assert set(ALLOWED) - diff == set(), "listed differences that are gone"
     assert all(reason for reason in ALLOWED.values())
+
+
+FORBIDDEN_IN_SAMPLING = ("icp_proposal_tpu_torch.ops.assemble_cuda",
+                         "icp_proposal_tpu_torch.ops.chol_cuda")
+
+
+def _imports(path, package):
+    """The dotted names a module imports, relative imports resolved
+    against its package, and for ``from a import b`` also ``a.b``."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")
+                parent = parts[: len(parts) - node.level + 1]
+                base = ".".join(parent + ([base] if base else []))
+            names.add(base)
+            names.update(f"{base}.{a.name}" for a in node.names)
+    return names
+
+
+def _reaches_into_ops(path, package):
+    forbidden = tuple(f + "." for f in FORBIDDEN_IN_SAMPLING)
+    return sorted(n for n in _imports(path, package) if (n + ".").startswith(forbidden))
+
+
+def test_sampling_builds_no_posterior_system_itself(tmp_path):
+    """No module under ``sampling/`` imports ``ops/assemble_cuda`` or
+    ``ops/chol_cuda``: ``models/gpmm`` turns the ICP observations into
+    posterior factors.  The check sees each form of such an import."""
+    package = "icp_proposal_tpu_torch.sampling"
+    for src in sorted((PORT / "sampling").rglob("*.py")):
+        assert _reaches_into_ops(src, package) == [], src.name
+    forms = ["from icp_proposal_tpu_torch.ops.chol_cuda import chol_solve",
+             "from icp_proposal_tpu_torch.ops import assemble_cuda",
+             "import icp_proposal_tpu_torch.ops.chol_cuda as cc",
+             "from ..ops.assemble_cuda import target_assembly",
+             "from ..ops import chol_cuda"]
+    for k, line in enumerate(forms):
+        path = tmp_path / f"m{k}.py"
+        path.write_text(line + "\n")
+        assert _reaches_into_ops(path, package), line
+    path.write_text("from icp_proposal_tpu_torch.ops.closest_point_cuda import "
+                    "nearest_vertices\nfrom ..models import gpmm\n")
+    assert _reaches_into_ops(path, package) == []
 
 
 def test_name_diff_sees_a_missing_name(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """The ICP target direction's assembly kernel (``ops/assemble_cuda``): its
-plain twin against ``posterior_factors_anisotropic``, which steps call it,
-its two readers and their manifest entries; on the card, the kernel
-against the float64 twin and the launches of a step.
+plain twin against a float64 reference written out here, which steps reach
+it through ``models/gpmm.posterior_factors_anisotropic``, its two readers
+and their manifest entries; on the card, the kernel against the float64
+twin and the launches of a step.
 """
 import dataclasses
 
@@ -13,7 +14,6 @@ from torch_threads import one_torch_thread  # noqa: F401
 from icp_proposal_tpu_torch.models import gpmm as gp
 from icp_proposal_tpu_torch.models.synthetic import make_icosphere, make_synthetic_gpmm
 from icp_proposal_tpu_torch.ops import assemble_cuda as ac
-from icp_proposal_tpu_torch.sampling import proposals
 from portbench import flops, trace
 from portbench.inputs import make_inputs
 from portbench.manifest import ROOT, Manifest
@@ -56,25 +56,32 @@ def _as64(model):
         sbasis=model.sbasis.double())
 
 
-def _reference_system(model, ids, tp, nrm, boundary, monkeypatch):
-    """M and rhs as ``posterior_factors_anisotropic`` hands them to the
-    factor (before its symmetrize), from the rows the target branch used to
-    gather."""
-    got = {}
-    monkeypatch.setattr(gp, "_factor", lambda m_mat, rhs: got.update(m=m_mat, rhs=rhs))
-    idx = ids.long()
-    bsz, m = ids.shape
-    mask = (torch.ones((bsz, m), dtype=tp.dtype) if boundary is None
-            else (~boundary[idx]).to(tp.dtype))
-    gp.posterior_factors_anisotropic(
-        model, ids, tp - model.ref_points[idx], nrm[torch.arange(bsz)[:, None], idx],
-        SIGMA_N, SIGMA_T, mask)
-    return got["m"], got["rhs"]
+def _reference_system(model, ids, tp, nrm, boundary):
+    """M and rhs in float64 from the model's rows, one observation at a
+    time, each with its precision as an explicit 3 × 3 matrix
+    P = c·I + (a−c)·nnᵀ: M = I + Σᵢ wᵢ·QᵢᵀPᵢQᵢ and
+    rhs = Σᵢ wᵢ·QᵢᵀPᵢ((tᵢ − refᵢ) − μᵢ), wᵢ 0 at a boundary vertex."""
+    a, c = 1.0 / SIGMA_N ** 2, 1.0 / SIGMA_T ** 2
+    r = model.rank
+    m_mat = torch.eye(r, dtype=torch.float64).repeat(ids.shape[0], 1, 1)
+    rhs = torch.zeros((ids.shape[0], r), dtype=torch.float64)
+    for b, chain in enumerate(ids.tolist()):
+        for i, v in enumerate(chain):
+            if boundary is not None and bool(boundary[v]):
+                continue
+            n = nrm[b, v]
+            p = c * torch.eye(3, dtype=torch.float64) + (a - c) * torch.outer(n, n)
+            q = model.sbasis[v]  # [3, r]
+            m_mat[b] += q.T @ p @ q
+            rhs[b] += q.T @ p @ ((tp[b, i] - model.ref_points[v]) - model.mean_disp[v])
+    return m_mat, rhs
 
 
 @pytest.mark.parametrize("rank", [11, 101])
 @pytest.mark.parametrize("aware", [True, False], ids=["boundary_aware", "plain"])
-def test_twin_equals_posterior_factors_anisotropic_in_float64(rank, aware, monkeypatch):
+def test_twin_equals_posterior_factors_anisotropic_in_float64(rank, aware):
+    """The plain twin, the target system's one plain form, against the
+    reference above."""
     model = _as64(_model(rank))
     ids, tp, nrm, boundary = _observations(model, 3, 2 * rank, rank, torch.float64)
     bnd = boundary if aware else None
@@ -82,14 +89,14 @@ def test_twin_equals_posterior_factors_anisotropic_in_float64(rank, aware, monke
     assert tables.q.shape[2] % 4 == 0 and tables.q.dtype == torch.float64
     assert torch.equal(tables.q[..., rank:], torch.zeros_like(tables.q[..., rank:]))
     m_mat, rhs = ac.target_assembly_plain(tables, ids, tp, nrm, SIGMA_N, SIGMA_T)
-    want_m, want_rhs = _reference_system(model, ids, tp, nrm, bnd, monkeypatch)
+    want_m, want_rhs = _reference_system(model, ids, tp, nrm, bnd)
     torch.testing.assert_close(torch.tril(m_mat), torch.tril(want_m), rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(rhs, want_rhs, rtol=1e-12, atol=1e-12)
     w = tables.vtab[ids.long(), 3]
     assert bool((w == 0).any()) == aware and bool((w == 1).any())
 
 
-def test_dispatch_on_the_cpu_is_the_twin_and_counts_nothing(monkeypatch):
+def test_dispatch_on_the_cpu_is_the_twin_and_counts_nothing():
     model = _model(11)
     ids, tp, nrm, boundary = _observations(model, 2, 22, 5)
     tables = ac.target_tables(model, boundary)
@@ -98,9 +105,6 @@ def test_dispatch_on_the_cpu_is_the_twin_and_counts_nothing(monkeypatch):
     want = ac.target_assembly_plain(tables, ids, tp, nrm, SIGMA_N, SIGMA_T)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ac.target_assembly.launches == before
-    # float32 on the CPU: bit for bit what the target branch assembled before
-    ref = _reference_system(model, ids, tp, nrm, boundary, monkeypatch)
-    assert all(torch.equal(g, w) for g, w in zip(got, ref))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -145,7 +149,8 @@ def _system(cell, config, chains, device):
 
 
 def _spy(monkeypatch):
-    calls = {"target_assembly": 0, "posterior_factors_anisotropic": 0}
+    """Counts of the target direction's entry and of the assembly it calls."""
+    calls = {"posterior_factors_anisotropic": 0, "target_assembly": 0}
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -153,10 +158,8 @@ def _spy(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(proposals, "target_assembly",
-                        count("target_assembly", proposals.target_assembly))
-    monkeypatch.setattr(gp, "posterior_factors_anisotropic",
-                        count("posterior_factors_anisotropic", gp.posterior_factors_anisotropic))
+    for name in calls:
+        monkeypatch.setattr(gp, name, count(name, getattr(gp, name)))
     return calls
 
 
@@ -170,7 +173,7 @@ def test_only_the_target_direction_calls_the_assembly(tmp_path, monkeypatch, nam
     system, noise, carry = _tiny_system(tmp_path, name, rank, chains, subdiv)
     calls = _spy(monkeypatch)
     system.step(carry, noise=system.noise(*noise.draw()))
-    assert calls == {"target_assembly": want, "posterior_factors_anisotropic": 0}
+    assert calls == {"posterior_factors_anisotropic": want, "target_assembly": want}
 
 
 # ---------------------------------------------------------------------------

@@ -235,9 +235,12 @@ def _assembly_calls():
     mask = (torch.rand((bsz, m), generator=gen) > 0.2).to(torch.float32)
     q_static = model.sbasis[ids[0]]
     gram_static = torch.einsum("mir,mis->mrs", q_static, q_static)
+    tables = gp.target_tables(model, torch.rand(model.num_points, generator=gen) < 0.2)
+    vnormals = torch.nn.functional.normalize(
+        torch.randn((bsz, model.num_points, 3), generator=gen), dim=-1)
     return {
         "anisotropic": lambda: gp.posterior_factors_anisotropic(
-            model, ids, obs, nrm, 5.0, 10.0, mask),
+            tables, ids.to(torch.int32), model.ref_points[ids] + obs, vnormals, 5.0, 10.0),
         "anisotropic_static": lambda: gp.posterior_factors_anisotropic_static(
             model, q_static, gram_static, model.mean_disp[ids[0]], obs, nrm, 5.0, 10.0,
             mask),
@@ -247,9 +250,11 @@ def _assembly_calls():
 
 @pytest.mark.parametrize("name", ["anisotropic", "anisotropic_static", "isotropic"])
 def test_assembly_splits_into_gather_and_contract(name):
-    """With tracing on, each assembly function's ``gpmm.assemble`` holds a
+    """With tracing on, each torch assembly's ``gpmm.assemble`` holds a
     ``gpmm.gather`` and then a ``gpmm.contract``, and ``chol.factor``
-    follows it; off, it records nothing and computes the same bits."""
+    follows it; the target direction's (``anisotropic``), one assembly
+    call, holds neither.  Off, tracing records nothing and each computes
+    the same bits."""
     call = _assembly_calls()[name]
     profiling.spans()
     off = call()
@@ -257,12 +262,17 @@ def test_assembly_splits_into_gather_and_contract(name):
     with profiling.tracing():
         on = call()
     kept = profiling.spans()
-    assert [(s.name, s.parent) for s in kept] == [
-        ("gpmm.gather", "gpmm.assemble"), ("gpmm.contract", "gpmm.assemble"),
-        ("gpmm.assemble", None), ("chol.factor", None)]
-    gather, contract, assemble = kept[:3]
-    assert (assemble.start_ns <= gather.start_ns <= gather.end_ns <= contract.start_ns
-            <= contract.end_ns <= assemble.end_ns)
+    if name == "anisotropic":
+        assert [(s.name, s.parent) for s in kept] == [
+            ("gpmm.assemble", None), ("chol.factor", None)]
+        assert kept[0].end_ns <= kept[1].start_ns
+    else:
+        assert [(s.name, s.parent) for s in kept] == [
+            ("gpmm.gather", "gpmm.assemble"), ("gpmm.contract", "gpmm.assemble"),
+            ("gpmm.assemble", None), ("chol.factor", None)]
+        gather, contract, assemble = kept[:3]
+        assert (assemble.start_ns <= gather.start_ns <= gather.end_ns <= contract.start_ns
+                <= contract.end_ns <= assemble.end_ns)
     assert {"gpmm.gather", "gpmm.contract"} <= set(profiling.STEP_SPANS)
     assert phases.same_bits(tuple(off), tuple(on))
 
